@@ -1,0 +1,387 @@
+# -*- coding: utf-8 -*-
+"""Synthesizer: IPA phonemes -> waveform through bucketed stages (PyTorch
+port of ``illufly_tts_tpu/engine/synthesizer.py``).
+
+Stage A (token budget T) predicts durations; the host reads the frame
+totals and picks a frame bucket F; stage B (T, F) fits the durations to F
+and renders audio (f32, or int16 PCM on the device). The bucket logic is
+the JAX engine's: the frame budget decides ``_fit_durations``, so it is
+part of the numerics.
+
+The two device->host copies of the JAX engine (the frame totals after
+stage A, the PCM after stage B) are non-blocking copies into pinned host
+memory, each with a CUDA event that ``_pick_f_bucket`` or ``collect`` waits
+on.
+
+The engine runs on CUDA unless ``device="cpu"`` is passed; without a CUDA
+device and without that argument it raises. Parameters are float32 and
+the model computes in float32 (set ``torch.backends.cuda.matmul.allow_tf32``
+and ``torch.backends.cudnn.allow_tf32`` to False to keep the card's
+matrix products and convolutions out of TF32).
+"""
+from __future__ import annotations
+
+import logging
+import os
+import threading
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..model.config import KokoroConfig
+from ..model.kokoro import KokoroModel, _fit_durations
+from ..model.params import load_flax_params, random_flax_params
+from ..model.vocab import encode as encode_phonemes
+from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
+
+logger = logging.getLogger(__name__)
+
+MAX_PHONEMES = 510  # hard cap on phonemes per item
+FORMATS = ("f32", "pcm16")
+
+
+class _HostCopy:
+    """A device tensor copied to host without blocking: into pinned memory
+    with an event on CUDA, as is on the CPU. ``numpy()`` waits."""
+
+    __slots__ = ("host", "event")
+
+    def __init__(self, tensor: torch.Tensor):
+        if tensor.is_cuda:
+            self.host = torch.empty(tensor.shape, dtype=tensor.dtype,
+                                    pin_memory=True)
+            self.host.copy_(tensor, non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(torch.cuda.current_stream(tensor.device))
+        else:
+            self.host, self.event = tensor, None
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
+
+
+class DispatchHandle:
+    """In-flight batch: stage-A outputs + the non-blocking frame-total
+    copy."""
+
+    __slots__ = (
+        "n", "b_bucket", "t_bucket", "ids", "mask", "ref", "d",
+        "pred_dur", "totals", "f_bucket", "audio", "fitted_totals",
+        "fmt", "keep_durations", "host_pred_dur", "pitch",
+    )
+
+    def __init__(self, n, b_bucket, t_bucket, ids, mask, ref, d,
+                 pred_dur, totals, fmt="pcm16", pitch=None):
+        self.n = n
+        self.b_bucket = b_bucket
+        self.t_bucket = t_bucket
+        self.ids = ids
+        self.mask = mask
+        self.ref = ref
+        self.d = d
+        self.pred_dur = pred_dur
+        self.totals = totals            # _HostCopy of [B] frame totals
+        self.f_bucket = None
+        self.audio = None               # _HostCopy of the stage-B output
+        self.fitted_totals = None
+        self.fmt = fmt
+        self.pitch = pitch
+        self.keep_durations = False
+        self.host_pred_dur = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` or CUDA; raises when CUDA is asked for and absent."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card; pass device='cpu' "
+            "to run it on the CPU"
+        )
+    return dev
+
+
+class Synthesizer:
+    def __init__(
+        self,
+        config: Optional[KokoroConfig] = None,
+        params=None,
+        voices_dir: Optional[str] = None,
+        seed: int = 0,
+        device=None,
+        token_buckets: Sequence[int] = TOKEN_BUCKETS,
+        frame_buckets: Sequence[int] = FRAME_BUCKETS,
+        batch_buckets: Sequence[int] = BATCH_BUCKETS,
+    ):
+        """``params``: a flax-layout tree (``{"params": ...}``, numpy
+        arrays), e.g. the JAX ``Synthesizer.params``; None draws the same
+        random parameters the JAX engine draws for ``seed``."""
+        self.device = resolve_device(device)
+        self.config = config or KokoroConfig()
+        if self.config.dtype != torch.float32:
+            raise NotImplementedError("the port computes in float32 only")
+        with torch.device("meta"):
+            model = KokoroModel(self.config)
+        model = model.to_empty(device="cpu")
+        if params is None:
+            logger.info("initializing random model parameters (seed %d)", seed)
+            params = random_flax_params(model, seed)
+        load_flax_params(model, params)
+        self.model = model.to(self.device).eval().requires_grad_(False)
+        self.voices_dir = voices_dir
+        # pick() assumes ascending order
+        self.token_buckets = tuple(sorted(token_buckets))
+        self.frame_buckets = tuple(sorted(frame_buckets))
+        self.batch_buckets = tuple(sorted(batch_buckets))
+        self.sample_rate = self.config.sample_rate
+        self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
+        self._lock = threading.Lock()
+
+    # --- voices ---------------------------------------------------------------
+
+    def load_voice(self, voice_id: str) -> np.ndarray:
+        """Voice pack [L, 256] (style embedding indexed by phoneme length),
+        registered or read from ``voices_dir`` as .npy/.npz/.pt. Kept on
+        the host: each item's row ships with the batch upload."""
+        if voice_id in self._voices:
+            return self._voices[voice_id]
+        pack = None
+        if self.voices_dir:
+            for ext in (".npy", ".npz", ".pt"):
+                path = os.path.join(self.voices_dir, f"{voice_id}{ext}")
+                if not os.path.exists(path):
+                    continue
+                if ext == ".npy":
+                    pack = np.load(path)
+                elif ext == ".npz":
+                    with np.load(path) as z:
+                        pack = z[list(z.keys())[0]]
+                else:
+                    pack = torch.load(path, map_location="cpu",
+                                      weights_only=True).numpy()
+                break
+        if pack is None:
+            raise ValueError(
+                f"voice not found: {voice_id} (searched "
+                f"{[self.voices_dir] if self.voices_dir else []})"
+            )
+        pack = np.asarray(pack, np.float32)
+        if pack.ndim == 3:  # [L, 1, 256] -> [L, 256]
+            pack = pack[:, 0, :]
+        self.register_voice(voice_id, pack)
+        return self._voices[voice_id]
+
+    def register_voice(self, voice_id: str, pack: np.ndarray) -> None:
+        pack = np.asarray(pack, np.float32)
+        if pack.ndim == 1:
+            pack = np.tile(pack[None, :], (MAX_PHONEMES, 1))
+        with self._lock:
+            self._voices[voice_id] = pack
+
+    def register_random_voice(self, voice_id: str, seed: int = 0) -> None:
+        rng = np.random.RandomState(seed)
+        pack = rng.randn(MAX_PHONEMES, 2 * self.config.style_dim).astype(
+            np.float32
+        ) * 0.1
+        self.register_voice(voice_id, pack)
+
+    # --- stages ----------------------------------------------------------------
+
+    @staticmethod
+    def _as_fmt(fmt) -> str:
+        """Accept legacy pcm16 bools alongside format strings."""
+        if fmt is True:
+            return "pcm16"
+        if fmt is False:
+            return "f32"
+        if fmt not in FORMATS:
+            raise ValueError(f"unsupported audio format: {fmt!r} "
+                             f"(the port renders {FORMATS})")
+        return fmt
+
+    def _stage_a(self, ids, mask, ref_s, speed):
+        duration, d = self.model.encode_durations(ids, mask, ref_s, speed)
+        pred_dur = KokoroModel.quantize_durations(duration, mask)
+        return d, pred_dur, pred_dur.sum(dim=-1)
+
+    def _stage_b(self, ids, mask, d, pred_dur, ref_s, pitch, frames, fmt):
+        fitted = _fit_durations(pred_dur, frames)
+        return self.model.decode_frames(
+            ids, mask, d, fitted, ref_s, frames, pcm16=(fmt == "pcm16"),
+            pitch=pitch,
+        )
+
+    # --- synthesis -------------------------------------------------------------
+
+    @torch.inference_mode()
+    def dispatch(
+        self,
+        phonemes_list: Sequence[str],
+        voice_ids: Sequence[str],
+        speeds: Optional[Sequence[float]] = None,
+        fmt: str = "pcm16",
+        keep_durations: bool = False,
+        pitches: Optional[Sequence[float]] = None,
+    ) -> DispatchHandle:
+        """Stage the batch and launch stage A. Returns a handle for
+        ``launch_decode``/``collect``. The per-item frame totals start a
+        non-blocking copy to host at once, so ``launch_decode`` rarely
+        waits for them."""
+        n = len(phonemes_list)
+        if n > self.batch_buckets[-1]:
+            raise ValueError(
+                f"batch of {n} exceeds the largest batch bucket "
+                f"{self.batch_buckets[-1]}; split it (synthesize_batch "
+                "does this automatically)"
+            )
+        fmt = self._as_fmt(fmt)
+        speeds = [1.0] * n if speeds is None else speeds
+        pitches = [1.0] * n if pitches is None else pitches
+
+        id_lists = [encode_phonemes(p, max_len=MAX_PHONEMES + 2)
+                    for p in phonemes_list]
+        t_bucket = pick(self.token_buckets, max(len(i) for i in id_lists))
+        # sequences longer than the largest bucket truncate (keep EOS=0)
+        id_lists = [ids if len(ids) <= t_bucket else ids[: t_bucket - 1] + [0]
+                    for ids in id_lists]
+        b_bucket = pick(self.batch_buckets, n)
+
+        ids = np.zeros((b_bucket, t_bucket), np.int64)
+        mask = np.zeros((b_bucket, t_bucket), np.float32)
+        ref_s = np.zeros((b_bucket, 2 * self.config.style_dim), np.float32)
+        speed_arr = np.ones((b_bucket,), np.float32)
+        pitch_arr = np.ones((b_bucket,), np.float32)
+        for i, id_list in enumerate(id_lists):
+            ids[i, : len(id_list)] = id_list
+            mask[i, : len(id_list)] = 1.0
+            pack = self.load_voice(voice_ids[i])
+            row = min(len(phonemes_list[i]) - 1, pack.shape[0] - 1)
+            ref_s[i] = pack[max(row, 0)]
+            speed_arr[i] = speeds[i]
+            pitch_arr[i] = pitches[i]
+        # ids beyond the model's vocab (configs smaller than the phoneme
+        # table) read as unk=0
+        np.putmask(ids, ids >= self.config.albert.vocab_size, 0)
+
+        def put(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(a)
+            if self.device.type != "cuda":
+                return t
+            # pinned + non-blocking: does not wait for earlier batches
+            return t.pin_memory().to(self.device, non_blocking=True)
+
+        ids_d, mask_d, ref_d = put(ids), put(mask), put(ref_s)
+        d, pred_dur, totals = self._stage_a(ids_d, mask_d, ref_d,
+                                            put(speed_arr))
+        handle = DispatchHandle(
+            n=n, b_bucket=b_bucket, t_bucket=t_bucket, ids=ids_d,
+            mask=mask_d, ref=ref_d, d=d, pred_dur=pred_dur,
+            totals=_HostCopy(totals), fmt=fmt, pitch=put(pitch_arr),
+        )
+        handle.keep_durations = keep_durations
+        return handle
+
+    def _pick_f_bucket(self, handle: DispatchHandle) -> int:
+        """Choose (and record on the handle) the frame bucket for this
+        batch. Idempotent; waits only for the frame-total copy."""
+        if handle.f_bucket is None:
+            totals_np = handle.totals.numpy()
+            handle.f_bucket = (
+                self.frame_buckets[0] if len(self.frame_buckets) == 1
+                else pick(self.frame_buckets,
+                          int(totals_np[: handle.n].max()))
+            )
+            # stage B fits durations to the budget; the fitted per-item
+            # total is exactly min(total, budget)
+            handle.fitted_totals = np.minimum(totals_np, handle.f_bucket)
+        return handle.f_bucket
+
+    @torch.inference_mode()
+    def launch_decode(self, handle: DispatchHandle) -> DispatchHandle:
+        """Pick the frame bucket, launch stage B and the non-blocking PCM
+        copy to host. Idempotent."""
+        if handle.audio is not None:
+            return handle
+        f_bucket = self._pick_f_bucket(handle)
+        audio, _ = self._stage_b(
+            handle.ids, handle.mask, handle.d, handle.pred_dur, handle.ref,
+            handle.pitch, f_bucket, handle.fmt,
+        )
+        handle.audio = _HostCopy(audio)
+        if handle.keep_durations:
+            handle.host_pred_dur = handle.pred_dur[: handle.n].cpu().numpy()
+        # stage-A intermediates are no longer needed
+        handle.d = handle.pred_dur = None
+        return handle
+
+    def collect(self, handle: DispatchHandle,
+                pcm16: bool = False) -> List[np.ndarray]:
+        """Wait for a dispatched batch's audio and trim it per item.
+        Returns float32 @24k by default, int16 @24k with ``pcm16=True``."""
+        self.launch_decode(handle)
+        audio_np = handle.audio.numpy()
+        spf = self.config.samples_per_frame
+        out = []
+        for i in range(handle.n):
+            clip = audio_np[i, : int(handle.fitted_totals[i]) * spf]
+            if handle.fmt == "pcm16" and not pcm16:
+                clip = clip.astype(np.float32) / 32767.0
+            elif handle.fmt == "f32" and pcm16:
+                clip = np.round(np.clip(
+                    clip.astype(np.float32) * 32767.0, -32767, 32767
+                )).astype(np.int16)
+            out.append(clip)
+        return out
+
+    def rendered_durations(self, handle: DispatchHandle) -> np.ndarray:
+        """Per-token frame counts stage B renders: the stage-A durations
+        clipped to the frame bucket as ``_fit_durations`` does. [n, T]
+        int32; position 0 is BOS. Needs ``keep_durations=True``; callable
+        before any decode."""
+        if handle.host_pred_dur is None:
+            if not handle.keep_durations or handle.pred_dur is None:
+                raise ValueError(
+                    "dispatch(..., keep_durations=True) required for "
+                    "rendered_durations"
+                )
+            handle.host_pred_dur = handle.pred_dur[: handle.n].cpu().numpy()
+        self._pick_f_bucket(handle)
+        pd = handle.host_pred_dur.astype(np.int64)
+        cum_prev = np.cumsum(pd, axis=-1) - pd
+        return np.clip(handle.f_bucket - cum_prev, 0, pd).astype(np.int32)
+
+    def synthesize_batch(
+        self,
+        phonemes_list: Sequence[str],
+        voice_ids: Sequence[str],
+        speeds: Optional[Sequence[float]] = None,
+        pcm16: bool = False,
+        fmt: str = "pcm16",
+        pitches: Optional[Sequence[float]] = None,
+    ) -> List[np.ndarray]:
+        """IPA phoneme strings -> list of waveforms. ``fmt='pcm16'``: the
+        device emits 16-bit PCM and ``pcm16=False`` converts back to float32
+        on the host; ``fmt='f32'``: raw float32. Batches larger than the
+        biggest batch bucket are split, with chunk k+1's stage B launched
+        before chunk k is collected."""
+        if not phonemes_list:
+            return []
+        n = len(phonemes_list)
+        speeds = [1.0] * n if speeds is None else speeds
+        pitches = [1.0] * n if pitches is None else pitches
+        max_b = self.batch_buckets[-1]
+        handles = [
+            self.dispatch(phonemes_list[s:s + max_b], voice_ids[s:s + max_b],
+                          speeds[s:s + max_b], fmt=fmt,
+                          pitches=pitches[s:s + max_b])
+            for s in range(0, n, max_b)
+        ]
+        out: List[np.ndarray] = []
+        for i, h in enumerate(handles):
+            for nxt in handles[i:i + 2]:
+                self.launch_decode(nxt)
+            out.extend(self.collect(h, pcm16=pcm16))
+        return out

@@ -1,0 +1,229 @@
+# -*- coding: utf-8 -*-
+"""Foundational layers (PyTorch port of ``illufly_tts_tpu/model/layers.py``).
+
+Layouts: the convolutional layers (``Conv1d``, ``ConvTranspose1d``,
+``AdaIN1d``, ``AdainResBlk1d``, ``AdaSnakeResBlock``) work channels-first,
+``[B, C, T]``, as torch's convolutions do. ``LSTM`` and ``AdaLayerNorm``
+work batch-first and channels-last, ``[B, T, C]``, as ``nn.LSTM`` and
+``nn.LayerNorm`` do. Masks are ``[B, T]`` with 1 = valid, and are prefix
+masks everywhere in the model.
+
+Parameter names follow the flax module names, so ``model/params.py`` maps
+a flax tree onto these modules by layout alone.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+
+def _reverse_index(mask: torch.Tensor) -> torch.Tensor:
+    """[B, T] prefix mask -> per-row time index that reverses each row's
+    valid prefix and leaves the padded tail in place (an involution)."""
+    steps = mask.shape[1]
+    t = torch.arange(steps, device=mask.device)
+    length = mask.sum(dim=1, keepdim=True).to(torch.long)
+    return torch.where(t[None, :] < length, length - 1 - t[None, :],
+                       t[None, :].expand(mask.shape[0], steps))
+
+
+class LSTM(nn.Module):
+    """Mask-aware (optionally bidirectional) LSTM, ``[B, T, D] -> [B, T,
+    H * dirs]``, zero on masked steps.
+
+    The JAX LSTM holds its carry through padded steps. With prefix masks
+    that equals: the forward direction run over the padded sequence (its
+    valid outputs never see the tail), and the backward direction run over
+    each row's valid prefix reversed in place (``_reverse_index``), which is
+    ``pack_padded_sequence`` semantics without a host-side length list.
+    An all-zero mask row (batch padding) comes out as zeros.
+
+    Flax keeps one fused bias per direction; it maps to ``bias_ih`` and
+    ``bias_hh`` stays 0 (``model/params.py``)."""
+
+    def __init__(self, input_size: int, hidden: int,
+                 bidirectional: bool = True):
+        super().__init__()
+        self.hidden = hidden
+        self.bidirectional = bidirectional
+        self.fwd = nn.LSTM(input_size, hidden, batch_first=True)
+        if bidirectional:
+            self.bwd = nn.LSTM(input_size, hidden, batch_first=True)
+
+    def forward(self, x: torch.Tensor,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if mask is None:
+            mask = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device)
+        mask = mask.to(x.dtype)
+        out, _ = self.fwd(x)
+        if self.bidirectional:
+            idx = _reverse_index(mask)[..., None]
+            x_rev = torch.gather(x, 1, idx.expand(-1, -1, x.shape[-1]))
+            bwd, _ = self.bwd(x_rev)
+            bwd = torch.gather(bwd, 1, idx.expand(-1, -1, bwd.shape[-1]))
+            out = torch.cat([out, bwd], dim=-1)
+        return out * mask[..., None]
+
+
+class AdaIN1d(nn.Module):
+    """Style-conditioned instance norm over time. x [B, C, T], s [B, S]."""
+
+    def __init__(self, style_dim: int, channels: int):
+        super().__init__()
+        self.fc = nn.Linear(style_dim, 2 * channels)
+
+    def forward(self, x, s, mask: Optional[torch.Tensor] = None):
+        gamma, beta = self.fc(s)[:, :, None].chunk(2, dim=1)
+        if mask is not None:
+            m = mask[:, None, :].to(x.dtype)
+            count = m.sum(dim=-1, keepdim=True).clamp(min=1.0)
+            mean = (x * m).sum(dim=-1, keepdim=True) / count
+            var = ((x - mean) ** 2 * m).sum(dim=-1, keepdim=True) / count
+        else:
+            mean = x.mean(dim=-1, keepdim=True)
+            var = x.var(dim=-1, keepdim=True, unbiased=False)
+        x_norm = (x - mean) * torch.rsqrt(var + 1e-5)
+        return (1.0 + gamma) * x_norm + beta
+
+
+class AdaLayerNorm(nn.Module):
+    """Style-conditioned layer norm over channels. x [B, T, C], s [B, S]."""
+
+    def __init__(self, style_dim: int, channels: int):
+        super().__init__()
+        self.fc = nn.Linear(style_dim, 2 * channels)
+
+    def forward(self, x, s):
+        gamma, beta = self.fc(s)[:, None, :].chunk(2, dim=-1)
+        mean = x.mean(dim=-1, keepdim=True)
+        var = x.var(dim=-1, keepdim=True, unbiased=False)
+        x_norm = (x - mean) * torch.rsqrt(var + 1e-5)
+        return (1.0 + gamma) * x_norm + beta
+
+
+class Conv1d(nn.Conv1d):
+    """1-D conv, channels-first, with the JAX layer's default padding
+    ``((k - 1) * dilation) // 2`` on both sides (pass ``padding`` for the
+    strided convs)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 padding: Optional[int] = None):
+        if padding is None:
+            padding = ((kernel - 1) * dilation) // 2
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=padding, dilation=dilation, groups=groups)
+
+
+class ConvTranspose1d(nn.ConvTranspose1d):
+    """Transposed 1-D conv with the JAX layer's geometry: padding
+    ``(k - s + 1) // 2`` and output padding ``s - k + 2 * padding``, which
+    give output length ``T * s`` for (20, 10), (12, 6) and the grouped
+    (3, 2) pool. Flax stores its kernel unflipped and flips it in the
+    forward pass; torch's transposed conv needs no flip, so the bridge is
+    a transpose (``model/params.py``)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel: int,
+                 stride: int, groups: int = 1):
+        pad = max(0, (kernel - stride + 1) // 2)
+        super().__init__(in_channels, out_channels, kernel, stride=stride,
+                         padding=pad, output_padding=stride - kernel + 2 * pad,
+                         groups=groups)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.2) -> torch.Tensor:
+    return torch.where(x >= 0, x, slope * x)
+
+
+def snake(x: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Snake activation x + sin^2(alpha x)/alpha (iSTFTNet generator)."""
+    return x + (1.0 / alpha) * torch.square(torch.sin(alpha * x))
+
+
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+
+
+class AdainResBlk1d(nn.Module):
+    """Style-conditioned residual block (StyleTTS2 AdainResBlk1d shape),
+    channels-first. Activations are masked before every conv and pool, as
+    in the JAX block."""
+
+    def __init__(self, dim_in: int, dim_out: int, style_dim: int,
+                 upsample: bool = False):
+        super().__init__()
+        self.upsample = upsample
+        self.norm1 = AdaIN1d(style_dim, dim_in)
+        if upsample:
+            self.pool = ConvTranspose1d(dim_in, dim_in, 3, 2, groups=dim_in)
+        self.conv1 = Conv1d(dim_in, dim_out, 3)
+        self.norm2 = AdaIN1d(style_dim, dim_out)
+        self.conv2 = Conv1d(dim_out, dim_out, 3)
+        if dim_in != dim_out:
+            self.conv1x1 = Conv1d(dim_in, dim_out, 1)
+        self.learned_sc = dim_in != dim_out
+
+    def forward(self, x, s, mask: Optional[torch.Tensor] = None):
+        up_mask = None
+        if mask is not None:
+            up_mask = (mask.repeat_interleave(2, dim=1) if self.upsample
+                       else mask)
+
+        def m(h, up=False):
+            if mask is None:
+                return h
+            return h * (up_mask if up else mask)[:, None, :].to(h.dtype)
+
+        h = leaky_relu(self.norm1(x, s, mask))
+        if self.upsample:
+            h = self.pool(m(h))
+        h = self.conv1(m(h, up=self.upsample))
+        h = leaky_relu(self.norm2(h, s, up_mask))
+        h = self.conv2(m(h, up=self.upsample))
+        sc = m(x)
+        if self.upsample:
+            sc = sc.repeat_interleave(2, dim=-1)  # nearest 2x
+        if self.learned_sc:
+            sc = self.conv1x1(sc)
+        return (h + sc) * _INV_SQRT2
+
+
+class AdaSnakeResBlock(nn.Module):
+    """Generator residual block: dilated convs + AdaIN + Snake
+    (iSTFTNet AdaINResBlock1 shape), channels-first. The alphas are
+    ``[1, C, 1]`` (flax keeps ``[1, 1, C]``)."""
+
+    def __init__(self, channels: int, kernel: int, dilations: Sequence[int],
+                 style_dim: int):
+        super().__init__()
+        self.dilations = tuple(dilations)
+        for j, d in enumerate(self.dilations):
+            self.register_parameter(
+                f"alpha1_{j}", nn.Parameter(torch.ones(1, channels, 1)))
+            self.register_parameter(
+                f"alpha2_{j}", nn.Parameter(torch.ones(1, channels, 1)))
+            self.add_module(f"adain1_{j}", AdaIN1d(style_dim, channels))
+            self.add_module(f"conv1_{j}",
+                            Conv1d(channels, channels, kernel, dilation=d))
+            self.add_module(f"adain2_{j}", AdaIN1d(style_dim, channels))
+            self.add_module(f"conv2_{j}", Conv1d(channels, channels, kernel))
+
+    def forward(self, x, s, mask: Optional[torch.Tensor] = None):
+        m = mask[:, None, :].to(x.dtype) if mask is not None else None
+        for j in range(len(self.dilations)):
+            h = getattr(self, f"adain1_{j}")(x, s, mask)
+            h = snake(h, getattr(self, f"alpha1_{j}"))
+            if m is not None:
+                h = h * m
+            h = getattr(self, f"conv1_{j}")(h)
+            h = getattr(self, f"adain2_{j}")(h, s, mask)
+            h = snake(h, getattr(self, f"alpha2_{j}"))
+            if m is not None:
+                h = h * m
+            h = getattr(self, f"conv2_{j}")(h)
+            x = x + h
+            if m is not None:
+                x = x * m
+        return x

@@ -1,0 +1,125 @@
+#!/usr/bin/env python
+# -*- coding: utf-8 -*-
+"""Where the PyTorch port's device time goes, on one CUDA card.
+
+    python3 scripts/profile_torch_port.py [--out FILE]
+
+Builds the port's ``Synthesizer(KokoroConfig(), seed=0)`` on the card
+(float32, TF32 off), warms each request once, then runs each request
+(``dispatch -> collect``, pcm16) under ``torch.profiler`` and reports:
+wall time, device busy time (sum of kernel times; one stream), the device
+idle share ``1 - busy / wall``, kernel time by class, and the top kernels.
+
+Requests: ``b1`` (one zh string, 807 frames, frame bucket 1024) and ``b8``
+(eight strings of ~18 tokens, frame bucket 512); seed 0's random weights
+give ~25 frames per token. Prints one JSON line; ``--out`` also writes it
+to a file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+CLASSES = (  # first match wins
+    ("istft_oa", r"istft_oa"),
+    ("lstm", r"(?i)rnn|lstm"),
+    ("conv_gemm", r"(?i)conv|gemm|xmma|cutlass|implicit|sm90|wgrad|dgrad"),
+    ("elementwise_reduce", r"(?i)elementwise|reduce|vectorized|unrolled"
+                           r"|index|gather|scan|cat|copy|fill|softmax|norm"),
+)
+
+REQUESTS = {
+    "b1": ["ni→xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst."],
+    "b8": ["ni→xau↓ma tʰjɛn→.", "hello wɝld, ðɪs.",
+           "tsʰɤ↘ʂɨ↘i↗kɤ↘ ðə.", "tʃən→pu↗tsʰwo↘ hi."] * 2,
+}
+
+
+def kernel_times(prof, torch):
+    """[(kernel name, device us, count)] for every device kernel."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = []
+    for evt in prof.key_averages():
+        if getattr(evt, "device_type", None) != cuda:
+            continue
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if us > 0:
+            out.append((evt.key, float(us), int(evt.count)))
+    return sorted(out, key=lambda r: -r[1])
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--out", default=None)
+    args = parser.parse_args()
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("no CUDA device", file=sys.stderr)
+        return 1
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.model.config import KokoroConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+    ).stdout.strip()
+    synth = Synthesizer(KokoroConfig(), seed=0)
+    synth.register_random_voice("v", seed=0)
+    result = {"card": card, "torch": torch.__version__, "requests": {}}
+    for name, texts in REQUESTS.items():
+        voices = ["v"] * len(texts)
+        synth.collect(synth.dispatch(texts, voices))  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            h = synth.dispatch(texts, voices)
+            synth.collect(h)
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        kernels = kernel_times(prof, torch)
+        busy = sum(us for _, us, _ in kernels)
+        by_class = {c: 0.0 for c, _ in CLASSES}
+        by_class["other"] = 0.0
+        for kname, us, _ in kernels:
+            cls = next((c for c, pat in CLASSES if re.search(pat, kname)),
+                       "other")
+            by_class[cls] += us
+        result["requests"][name] = {
+            "batch": len(texts), "t_bucket": h.t_bucket,
+            "f_bucket": h.f_bucket,
+            "frames": [int(t) for t in h.fitted_totals[: h.n]],
+            "wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy / 1e3,
+            "device_idle_share": 1.0 - busy / wall_us,
+            "kernel_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},
+            "top_kernels": [
+                {"name": k[:120], "ms": us / 1e3, "count": n}
+                for k, us, n in kernels[:12]
+            ],
+        }
+    line = json.dumps(result)
+    print(line)
+    if args.out:
+        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
