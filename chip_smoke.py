@@ -7,15 +7,25 @@ From the root of a checkout. It
 1. reports torch/CUDA versions and the card's name and power limit, and
    turns TF32 off for matrix products and convolutions (float32 throughout);
 2. builds every CUDA kernel of the port from ``illufly_tts_tpu_torch/csrc``
-   (one nvcc per source, all at once) and reports the build time;
+   (one nvcc per source, all at once) and reports the build time and each
+   kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card
-   (max-abs tolerance stated per kernel) and times both with CUDA events;
-4. drives the main path — ``Synthesizer.synthesize_batch`` and
+   (max-abs tolerance stated per kernel) and times kernel, plain version
+   and, where there is one, the nearest single PyTorch call, with CUDA
+   events;
+4. drives the batch path — ``Synthesizer.synthesize_batch`` and
    ``dispatch -> launch_decode -> collect`` at the full ``KokoroConfig()``
-   with seeded random weights and a random voice — on a few requests, in
-   pcm16 and f32, and checks lengths, finiteness, non-silence and that each
-   kernel was launched once per stage B;
-5. holds the port on the card against the port on the CPU at full width
+   with seeded random weights and a random voice — on three requests in
+   pcm16, f32, mulaw8k and mulaw24k, and checks lengths, finiteness,
+   non-silence and that every kernel ran as often as each stage B runs it;
+   then holds each kernel against its plain version at the shapes that
+   path gave it;
+5. drives the streaming path: exact streams concatenate bit for bit to
+   ``collect()``; a windowed stream gives finite, non-silent chunks of the
+   right count and length, with every kernel launched per window as per
+   stage B; and the mulaw24k bytes equal ``mulaw_encode_np`` of the card's
+   own int16 rendering;
+6. holds the port on the card against the port on the CPU at full width
    (B=2, frame bucket 128), both stage Bs fed the card's stage-A outputs.
 
 It prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
@@ -40,11 +50,26 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 
 ISTFT_TOL = 1e-4       # max-abs, as the JAX package holds its Pallas iSTFT
+CONV_TOL = 1e-4        # max-abs over (1 + max|plain|): f32 sums of C k terms
 CPU_GPU_TOL = 5e-3     # rms/scale, the golden-audio gate's waveform bound
 
 ZH = "ni→xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst."
 MIXED = "tʰjɛn→tʃʰi↘tʃən→pu↗tsʰwo↘. hello wɝld."
 EN = "ðɪs ɪz ə smˈoʊk tˈɛst ʌv ðə pˈɔɹt."
+FORMATS = ("pcm16", "f32", "mulaw8k", "mulaw24k")
+STREAM_WINDOW, STREAM_HALO = 64, 16   # model frames
+
+# the fused AdaIN-Snake-conv kernels: wrapper name -> (TPU kernel it
+# replaces, the residual-block conv it runs)
+CONV_KERNELS = {
+    "adain_snake_conv": ("illufly_tts_tpu/ops/pallas/fused_conv.py:92",
+                         "conv2_j (dilation 1)"),
+    "adain_snake_conv_carry": ("illufly_tts_tpu/ops/pallas/carry_conv.py:110",
+                               "conv1_j (dilation d_j)"),
+}
+# the timed shape: B=8 at frame bucket 512, the Generator's last stage
+TIMED = {"batch": 8, "channels": 128, "length": 61440, "kernel": 11,
+         "dilation": {"adain_snake_conv": 1, "adain_snake_conv_carry": 5}}
 
 
 def fail(msg: str) -> None:
@@ -73,6 +98,13 @@ def cuda_ms(fn, reps, flush):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(n_bytes, n_ops):
+    """(least ms on the card, what bounds it)."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
 
 
 def istft_inputs(torch, batch, frames, seed, zero=False):
@@ -107,6 +139,98 @@ def check_istft(torch, oa, shapes):
     return worst
 
 
+def conv_inputs(torch, batch, channels, length, kernel, seed,
+                zero_mask=False):
+    """x, mask (odd rows keep their first ~2/3), scale, shift, alpha, w
+    [k, C, C], b for the fused conv at one shape."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, device="cuda", generator=gen)
+
+    x = randn(batch, channels, length) * 0.5
+    keep = torch.tensor([length if i % 2 == 0 else max(1, length * 2 // 3)
+                         for i in range(batch)], device="cuda")
+    mask = (torch.arange(length, device="cuda")[None, :]
+            < keep[:, None]).float()
+    if zero_mask:
+        mask.zero_()
+    return (x, mask.contiguous(), 1.0 + 0.1 * randn(batch, channels),
+            0.1 * randn(batch, channels), randn(channels).abs() + 0.5,
+            randn(kernel, channels, channels) / math.sqrt(channels * kernel),
+            0.1 * randn(channels))
+
+
+def check_conv(torch, asc, name, cases):
+    """Kernel ``name`` vs plain at each (batch, C, L, k, d, zero_mask) ->
+    max abs error. With an all-zero mask the output must be the bias."""
+    fn = getattr(asc, name)
+    worst = 0.0
+    for i, (batch, channels, length, k, d, zero) in enumerate(cases):
+        args = conv_inputs(torch, batch, channels, length, k, i, zero)
+        out = fn(*args, k, d)
+        torch.cuda.synchronize()
+        ref = asc.adain_snake_conv_plain(*args, k, d)
+        err = float((out - ref).abs().max())
+        tol = CONV_TOL * (1.0 + float(ref.abs().max()))
+        if out.shape != (batch, channels, length):
+            fail(f"{name} shape {tuple(out.shape)}")
+        if zero and not torch.equal(out, args[-1][None, :, None].expand_as(
+                out)):
+            fail(f"{name}: an all-zero mask did not give the bias exactly")
+        if not err <= tol:
+            fail(f"{name} disagrees with plain at {cases[i]}: {err} > {tol}")
+        worst = max(worst, err)
+        del args, out, ref
+    log(f"  {name}: {len(cases)} shapes, max|kernel - plain| = "
+        f"{worst:.3e} (each within {CONV_TOL} * (1 + max|plain|))")
+    return worst
+
+
+def time_conv(torch, F, asc, name, flush):
+    """kernel, plain and cuDNN-conv ms at the timed shape + its bound."""
+    batch, channels, length, k = (TIMED[key] for key in
+                                  ("batch", "channels", "length", "kernel"))
+    d = TIMED["dilation"][name]
+    args = conv_inputs(torch, batch, channels, length, k, seed=99)
+    fn = getattr(asc, name)
+    h = torch.randn_like(args[0])  # an activated input for cuDNN alone
+    w_t = args[5].permute(2, 1, 0).contiguous()
+    pad = (k - 1) * d // 2
+    calls = {
+        "ms": lambda: fn(*args, k, d),
+        "plain_ms": lambda: asc.adain_snake_conv_plain(*args, k, d),
+        "library_ms": lambda: F.conv1d(h, w_t, args[6], padding=pad,
+                                       dilation=d),
+    }
+    if name == "adain_snake_conv_carry":  # one tile a chunk: no carry
+        calls["one_tile_chunks_ms"] = lambda: asc._launch(
+            asc._library().adain_snake_conv_carry_f32, *args, k, d, 1)
+    for call in calls.values():
+        call()
+    out = {key: cuda_ms(call, 20, flush) for key, call in calls.items()}
+    n_bytes = (2 * args[0].numel() + args[1].numel() + args[5].numel()) * 4
+    out["bound_ms"], out["bound_by"] = bound(
+        n_bytes, 2 * batch * length * channels * channels * k)
+    out["shape"] = [batch, channels, length, k, d]
+    log(f"{name} at B={batch}, C={channels}, L={length}, k={k}, d={d}: "
+        f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, cuDNN "
+        f"conv alone {out['library_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.4f} ms ({out['bound_by']})"
+        + (f"; one-tile chunks {out['one_tile_chunks_ms']:.4f} ms, "
+           f"default {asc.carry_tiles_per_chunk(batch, channels, length, 132)}"
+           " tiles a chunk" if "one_tile_chunks_ms" in out else ""))
+    return out
+
+
+def recorded(fn, shapes):
+    """``fn`` that also records each call's (B, C_in, L, k, d)."""
+    def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1):
+        shapes.add((x.shape[0], x.shape[1], x.shape[2], kernel, dilation))
+        return fn(x, mask, scale, shift, alpha, w, b, kernel, dilation)
+    return call
+
+
 def main() -> None:
     import torch
 
@@ -116,9 +240,16 @@ def main() -> None:
     sys.path.insert(0, HERE)
     try:
         import numpy as np
+        import torch.nn.functional as F
 
+        from illufly_tts_tpu_torch.audio.telephony import (
+            mulaw_decode_np,
+            mulaw_encode_np,
+        )
         from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+        from illufly_tts_tpu_torch.model import layers
         from illufly_tts_tpu_torch.model.config import KokoroConfig
+        from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
         from illufly_tts_tpu_torch.ops import cuda_build
         from illufly_tts_tpu_torch.ops import istft_oa as oa
     except ImportError as exc:
@@ -141,16 +272,18 @@ def main() -> None:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    info = cuda_build.build(["istft_oa"])
+    info = cuda_build.build(["istft_oa", "adain_snake_conv"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for name, rec in info.items():
         for line in rec["log"].splitlines():
-            if "registers" in line or "bytes" in line:
+            if any(key in line for key in ("entry function", "registers",
+                                           "spill")):
                 log(f"  {name}: {line.strip()}")
 
-    # ---- 3. kernel vs plain -----------------------------------------------
+    # ---- 3. kernels vs plain -------------------------------------------------
+    flush = torch.empty(64 * 2 ** 20, device="cuda")  # 256 MB > 50 MB L2
     log("istft_oa kernel vs plain (|randn| magnitudes, uniform phases):")
-    max_err = check_istft(torch, oa, [
+    istft_err = check_istft(torch, oa, [
         (8, 61440, False),  # B=8 at frame bucket 512 (120 frames per frame)
         (3, 1000, False),   # ragged: not a multiple of the 128-frame tile
         (2, 37, False),     # smaller than one tile
@@ -158,29 +291,50 @@ def main() -> None:
         (2, 256, True),     # zero input
     ])
     mag, phase = istft_inputs(torch, 8, 61440, seed=99)
-    flush = torch.empty(64 * 2 ** 20, device="cuda")  # 256 MB > 50 MB L2
     for _ in range(3):
         oa.istft_oa(mag, phase)
         oa.istft_oa_plain(mag, phase)
-    kernel_ms = cuda_ms(lambda: oa.istft_oa(mag, phase), 50, flush)
-    plain_ms = cuda_ms(lambda: oa.istft_oa_plain(mag, phase), 20, flush)
+    istft = {
+        "ms": cuda_ms(lambda: oa.istft_oa(mag, phase), 50, flush),
+        "plain_ms": cuda_ms(lambda: oa.istft_oa_plain(mag, phase), 20, flush),
+    }
     batch, frames = mag.shape[:2]
-    n_bytes = 2 * mag.numel() * 4 + batch * frames * 5 * 4
-    n_ops = batch * frames * 5 * 88 * 2  # 88 FMAs per output sample
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S) * 1e3
-    bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                >= n_ops / F32_OPS_PER_S else "operations")
-    log(f"istft_oa at [8, 61440, 11]: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound_ms * 1e3:.2f} us ({bound_by}: "
-        f"{n_bytes / 1e6:.1f} MB), library: none (torch.istft(center=False) "
+    istft["bound_ms"], istft["bound_by"] = bound(
+        2 * mag.numel() * 4 + batch * frames * 5 * 4,
+        batch * frames * 5 * 88 * 2)  # 88 FMAs per output sample
+    log(f"istft_oa at [8, 61440, 11]: kernel {istft['ms']:.4f} ms, plain "
+        f"{istft['plain_ms']:.4f} ms, bound {istft['bound_ms'] * 1e3:.2f} us "
+        f"({istft['bound_by']}), library: none (torch.istft(center=False) "
         "refuses the zero window envelope at sample 0)")
+    del mag, phase
 
-    # ---- 4. main path -----------------------------------------------------------
+    cfg = KokoroConfig()
+    # every (k, d) the config's residual blocks use, at both stages' widths
+    inventory = sorted({(k, d) for k in (3, 7, 11) for d in (1, 3, 5)})
+    stages = ((256, 10240), (128, 61440))  # (C, L) at B=8, F 512
+    cases = [(8, c, length, k, d, False) for c, length in stages
+             for k, d in inventory] + [
+        (3, 128, 1000, 7, 3, False),   # ragged: not a multiple of the tile
+        (2, 256, 37, 11, 5, False),    # shorter than a tile, > the halo
+        (1, 128, 11520, 11, 5, False),  # B=1, a stream window's stage 1
+        (1, 256, 1920, 7, 3, False),   # B=1, a stream window's stage 0
+        (2, 256, 640, 3, 1, True),     # all-zero mask: the bias exactly
+    ]
+    log("fused conv kernels vs plain (odd rows masked after 2/3):")
+    conv = {name: {"max_abs_err": check_conv(torch, asc, name, cases)}
+            for name in CONV_KERNELS}
+    for name in CONV_KERNELS:
+        conv[name].update(time_conv(torch, F, asc, name, flush))
+
+    # ---- 4. batch path ---------------------------------------------------------
     t0 = time.perf_counter()
-    synth = Synthesizer(KokoroConfig(), seed=0)
+    synth = Synthesizer(cfg, seed=0)
     synth.register_random_voice("smoke_voice", seed=0)
     log(f"Synthesizer(KokoroConfig(), seed=0) on {synth.device} in "
         f"{time.perf_counter() - t0:.1f} s")
+    net = cfg.istftnet
+    conv_per_generator = len(net.upsample_rates) * (
+        3 + sum(len(d) for d in net.resblock_dilation_sizes))  # 24
     long_zh = " ".join([ZH, MIXED, ZH, MIXED, ZH])
     long_en = " ".join([EN, MIXED, EN, ZH])
     requests = {
@@ -189,75 +343,160 @@ def main() -> None:
         "long_8": [long_zh, long_en] * 4,
     }
     failures = []
+    conv_shapes = {name: set() for name in CONV_KERNELS}
+    for name in CONV_KERNELS:  # the blocks call through the module names
+        setattr(layers, name, recorded(getattr(asc, name), conv_shapes[name]))
 
-    def serve(texts, fmt):
-        h = synth.dispatch(texts, ["smoke_voice"] * len(texts), fmt=fmt)
-        out = synth.collect(h)
-        return h, out
+    def voices(texts):
+        return ["smoke_voice"] * len(texts)
+
+    def reset_counts():
+        oa.launches = 0
+        for name in asc.launches:
+            asc.launches[name] = 0
+
+    def check_counts(label, generator_runs):
+        counts = {"istft_oa": oa.launches, **asc.launches}
+        want = {"istft_oa": generator_runs,
+                **{name: conv_per_generator * generator_runs
+                   for name in CONV_KERNELS}}
+        log(f"{label}: {generator_runs} Generator runs, launches {counts}")
+        for name, n in counts.items():
+            if n == 0 or n != want[name]:
+                failures.append(f"{label}: {name} launched {n} times, "
+                                f"want {want[name]}")
+        return counts
+
+    def check_wave(label, wave, want):
+        if wave.shape != (want,):
+            failures.append(f"{label}: {wave.shape} != ({want},)")
+        if wave.dtype == np.uint8:
+            wave = mulaw_decode_np(wave)
+        if not np.isfinite(wave).all():
+            failures.append(f"{label}: non-finite audio")
+        if float(np.abs(wave).max()) <= 1e-4:
+            failures.append(f"{label}: silent")
 
     for texts in requests.values():  # warm pass
-        synth.synthesize_batch(texts, ["smoke_voice"] * len(texts))
+        synth.synthesize_batch(texts, voices(texts))
     torch.cuda.synchronize()
 
-    oa.launches = 0
+    reset_counts()
     stage_b_runs = 0
-    main_shapes = set()
+    istft_shapes = set()
     timings = {}
     buckets = {}
     for name, texts in requests.items():
         torch.cuda.reset_peak_memory_stats()
-        for fmt in ("pcm16", "f32"):
-            before = oa.launches
+        for fmt in FORMATS:
             t0 = time.perf_counter()
-            h, out = serve(texts, fmt)
+            h = synth.dispatch(texts, voices(texts), fmt=fmt)
+            out = synth.collect(h)
             wall = time.perf_counter() - t0
             stage_b_runs += 1
-            main_shapes.add((h.b_bucket, h.f_bucket * 120))
-            if oa.launches - before != 1:
-                failures.append(f"{name}/{fmt}: istft_oa launched "
-                                f"{oa.launches - before} times in 1 stage B")
+            istft_shapes.add((h.b_bucket, h.f_bucket * 120))
+            per_frame = 200 if fmt == "mulaw8k" else 600
             for i, wave in enumerate(out):
-                want = int(h.fitted_totals[i]) * 600
-                if wave.shape != (want,):
-                    failures.append(f"{name}/{fmt}[{i}]: {wave.shape} != "
-                                    f"({want},)")
-                if not np.isfinite(wave).all():
-                    failures.append(f"{name}/{fmt}[{i}]: non-finite audio")
-                if float(np.abs(wave).max()) <= 1e-4:
-                    failures.append(f"{name}/{fmt}[{i}]: silent")
+                check_wave(f"{name}/{fmt}[{i}]", wave,
+                           int(h.fitted_totals[i]) * per_frame)
+            if fmt.startswith("mulaw"):
+                wire = h.audio.numpy()
+                if wire.dtype != np.uint8 or wire.shape[1] != (
+                        h.f_bucket * per_frame):
+                    failures.append(f"{name}/{fmt}: wire {wire.dtype} "
+                                    f"{wire.shape}")
+            timings.setdefault(name, {})[fmt] = wall * 1e3
             if fmt == "pcm16":
-                timings[name] = wall
                 buckets[name] = (h.t_bucket, h.f_bucket)
                 log(f"request {name}: B={len(texts)} (bucket {h.b_bucket}), "
                     f"T_bucket={h.t_bucket}, F_bucket={h.f_bucket}, frames "
                     f"{[int(t) for t in h.fitted_totals[: h.n]]}, audio "
-                    f"{sum(w.size for w in out) / 24000:.1f} s, wall "
-                    f"{wall * 1e3:.1f} ms (pcm16, warm)")
-        log(f"  peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
-            " GiB")
-    launches = oa.launches
-    log(f"main path: {stage_b_runs} stage B runs, istft_oa launches "
-        f"{launches}")
-    if launches == 0 or launches != stage_b_runs:
-        failures.append(f"istft_oa launches {launches} != stage B runs "
-                        f"{stage_b_runs}")
+                    f"{sum(w.size for w in out) / 24000:.1f} s")
+        log(f"  wall ms (warm) " + ", ".join(
+            f"{fmt} {ms:.1f}" for fmt, ms in timings[name].items())
+            + f"; peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    counts = check_counts("batch path", stage_b_runs)
     t_long, f_long = buckets["long_8"]
     if t_long < 128 or f_long < 512:
         failures.append(f"long_8 reached T_bucket={t_long}, F_bucket="
                         f"{f_long}; wanted >= 128 and >= 512")
 
-    log("istft_oa kernel vs plain at the main path's shapes:")
-    max_err = max(max_err, check_istft(
-        torch, oa, [(b, f, False) for b, f in sorted(main_shapes)]))
+    # ---- 5. streaming path ------------------------------------------------------
+    texts = requests["mixed_4"]
+    # run-to-run bit equality needs cuDNN's deterministic algorithms (the
+    # transposed convs may otherwise sum in another order each run)
+    torch.backends.cudnn.deterministic = True
+    for fmt in ("f32", "pcm16"):
+        h = synth.dispatch(texts, voices(texts), fmt=fmt)
+        stream = np.concatenate(list(synth.stream_decode(
+            h, window_frames=STREAM_WINDOW)), axis=1)
+        fresh = synth.collect(synth.dispatch(texts, voices(texts), fmt=fmt))
+        same = synth.collect(h)
+        equal = all(stream[i, : clip.size].tobytes() == clip.tobytes()
+                    == same[i].tobytes() for i, clip in enumerate(fresh))
+        log(f"exact stream (mixed_4, {fmt}, {STREAM_WINDOW}-frame chunks) "
+            f"bitwise equal to collect() of the same and of a fresh "
+            f"dispatch: {equal}")
+        if not equal:
+            failures.append(f"exact stream {fmt} differs from collect()")
+    h = synth.dispatch(texts, voices(texts), fmt="f32")
+    args = (h.ids, h.mask, h.d, h.pred_dur, h.ref, h.pitch,
+            synth._pick_f_bucket(h))
+    with torch.inference_mode():
+        codes = synth._stage_b(*args, "mulaw24k")[0].cpu().numpy()
+        pcm = synth._stage_b(*args, "pcm16")[0].cpu().numpy()
+    same_codes = np.array_equal(codes, mulaw_encode_np(pcm))
+    log(f"mulaw24k bytes == mulaw_encode_np(the card's int16 render): "
+        f"{same_codes}")
+    if not same_codes:
+        failures.append("mulaw24k bytes differ from mulaw_encode_np(pcm16)")
+    torch.backends.cudnn.deterministic = False
 
-    # ---- 5. card vs CPU -----------------------------------------------------------
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()  # from dispatch, as the render's wall time
+    h = synth.dispatch(texts, voices(texts), fmt="f32")
+    gen = synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO, exact=False)
+    chunks = [next(gen)]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    chunks += list(gen)
+    stream_ms = (time.perf_counter() - t0) * 1e3
+    windows = h.f_bucket // STREAM_WINDOW
+    max_total = int(h.fitted_totals[: h.n].max())
+    want_lens = [min(STREAM_WINDOW, max_total - lo) * 600
+                 for lo in range(0, max_total, STREAM_WINDOW)]
+    stream_counts = check_counts("windowed stream", len(chunks))
+    if [c.shape for c in chunks] != [(h.n, n) for n in want_lens]:
+        failures.append(f"windowed chunks {[c.shape for c in chunks]}, "
+                        f"want {want_lens}")
+    for i, c in enumerate(chunks):
+        if not np.isfinite(c).all() or float(np.abs(c).max()) <= 1e-4:
+            failures.append(f"windowed chunk {i}: non-finite or silent")
+    log(f"windowed stream (mixed_4, window {STREAM_WINDOW} + halo "
+        f"{STREAM_HALO} frames, F_bucket {h.f_bucket} = {windows} windows): "
+        f"{len(chunks)} chunks, first after {first_ms:.1f} ms, all after "
+        f"{stream_ms:.1f} ms; full render (pcm16, section 4) "
+        f"{timings['mixed_4']['pcm16']:.1f} ms")
+    for name in CONV_KERNELS:
+        setattr(layers, name, getattr(asc, name))
+
+    log("kernels vs plain at the shapes both paths gave them:")
+    for name in CONV_KERNELS:
+        err = check_conv(torch, asc, name, [
+            (*shape, False) for shape in sorted(conv_shapes[name])])
+        conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
+    istft_err = max(istft_err, check_istft(
+        torch, oa, [(b, f, False) for b, f in sorted(istft_shapes)]))
+
+    # ---- 6. card vs CPU -----------------------------------------------------------
     t0 = time.perf_counter()
-    cpu = Synthesizer(KokoroConfig(), seed=0, device="cpu")
+    cpu = Synthesizer(cfg, seed=0, device="cpu")
     cpu.register_random_voice("smoke_voice", seed=0)
     texts = [ZH, MIXED]
     with torch.inference_mode():
-        hg = synth.dispatch(texts, ["smoke_voice"] * 2, fmt="f32")
-        hc = cpu.dispatch(texts, ["smoke_voice"] * 2, fmt="f32")
+        hg = synth.dispatch(texts, voices(texts), fmt="f32")
+        hc = cpu.dispatch(texts, voices(texts), fmt="f32")
         n_diff = int((hg.pred_dur.cpu() != hc.pred_dur).sum())
         args = (hg.ids, hg.mask, hg.d, hg.pred_dur, hg.ref, hg.pitch)
         wave_g, _ = synth._stage_b(*args, 128, "f32")
@@ -278,28 +517,42 @@ def main() -> None:
             print(f"FAIL: {f}", file=sys.stderr)
         sys.exit(1)
 
-    log(json.dumps({"kernels": [{
+    rows = [{
         "name": "istft_oa",
         "route": "cuda",
         "source": "illufly_tts_tpu_torch/csrc/istft_oa.cu",
         "replaces": "illufly_tts_tpu/ops/pallas/istft_oa.py:88",
-        "launches": launches,
+        "launches": counts["istft_oa"],
+        "launches_stream": stream_counts["istft_oa"],
         "stage_b_runs": stage_b_runs,
-        "launches_per_stage_b": launches / stage_b_runs,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "max_abs_err": istft_err,
+        **istft,
         "library_ms": None,
         "library_note": "no single PyTorch call computes it: "
                         "torch.istft(center=False) refuses the zero window "
                         "envelope at sample 0 (NOLA check)",
         "shape": [8, 61440, 11],
         "card": card,
-    }]}))
-    log(json.dumps({"requests_wall_ms": {
-        k: v * 1e3 for k, v in timings.items()}}))
+    }]
+    for name, (replaces, role) in CONV_KERNELS.items():
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "illufly_tts_tpu_torch/csrc/adain_snake_conv.cu",
+            "replaces": replaces,
+            "launches": counts[name],
+            "launches_stream": stream_counts[name],
+            "stage_b_runs": stage_b_runs,
+            "role": role,
+            **conv[name],
+            "library_note": "F.conv1d (cuDNN) alone on an already "
+                            "activated input, with the bias",
+            "card": card,
+        })
+    log(json.dumps({"kernels": rows}))
+    log(json.dumps({"requests_wall_ms": timings,
+                    "stream_first_chunk_ms": first_ms,
+                    "stream_all_chunks_ms": stream_ms}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

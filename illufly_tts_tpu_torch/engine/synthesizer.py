@@ -4,14 +4,18 @@ port of ``illufly_tts_tpu/engine/synthesizer.py``).
 
 Stage A (token budget T) predicts durations; the host reads the frame
 totals and picks a frame bucket F; stage B (T, F) fits the durations to F
-and renders audio (f32, or int16 PCM on the device). The bucket logic is
+and renders audio in one of ``FORMATS``: f32, int16 PCM, or uint8 G.711
+mu-law at 8 kHz (``mulaw8k``) or at 24 kHz as a wire codec the host expands
+back to PCM (``mulaw24k``), all encoded on the device. The bucket logic is
 the JAX engine's: the frame budget decides ``_fit_durations``, so it is
 part of the numerics.
 
 The two device->host copies of the JAX engine (the frame totals after
-stage A, the PCM after stage B) are non-blocking copies into pinned host
+stage A, the audio after stage B) are non-blocking copies into pinned host
 memory, each with a CUDA event that ``_pick_f_bucket`` or ``collect`` waits
-on.
+on. ``stream_decode`` streams one utterance batch chunk by chunk: exactly
+(slices of the batch render, each copied alone) or windowed
+(``decode_prepare`` once, then the Generator per window).
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a CUDA
 device and without that argument it raises. Parameters are float32 and
@@ -30,7 +34,14 @@ import numpy as np
 import torch
 
 from ..model.config import KokoroConfig
-from ..model.kokoro import KokoroModel, _fit_durations
+from ..audio.telephony import (
+    RATIO,
+    design_decimation_fir,
+    mulaw_encode,
+    mulaw_lut,
+    resample_to_8k,
+)
+from ..model.kokoro import KokoroModel, _fit_durations, peak_normalize
 from ..model.params import load_flax_params, random_flax_params
 from ..model.vocab import encode as encode_phonemes
 from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
@@ -38,7 +49,7 @@ from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
 logger = logging.getLogger(__name__)
 
 MAX_PHONEMES = 510  # hard cap on phonemes per item
-FORMATS = ("f32", "pcm16")
+FORMATS = ("f32", "pcm16", "mulaw8k", "mulaw24k")
 
 
 class _HostCopy:
@@ -65,12 +76,13 @@ class _HostCopy:
 
 class DispatchHandle:
     """In-flight batch: stage-A outputs + the non-blocking frame-total
-    copy."""
+    copy. ``d``/``pred_dur`` stay until stage B consumes them, so a fresh
+    handle can be streamed windowed."""
 
     __slots__ = (
         "n", "b_bucket", "t_bucket", "ids", "mask", "ref", "d",
-        "pred_dur", "totals", "f_bucket", "audio", "fitted_totals",
-        "fmt", "keep_durations", "host_pred_dur", "pitch",
+        "pred_dur", "totals", "f_bucket", "device_audio", "audio",
+        "fitted_totals", "fmt", "keep_durations", "host_pred_dur", "pitch",
     )
 
     def __init__(self, n, b_bucket, t_bucket, ids, mask, ref, d,
@@ -85,6 +97,7 @@ class DispatchHandle:
         self.pred_dur = pred_dur
         self.totals = totals            # _HostCopy of [B] frame totals
         self.f_bucket = None
+        self.device_audio = None        # stage-B output not yet copied
         self.audio = None               # _HostCopy of the stage-B output
         self.fitted_totals = None
         self.fmt = fmt
@@ -137,6 +150,8 @@ class Synthesizer:
         self.frame_buckets = tuple(sorted(frame_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.sample_rate = self.config.sample_rate
+        self._fir_taps = torch.from_numpy(design_decimation_fir()).to(
+            self.device)
         self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
         self._lock = threading.Lock()
 
@@ -208,11 +223,21 @@ class Synthesizer:
         return d, pred_dur, pred_dur.sum(dim=-1)
 
     def _stage_b(self, ids, mask, d, pred_dur, ref_s, pitch, frames, fmt):
+        """-> (audio [B, F * 600] in ``fmt``'s type, or [B, F * 200] uint8
+        for mulaw8k; fmask [B, F])."""
         fitted = _fit_durations(pred_dur, frames)
-        return self.model.decode_frames(
+        audio, fmask = self.model.decode_frames(
             ids, mask, d, fitted, ref_s, frames, pcm16=(fmt == "pcm16"),
             pitch=pitch,
         )
+        if fmt in ("mulaw8k", "mulaw24k"):
+            # the pcm16 path's peak policy, then the decimating FIR (8 kHz
+            # only), then G.711 companding, all on the device
+            audio = peak_normalize(audio)
+            if fmt == "mulaw8k":
+                audio = resample_to_8k(audio, self._fir_taps)
+            audio = mulaw_encode(audio)
+        return audio, fmask
 
     # --- synthesis -------------------------------------------------------------
 
@@ -299,42 +324,66 @@ class Synthesizer:
             handle.fitted_totals = np.minimum(totals_np, handle.f_bucket)
         return handle.f_bucket
 
-    @torch.inference_mode()
-    def launch_decode(self, handle: DispatchHandle) -> DispatchHandle:
-        """Pick the frame bucket, launch stage B and the non-blocking PCM
-        copy to host. Idempotent."""
-        if handle.audio is not None:
-            return handle
+    def _decode(self, handle: DispatchHandle) -> None:
+        """Run stage B into ``handle.device_audio`` unless it ran already,
+        and release the stage-A intermediates. Idempotent."""
+        if handle.device_audio is not None or handle.audio is not None:
+            return
         f_bucket = self._pick_f_bucket(handle)
-        audio, _ = self._stage_b(
-            handle.ids, handle.mask, handle.d, handle.pred_dur, handle.ref,
-            handle.pitch, f_bucket, handle.fmt,
-        )
-        handle.audio = _HostCopy(audio)
-        if handle.keep_durations:
+        with torch.inference_mode():
+            handle.device_audio, _ = self._stage_b(
+                handle.ids, handle.mask, handle.d, handle.pred_dur,
+                handle.ref, handle.pitch, f_bucket, handle.fmt,
+            )
+        if handle.keep_durations and handle.host_pred_dur is None:
             handle.host_pred_dur = handle.pred_dur[: handle.n].cpu().numpy()
         # stage-A intermediates are no longer needed
         handle.d = handle.pred_dur = None
+
+    def launch_decode(self, handle: DispatchHandle) -> DispatchHandle:
+        """Pick the frame bucket, launch stage B and the non-blocking copy
+        of its whole output to host. Idempotent."""
+        if handle.audio is None:
+            self._decode(handle)
+            handle.audio = _HostCopy(handle.device_audio)
+            handle.device_audio = None
         return handle
+
+    def _frame_samples(self, fmt: str) -> int:
+        """Output samples per model frame in ``fmt``."""
+        spf = self.config.samples_per_frame
+        return spf // RATIO if fmt == "mulaw8k" else spf
+
+    @staticmethod
+    def _expand(clip: np.ndarray, fmt: str, pcm16: bool) -> np.ndarray:
+        """Host side of a format: mulaw24k codes -> PCM through the table,
+        pcm16 <-> float32 as asked; mulaw8k codes and matching types pass
+        through."""
+        if fmt == "mulaw24k":
+            return mulaw_lut(np.int16 if pcm16 else np.float32)[clip]
+        if fmt == "pcm16" and not pcm16:
+            return clip.astype(np.float32) / 32767.0
+        if fmt == "f32" and pcm16:
+            return np.round(np.clip(
+                clip.astype(np.float32) * 32767.0, -32767, 32767
+            )).astype(np.int16)
+        return clip
 
     def collect(self, handle: DispatchHandle,
                 pcm16: bool = False) -> List[np.ndarray]:
         """Wait for a dispatched batch's audio and trim it per item.
-        Returns float32 @24k by default, int16 @24k with ``pcm16=True``."""
+        Returns float32 @24k by default, int16 @24k with ``pcm16=True``,
+        or uint8 G.711 mu-law @8k for a ``mulaw8k`` handle (``pcm16`` is
+        ignored then). A ``mulaw24k`` handle shipped uint8 mu-law @24k and
+        comes back as PCM @24k, quantized to the mu-law grid."""
         self.launch_decode(handle)
         audio_np = handle.audio.numpy()
-        spf = self.config.samples_per_frame
-        out = []
-        for i in range(handle.n):
-            clip = audio_np[i, : int(handle.fitted_totals[i]) * spf]
-            if handle.fmt == "pcm16" and not pcm16:
-                clip = clip.astype(np.float32) / 32767.0
-            elif handle.fmt == "f32" and pcm16:
-                clip = np.round(np.clip(
-                    clip.astype(np.float32) * 32767.0, -32767, 32767
-                )).astype(np.int16)
-            out.append(clip)
-        return out
+        spf = self._frame_samples(handle.fmt)
+        return [
+            self._expand(audio_np[i, : int(handle.fitted_totals[i]) * spf],
+                         handle.fmt, pcm16)
+            for i in range(handle.n)
+        ]
 
     def rendered_durations(self, handle: DispatchHandle) -> np.ndarray:
         """Per-token frame counts stage B renders: the stage-A durations
@@ -352,6 +401,105 @@ class Synthesizer:
         pd = handle.host_pred_dur.astype(np.int64)
         cum_prev = np.cumsum(pd, axis=-1) - pd
         return np.clip(handle.f_bucket - cum_prev, 0, pd).astype(np.int32)
+
+    # --- streaming ----------------------------------------------------------
+
+    def _stream_exact(self, handle: DispatchHandle, window_frames: int):
+        """Slices of the batch render: the same stage B as ``collect``, so
+        the chunks concatenate to its output bit for bit. Each chunk's
+        slice is copied to host alone, the next one's copy starting before
+        the current chunk is handed over."""
+        if handle.audio is None:
+            self._decode(handle)  # no whole copy: slices only
+        spf = self._frame_samples(handle.fmt)
+        max_total = int(handle.fitted_totals[: handle.n].max())
+        spans = [(lo * spf, min(lo + window_frames, max_total) * spf)
+                 for lo in range(0, max_total, window_frames)]
+
+        def fetch(lo, hi):
+            if handle.audio is not None:  # launched before: sliced on host
+                return handle.audio.numpy()[: handle.n, lo:hi]
+            return _HostCopy(handle.device_audio[: handle.n, lo:hi])
+
+        pending = fetch(*spans[0]) if spans else None
+        for k in range(len(spans)):
+            chunk = pending
+            pending = fetch(*spans[k + 1]) if k + 1 < len(spans) else None
+            if isinstance(chunk, _HostCopy):
+                chunk = chunk.numpy()
+            yield self._expand(chunk, handle.fmt, False)
+
+    def stream_decode(
+        self,
+        handle: DispatchHandle,
+        window_frames: int = 64,
+        halo_frames: int = 16,
+        exact: bool = True,
+    ):
+        """Yield the batch's audio in chunks of ``window_frames`` model
+        frames (np [n, <= window_frames * 600]).
+
+        ``exact=True``: slices of the batch stage B's own output, so the
+        chunks concatenate to ``collect()`` bit for bit: float32 for f32,
+        pcm16 and mulaw24k handles, uint8 mu-law @8k for mulaw8k. The first
+        chunk waits for the whole render (the Generator's AdaIN statistics
+        span the whole utterance).
+
+        ``exact=False``: ``decode_prepare`` once (prosody BiLSTM, decoder
+        trunk, harmonic phase), then the Generator per window of
+        ``window_frames`` with ``halo_frames`` of context on each side;
+        neighbouring windows overlap by ``halo_frames`` and the seam is
+        crossfaded with a linear ramp (as the JAX engine does). The first
+        chunk comes after one window. Window-local AdaIN statistics make
+        the audio an approximation of the batch render; chunks are float32
+        in every format, and the last is trimmed to the fitted frame
+        total. Needs a handle that stage B has not consumed."""
+        if exact:
+            yield from self._stream_exact(handle, window_frames)
+            return
+        if handle.d is None:
+            raise ValueError(
+                "handle was already decoded (launch_decode/collect "
+                "release the stage-A intermediates); stream_decode needs "
+                "a fresh dispatch() handle"
+            )
+        f_bucket = self._pick_f_bucket(handle)
+        if f_bucket % window_frames:
+            raise ValueError(
+                f"window_frames {window_frames} must divide the frame "
+                f"bucket {f_bucket}"
+            )
+        model = self.model
+        with torch.inference_mode():
+            prep = model.decode_prepare(
+                handle.ids, handle.mask, handle.d,
+                _fit_durations(handle.pred_dur, f_bucket), handle.ref,
+                f_bucket, pitch=handle.pitch,
+            )
+        spf = self.config.samples_per_frame
+        # windows work in generator frames (2 per model frame) of spf / 2
+        # samples: the halo of 2 * halo_frames generator frames spans
+        # halo_frames * spf samples shared by neighbouring windows
+        overlap = halo_frames * spf
+        ramp = np.linspace(0.0, 1.0, overlap, dtype=np.float32)[None, :]
+        max_total = int(handle.fitted_totals[: handle.n].max())
+        body = window_frames * spf
+        prev_tail: Optional[np.ndarray] = None
+        for emitted in range(0, max_total, window_frames):
+            with torch.inference_mode():
+                audio = model.decode_window(
+                    *prep, handle.ref, 2 * emitted, 2 * window_frames,
+                    2 * halo_frames,
+                )
+            chunk = audio.float().cpu().numpy()  # [B, (window + halo) * spf]
+            out = chunk[:, :body].copy()
+            if prev_tail is not None:
+                out[:, :overlap] = (
+                    prev_tail * (1.0 - ramp) + out[:, :overlap] * ramp
+                )
+            prev_tail = chunk[:, body: body + overlap]
+            frames_here = min(window_frames, max_total - emitted)
+            yield out[: handle.n, : frames_here * spf]
 
     def synthesize_batch(
         self,

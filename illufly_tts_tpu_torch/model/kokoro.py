@@ -6,15 +6,20 @@
   returns float durations + token-level hidden states.
 - Stage B ``decode_frames``: everything at a fixed frame budget F, with the
   alignment as a batched gather (``ops/align.py``).
+- Streaming stage B: ``decode_prepare`` once per batch (sequence-global
+  state), then ``decode_window`` per window of generator frames.
 
 Public tensors keep the JAX layouts ([B, T, C], [B, F]) so the two
-packages compare like with like.
+packages compare like with like; the one exception is the decoder trunk's
+output that ``decode_prepare`` hands to ``decode_window``, which stays in
+the decoder's channels-first layout [B, C, 2F].
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops.align import expand_by_duration, frame_mask
@@ -83,13 +88,9 @@ class KokoroModel(nn.Module):
                                               dim=1)
         audio = audio * sample_mask
         if pcm16:
-            # on-device 16-bit PCM with the WAV encoder's peak policy:
-            # normalize only when the peak clips
-            peak = audio.abs().amax(dim=-1, keepdim=True)
-            scale = torch.where(peak > 1.0, 1.0 / peak.clamp(min=1e-9),
-                                torch.ones_like(peak))
-            audio = torch.clamp(audio * scale, -1.0, 1.0)
-            audio = torch.round(audio * 32767.0).to(torch.int16)
+            # on-device 16-bit PCM with the WAV encoder's peak policy
+            audio = torch.round(peak_normalize(audio) * 32767.0).to(
+                torch.int16)
         return audio, fmask
 
     def _stage_b_front(self, input_ids, mask, d, pred_dur, ref_s,
@@ -109,6 +110,103 @@ class KokoroModel(nn.Module):
         t_en = self.text_encoder(input_ids, mask)               # [B, T, H]
         asr = expand_by_duration(t_en, pred_dur, num_frames)    # [B, F, H]
         return asr, f0, n_energy, fmask, dec_style
+
+    # ---- streaming stage B: prepare once, render windows --------------------
+
+    def decode_prepare(
+        self,
+        input_ids: torch.Tensor,    # [B, T]
+        mask: torch.Tensor,         # [B, T]
+        d: torch.Tensor,            # [B, T, hidden + style] from stage A
+        pred_dur: torch.Tensor,     # [B, T] int frames
+        ref_s: torch.Tensor,        # [B, 2 * style_dim]
+        num_frames: int,
+        pitch: Optional[torch.Tensor] = None,
+    ):
+        """Everything with sequence-global state, at the full frame budget:
+        the prosody BiLSTM (f0n_train), the decoder trunk, and the harmonic
+        source's cumulative phase. -> (x [B, C, 2F] channels-first, f0
+        masked [B, 2F], cum_rad [B, 2F], mask [B, 2F]) for
+        ``decode_window``."""
+        cfg = self.config
+        asr, f0, n_energy, fmask, dec_style = self._stage_b_front(
+            input_ids, mask, d, pred_dur, ref_s, num_frames, pitch=pitch
+        )
+        x, f0_m, cur_mask = self.decoder.trunk(
+            asr.transpose(1, 2), f0, n_energy, dec_style, fmask)
+        # phase (revolutions) accumulated before each generator frame: each
+        # of the 2F positions spans samples_per_frame / 2 samples of
+        # constant f0
+        per_pos = f0_m.float() * (cfg.samples_per_frame // 2
+                                  / cfg.sample_rate)
+        cum_rad = torch.cumsum(per_pos, dim=-1) - per_pos
+        return x, f0_m, cum_rad, cur_mask
+
+    def decode_window(
+        self,
+        x: torch.Tensor,          # [B, C, 2F] trunk output
+        f0_m: torch.Tensor,       # [B, 2F]
+        cum_rad: torch.Tensor,    # [B, 2F]
+        cur_mask: torch.Tensor,   # [B, 2F]
+        ref_s: torch.Tensor,      # [B, 2 * style_dim]
+        start: int,               # generator-frame (2F) units
+        window: int,              # generator-frame units
+        halo: int,                # generator-frame units
+        pcm16: bool = False,
+    ) -> torch.Tensor:
+        """Render generator frames [start, start + window + halo) with
+        ``halo`` frames of context on each side; the right halo is returned
+        too, so consecutive windows overlap by ``halo`` frames for the
+        caller's crossfade. -> audio [B, (window + halo) * 300].
+
+        The generator's AdaIN layers are instance norms over time, so a
+        window's statistics differ from the full render's: the output is an
+        approximation that converges as windows grow. Phase (``cum_rad``)
+        and conv context (the halo) are exact."""
+        cfg = self.config
+        dec_style = ref_s[:, : cfg.style_split]
+        span = window + 2 * halo
+        # no left padding (pad frames would bias-propagate through the
+        # convs; clamping lets the first windows see the true start); the
+        # right gets `halo` zero frames past the masked end, where the
+        # full render's own zero padding lies
+        x_p = F.pad(x, (0, halo))
+        f0_p, rad_p, mask_p = (F.pad(t, (0, halo))
+                               for t in (f0_m, cum_rad, cur_mask))
+        total_p = x_p.shape[-1]
+        lo = _slice_start(start - halo, span, total_p)
+        rad0 = rad_p[:, lo]  # phase accumulated before the slice
+        audio = self.decoder.generate(
+            x_p[:, :, lo:lo + span], dec_style, f0_p[:, lo:lo + span],
+            mask_p[:, lo:lo + span], rad_offset=rad0)
+        spi = cfg.samples_per_frame // 2
+        emit = window + halo  # window body + right overlap for crossfade
+        a0 = _slice_start((start - lo) * spi, emit * spi, audio.shape[1])
+        audio = audio[:, a0:a0 + emit * spi]
+        m0 = _slice_start(start, emit, total_p)
+        audio = audio * mask_p[:, m0:m0 + emit].repeat_interleave(spi, dim=1)
+        if pcm16:
+            # hard clip, not the batch path's peak normalization: the
+            # stream is causal, the global peak unknown at window k, and a
+            # per-window gain would pump across chunk boundaries
+            audio = torch.round(torch.clamp(audio, -1.0, 1.0) * 32767.0)
+            audio = audio.to(torch.int16)
+        return audio
+
+
+def peak_normalize(audio: torch.Tensor) -> torch.Tensor:
+    """The WAV encoder's peak policy, per row: scale to a peak of 1 only
+    when the peak clips, then clip to [-1, 1]."""
+    peak = audio.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(peak > 1.0, 1.0 / peak.clamp(min=1e-9),
+                        torch.ones_like(peak))
+    return torch.clamp(audio * scale, -1.0, 1.0)
+
+
+def _slice_start(start: int, size: int, total: int) -> int:
+    """A slice start clamped into [0, total - size], as a JAX dynamic
+    slice clamps it."""
+    return min(max(start, 0), total - size)
 
 
 def _fit_durations(pred_dur: torch.Tensor, budget: int) -> torch.Tensor:

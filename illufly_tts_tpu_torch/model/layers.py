@@ -19,6 +19,13 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.adain_snake_conv import (
+    adain_snake_conv,
+    adain_snake_conv_carry,
+    fold_adain,
+    instance_moments,
+)
+
 
 def _reverse_index(mask: torch.Tensor) -> torch.Tensor:
     """[B, T] prefix mask -> per-row time index that reverses each row's
@@ -193,7 +200,15 @@ class AdainResBlk1d(nn.Module):
 class AdaSnakeResBlock(nn.Module):
     """Generator residual block: dilated convs + AdaIN + Snake
     (iSTFTNet AdaINResBlock1 shape), channels-first. The alphas are
-    ``[1, C, 1]`` (flax keeps ``[1, 1, C]``)."""
+    ``[1, C, 1]`` (flax keeps ``[1, 1, C]``).
+
+    Each AdaIN -> snake -> mask -> conv step runs as one fused call
+    (``ops/adain_snake_conv.py``): the masked instance moments are folded
+    with the style affine into a per-(batch, channel) scale/shift, which
+    the call applies before its conv. ``conv1_j`` (dilation d_j) goes to
+    the walking-carry kernel, ``conv2_j`` (dilation 1) to the halo-tile
+    kernel. As in ``AdaIN1d``, the moments of conv1's output are taken over
+    the unmasked conv output with masked weights."""
 
     def __init__(self, channels: int, kernel: int, dilations: Sequence[int],
                  style_dim: int):
@@ -211,19 +226,24 @@ class AdaSnakeResBlock(nn.Module):
             self.add_module(f"conv2_{j}", Conv1d(channels, channels, kernel))
 
     def forward(self, x, s, mask: Optional[torch.Tensor] = None):
-        m = mask[:, None, :].to(x.dtype) if mask is not None else None
+        if mask is None:
+            mask = torch.ones(x.shape[0], x.shape[2], dtype=x.dtype,
+                              device=x.device)
+        mask = mask.to(x.dtype).contiguous()
+
+        def step(fused, h, j, n):
+            adain = getattr(self, f"adain{n}_{j}")
+            conv = getattr(self, f"conv{n}_{j}")
+            gamma, beta = adain.fc(s).chunk(2, dim=1)
+            scale, shift = fold_adain(*instance_moments(h, mask), gamma,
+                                      beta)
+            return fused(h, mask, scale, shift,
+                         getattr(self, f"alpha{n}_{j}").reshape(-1),
+                         conv.weight.permute(2, 1, 0).contiguous(),
+                         conv.bias, conv.kernel_size[0], conv.dilation[0])
+
         for j in range(len(self.dilations)):
-            h = getattr(self, f"adain1_{j}")(x, s, mask)
-            h = snake(h, getattr(self, f"alpha1_{j}"))
-            if m is not None:
-                h = h * m
-            h = getattr(self, f"conv1_{j}")(h)
-            h = getattr(self, f"adain2_{j}")(h, s, mask)
-            h = snake(h, getattr(self, f"alpha2_{j}"))
-            if m is not None:
-                h = h * m
-            h = getattr(self, f"conv2_{j}")(h)
-            x = x + h
-            if m is not None:
-                x = x * m
+            h = step(adain_snake_conv_carry, x, j, 1)
+            h = step(adain_snake_conv, h, j, 2)
+            x = (x + h) * mask[:, None, :]
         return x

@@ -43,16 +43,21 @@ class SourceModule(nn.Module):
         self.merge = nn.Linear(harmonics + 1, 1)
 
     def forward(self, f0_up: torch.Tensor,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                rad_offset: Optional[torch.Tensor] = None) -> torch.Tensor:
         """f0_up [B, L] (Hz per sample) -> harmonic source [B, L].
 
         ``generator`` given: add the SineGen noise (voiced dither
         ``noise_std``, unvoiced ``sine_amp / 3``), drawn from it. The main
-        path passes none and is deterministic."""
+        path passes none and is deterministic. ``rad_offset`` [B]: the
+        phase (in revolutions) accumulated before this window, which keeps
+        the windowed stream phase-continuous with the full render."""
         h = torch.arange(1, self.harmonics + 2, dtype=torch.float32,
                          device=f0_up.device)
         # phase accumulates in f32: cumsum of instantaneous frequency
         rad = torch.cumsum(f0_up.float() / self.sample_rate, dim=-1)
+        if rad_offset is not None:
+            rad = rad + rad_offset.float()[:, None]
         phase = 2.0 * math.pi * rad[..., None] * h
         uv = (f0_up > self.voiced_threshold).float()[..., None]
         sines = self.sine_amp * torch.sin(phase) * uv
@@ -97,8 +102,9 @@ class Generator(nn.Module):
             c_prev = c_cur
         self.conv_post = Conv1d(c_prev, spec, 7)
 
-    def forward(self, x, s, f0, mask=None, generator=None):
-        """x [B, C0, 2F], s [B, S], f0 [B, 2F] -> audio [B, 2F * 300]."""
+    def forward(self, x, s, f0, mask=None, generator=None, rad_offset=None):
+        """x [B, C0, 2F], s [B, S], f0 [B, 2F] -> audio [B, 2F * 300].
+        ``rad_offset`` [B]: see ``SourceModule``."""
         n_fft, hop = self.n_fft, self.hop
         if mask is not None:
             f0 = f0 * mask.to(f0.dtype)
@@ -106,7 +112,7 @@ class Generator(nn.Module):
 
         # harmonic source at the sample rate
         f0_up = f0.repeat_interleave(self.up_total * hop, dim=1)  # [B, L]
-        har = self.source(f0_up, generator)
+        har = self.source(f0_up, generator, rad_offset)
         # pad so the harmonic frame count == x length * up_total
         har = F.pad(har[:, None, :], (0, n_fft - hop), mode="reflect")[:, 0]
         mag_h, ph_h = stft_magphase(har.float(), n_fft, hop)
@@ -177,8 +183,10 @@ class Decoder(nn.Module):
                     cur_mask = cur_mask.repeat_interleave(2, dim=1)
         return x, f0_curve, cur_mask
 
-    def generate(self, x, s, f0_curve, cur_mask=None, generator=None):
-        return self.generator(x, s, f0_curve, cur_mask, generator)
+    def generate(self, x, s, f0_curve, cur_mask=None, generator=None,
+                 rad_offset=None):
+        return self.generator(x, s, f0_curve, cur_mask, generator,
+                              rad_offset)
 
     def forward(self, asr, f0_curve, n_curve, s, frame_mask=None,
                 generator=None):

@@ -6,14 +6,21 @@
 
 Builds the port's ``Synthesizer(KokoroConfig(), seed=0)`` on the card
 (float32, TF32 off), warms each request once, then runs each request
-(``dispatch -> collect``, pcm16) under ``torch.profiler`` and reports:
-wall time, device busy time (sum of kernel times; one stream), the device
-idle share ``1 - busy / wall``, kernel time by class, and the top kernels.
+under ``torch.profiler`` and reports: wall time, device busy time (sum of
+kernel times; one stream), the device idle share ``1 - busy / wall``,
+kernel time by class (each hand-written kernel its own class), and the top
+kernels.
 
 Requests: ``b1`` (one zh string, 807 frames, frame bucket 1024) and ``b8``
-(eight strings of ~18 tokens, frame bucket 512); seed 0's random weights
-give ~25 frames per token. Prints one JSON line; ``--out`` also writes it
-to a file.
+(eight strings of ~18 tokens, frame bucket 512), each ``dispatch ->
+collect`` in pcm16; and ``b1_stream``, the ``b1`` string streamed windowed
+(``stream_decode(exact=False)``, 64-frame windows with 16-frame halos),
+which also reports the time to the first chunk and the device span of
+``decode_prepare`` and of each window's Generator (``decode_window``),
+between CUDA events recorded around each call (idle gaps included).
+Every request also reports the kernel wrappers' own launch counts. Seed
+0's random weights give ~25 frames per token. Prints one JSON line;
+``--out`` also writes it to a file.
 """
 from __future__ import annotations
 
@@ -29,6 +36,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 CLASSES = (  # first match wins
     ("istft_oa", r"istft_oa"),
+    ("adain_snake_conv_carry", r"adain_snake_conv_carry"),
+    ("adain_snake_conv", r"adain_snake_conv_tile"),
     ("lstm", r"(?i)rnn|lstm"),
     ("conv_gemm", r"(?i)conv|gemm|xmma|cutlass|implicit|sm90|wgrad|dgrad"),
     ("elementwise_reduce", r"(?i)elementwise|reduce|vectorized|unrolled"
@@ -40,6 +49,21 @@ REQUESTS = {
     "b8": ["ni→xau↓ma tʰjɛn→.", "hello wɝld, ðɪs.",
            "tsʰɤ↘ʂɨ↘i↗kɤ↘ ðə.", "tʃən→pu↗tsʰwo↘ hi."] * 2,
 }
+STREAM = ("b1_stream", "b1", 64, 16)  # name, texts, window, halo frames
+SPANS = ("decode_prepare", "decode_window")
+
+
+def spanned(fn, spans, torch):
+    """``fn`` with a pair of CUDA events recorded around each call."""
+    def call(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+    return call
 
 
 def kernel_times(prof, torch):
@@ -70,6 +94,8 @@ def main() -> int:
         return 1
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
     from illufly_tts_tpu_torch.model.config import KokoroConfig
+    from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
+    from illufly_tts_tpu_torch.ops import istft_oa as oa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -79,18 +105,48 @@ def main() -> int:
     ).stdout.strip()
     synth = Synthesizer(KokoroConfig(), seed=0)
     synth.register_random_voice("v", seed=0)
+    spans = {name: [] for name in SPANS}
+    for name in SPANS:
+        setattr(synth.model, name,
+                spanned(getattr(synth.model, name), spans[name], torch))
     result = {"card": card, "torch": torch.__version__, "requests": {}}
-    for name, texts in REQUESTS.items():
+
+    def batch(texts, voices):
+        h = synth.dispatch(texts, voices)
+        synth.collect(h)
+        return h, {}
+
+    def stream(texts, voices):
+        t0 = time.perf_counter()
+        h = synth.dispatch(texts, voices)
+        gen = synth.stream_decode(h, STREAM[2], STREAM[3], exact=False)
+        next(gen)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        return h, {"windows": 1 + len(list(gen)),
+                   "first_chunk_ms": first_ms}
+
+    runs = [(name, texts, batch) for name, texts in REQUESTS.items()]
+    runs.append((STREAM[0], REQUESTS[STREAM[1]], stream))
+    for name, texts, run in runs:
         voices = ["v"] * len(texts)
-        synth.collect(synth.dispatch(texts, voices))  # warm
+        run(texts, voices)  # warm
         torch.cuda.synchronize()
+        oa.launches = 0
+        asc.launches.update({k: 0 for k in asc.launches})
+        for span in spans.values():
+            span.clear()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            h = synth.dispatch(texts, voices)
-            synth.collect(h)
+            h, extra = run(texts, voices)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+        extra["launches"] = {"istft_oa": oa.launches, **asc.launches}
+        for key, span in spans.items():
+            if span:
+                extra[f"{key}_span_ms_each"] = sum(
+                    s.elapsed_time(e) for s, e in span) / len(span)
+                extra[f"{key}_calls"] = len(span)
         kernels = kernel_times(prof, torch)
         busy = sum(us for _, us, _ in kernels)
         by_class = {c: 0.0 for c, _ in CLASSES}
@@ -111,6 +167,7 @@ def main() -> int:
                 {"name": k[:120], "ms": us / 1e3, "count": n}
                 for k, us, n in kernels[:12]
             ],
+            **extra,
         }
     line = json.dumps(result)
     print(line)

@@ -73,7 +73,7 @@ def test_formats_and_rendered_durations(synth):
         assert peak > 1.0
         assert np.abs(f32[i] / peak * 32767.0 - pcm[i]).max() <= 1.0
     with pytest.raises(ValueError, match="unsupported audio format"):
-        synth.dispatch(TEXTS, ["golden_voice"] * 2, fmt="mulaw8k")
+        synth.dispatch(TEXTS, ["golden_voice"] * 2, fmt="opus")
 
 
 def test_voice_files(tmp_path):
