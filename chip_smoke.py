@@ -12,7 +12,9 @@ From the root of a checkout. It
 3. holds each kernel against its plain PyTorch version on the card
    (max-abs tolerance stated per kernel) and times kernel, plain version
    and, where there is one, the nearest single PyTorch call, with CUDA
-   events;
+   events, beside the kernel's bound (the conv kernels' at four shapes, the
+   halo tile's at each column tile, and the carry kernel's walking chunks
+   beside one-tile chunks);
 4. drives the batch path — ``Synthesizer.synthesize_batch`` and
    ``dispatch -> launch_decode -> collect`` at the full ``KokoroConfig()``
    with seeded random weights and a random voice — on three requests in
@@ -45,9 +47,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 (non
-# tensor-core) operations/s
+# tensor-core) operations/s, dense TF32 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 ISTFT_TOL = 1e-4       # max-abs, as the JAX package holds its Pallas iSTFT
 CONV_TOL = 1e-4        # max-abs over (1 + max|plain|): f32 sums of C k terms
@@ -70,6 +73,10 @@ CONV_KERNELS = {
 # the timed shape: B=8 at frame bucket 512, the Generator's last stage
 TIMED = {"batch": 8, "channels": 128, "length": 61440, "kernel": 11,
          "dilation": {"adain_snake_conv": 1, "adain_snake_conv_carry": 5}}
+# more timed (B, C, L, k, d): b8's stage 0 (d as at the timed shape), and
+# the two stages of a B=1 stream window (64 + 2 * 16 frames)
+MORE_SHAPES = ((8, 256, 10240, 11, None), (1, 256, 1920, 7, 3),
+               (1, 128, 11520, 11, 5))
 
 
 def fail(msg: str) -> None:
@@ -100,9 +107,9 @@ def cuda_ms(fn, reps, flush):
     return statistics.median(times)
 
 
-def bound(n_bytes, n_ops):
+def bound(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     """(least ms on the card, what bounds it)."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -187,11 +194,11 @@ def check_conv(torch, asc, name, cases):
     return worst
 
 
-def time_conv(torch, F, asc, name, flush):
-    """kernel, plain and cuDNN-conv ms at the timed shape + its bound."""
-    batch, channels, length, k = (TIMED[key] for key in
-                                  ("batch", "channels", "length", "kernel"))
-    d = TIMED["dilation"][name]
+def time_conv(torch, F, asc, name, flush, shape, reps=20):
+    """Kernel, plain and cuDNN-conv ms at (B, C, L, k, d) + its bounds: the
+    3xTF32 tensor-core bound of the kernels' arithmetic (three TF32
+    products per multiply-add) and the f32 CUDA-core bound beside it."""
+    batch, channels, length, k, d = shape
     args = conv_inputs(torch, batch, channels, length, k, seed=99)
     fn = getattr(asc, name)
     h = torch.randn_like(args[0])  # an activated input for cuDNN alone
@@ -203,24 +210,72 @@ def time_conv(torch, F, asc, name, flush):
         "library_ms": lambda: F.conv1d(h, w_t, args[6], padding=pad,
                                        dilation=d),
     }
-    if name == "adain_snake_conv_carry":  # one tile a chunk: no carry
-        calls["one_tile_chunks_ms"] = lambda: asc._launch(
-            asc._library().adain_snake_conv_carry_f32, *args, k, d, 1)
     for call in calls.values():
         call()
-    out = {key: cuda_ms(call, 20, flush) for key, call in calls.items()}
+    out = {key: cuda_ms(call, reps, flush) for key, call in calls.items()}
     n_bytes = (2 * args[0].numel() + args[1].numel() + args[5].numel()) * 4
-    out["bound_ms"], out["bound_by"] = bound(
-        n_bytes, 2 * batch * length * channels * channels * k)
+    n_ops = 2 * batch * length * channels * channels * k
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, 3 * n_ops,
+                                             TF32_OPS_PER_S)
+    out["bound_f32_ms"], _ = bound(n_bytes, n_ops)
     out["shape"] = [batch, channels, length, k, d]
-    log(f"{name} at B={batch}, C={channels}, L={length}, k={k}, d={d}: "
-        f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, cuDNN "
-        f"conv alone {out['library_ms']:.4f} ms, bound "
-        f"{out['bound_ms']:.4f} ms ({out['bound_by']})"
-        + (f"; one-tile chunks {out['one_tile_chunks_ms']:.4f} ms, "
-           f"default {asc.carry_tiles_per_chunk(batch, channels, length, 132)}"
-           " tiles a chunk" if "one_tile_chunks_ms" in out else ""))
+    out["tile_len"] = asc.column_tile(batch, channels, length,
+                                      torch.cuda.get_device_properties(0)
+                                      .multi_processor_count)
+    log(f"{name} at B={batch}, C={channels}, L={length}, k={k}, d={d} "
+        f"({out['tile_len']}-column tiles): kernel {out['ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.4f} ms, cuDNN conv alone "
+        f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"(3xTF32 {out['bound_by']}; f32 {out['bound_f32_ms']:.4f} ms)")
     return out
+
+
+def time_carry_walk(torch, asc, flush, shape):
+    """The carry kernel's walking chunks (the wrapper's choice where the
+    carry buffer fits: about one wave of CTAs, one per SM) against one-tile
+    chunks, which carry nothing; both must give the same bits."""
+    batch, channels, length, k, d = shape
+    args = conv_inputs(torch, batch, channels, length, k, seed=99)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tile_len = asc.column_tile(batch, channels, length, sms)
+    walk = asc.carry_tiles_per_chunk(batch, channels, channels, length, k, d,
+                                     sms, tile_len)
+    if walk == 1:
+        fail(f"carry kernel: no walking chunks at {list(shape)}")
+    fn = asc._library().adain_snake_conv_carry_f32
+
+    def launch(per_chunk):
+        return asc._launch(fn, *args, k, d, tile_len, per_chunk)
+
+    if not torch.equal(launch(walk), launch(1)):
+        fail(f"carry kernel: {walk}-tile chunks differ from one-tile chunks")
+    out = {"shape": list(shape),
+           "one_tile_chunks_ms": cuda_ms(lambda: launch(1), 20, flush),
+           "walking_chunks_ms": cuda_ms(lambda: launch(walk), 20, flush),
+           "walking_tiles_per_chunk": walk}
+    log(f"adain_snake_conv_carry at {list(shape)}: one-tile chunks "
+        f"{out['one_tile_chunks_ms']:.4f} ms, {walk}-tile walking chunks "
+        f"{out['walking_chunks_ms']:.4f} ms (bitwise equal; the wrapper "
+        "walks)")
+    return out
+
+
+def time_tile_lens(torch, asc, flush, shape):
+    """The halo-tile kernel at each column tile, one tile a CTA: the source
+    of the wrapper's ``TILE_COST``."""
+    batch, channels, length, k, d = shape
+    args = conv_inputs(torch, batch, channels, length, k, seed=99)
+    fn = asc._library().adain_snake_conv_f32
+    out = {}
+    for tile_len in asc.TILE_LENS:
+        asc._launch(fn, *args, k, d, tile_len, 1)
+        out[tile_len] = cuda_ms(lambda: asc._launch(fn, *args, k, d,
+                                                    tile_len, 1), 10, flush)
+    tiles = {tl: -(-length // tl) for tl in out}
+    log(f"adain_snake_conv at {list(shape)} by column tile: " + ", ".join(
+        f"{tl}: {ms:.4f} ms ({ms / out[128] * tiles[128] / tiles[tl]:.2f} "
+        "of a 128-column CTA's time)" for tl, ms in out.items()))
+    return {"shape": list(shape), "ms_by_tile_len": out}
 
 
 def recorded(fn, shapes):
@@ -324,7 +379,24 @@ def main() -> None:
     conv = {name: {"max_abs_err": check_conv(torch, asc, name, cases)}
             for name in CONV_KERNELS}
     for name in CONV_KERNELS:
-        conv[name].update(time_conv(torch, F, asc, name, flush))
+        d = TIMED["dilation"][name]
+        conv[name].update(time_conv(torch, F, asc, name, flush, (
+            TIMED["batch"], TIMED["channels"], TIMED["length"],
+            TIMED["kernel"], d)))
+        conv[name]["more_shapes"] = [
+            time_conv(torch, F, asc, name, flush,
+                      (*shape[:4], shape[4] or d), reps=10)
+            for shape in MORE_SHAPES]
+    carry = conv["adain_snake_conv_carry"]
+    # walking needs its carry buffer beside the two stage buffers: k <= 7
+    # at C = 128 (at the timed k = 11, d = 5 the wrapper launches one-tile
+    # chunks)
+    carry["chunks"] = [time_carry_walk(torch, asc, flush, shape)
+                       for shape in ((8, 128, 61440, 7, 3),
+                                     (8, 128, 61440, 3, 5))]
+    conv["adain_snake_conv"]["tile_lens"] = [
+        time_tile_lens(torch, asc, flush, shape) for shape in
+        (conv["adain_snake_conv"]["shape"], (1, 256, 1920, 7, 3))]
 
     # ---- 4. batch path ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -545,8 +617,10 @@ def main() -> None:
             "stage_b_runs": stage_b_runs,
             "role": role,
             **conv[name],
-            "library_note": "F.conv1d (cuDNN) alone on an already "
-                            "activated input, with the bias",
+            "library_note": "F.conv1d (cuDNN, TF32 off) alone on an "
+                            "already activated input, with the bias",
+            "bound_note": "3xTF32 tensor cores (3 x 2 B L C^2 k / 495e12); "
+                          "bound_f32_ms: f32 CUDA cores (/ 67e12)",
             "card": card,
         })
     log(json.dumps({"kernels": rows}))

@@ -1,4 +1,5 @@
-// Fused AdaIN affine + Snake + mask + dilated 1-D conv, Hopper (sm_90a).
+// Fused AdaIN affine + Snake + mask + dilated 1-D conv on Hopper's tensor
+// cores (sm_90a): an implicit GEMM in 3xTF32 with warpgroup MMAs (wgmma).
 //
 // Replaces two TPU kernels that compute the same function:
 //   illufly_tts_tpu/ops/pallas/fused_conv.py::adain_snake_conv
@@ -10,80 +11,132 @@
 //   z = x * scale + shift
 //   h = mask * (z + sin^2(alpha z) / alpha),   h = 0 outside [0, L)
 //   y[b, o, l] = bias[o] + sum_t sum_c w[t, c, o] * h[b, c, l + t d - pad]
-// with pad = (k - 1) d / 2 (centered zero padding) and f32 accumulation.
-// The zero padding lies outside [0, L), not outside the mask: a masked
-// column inside [0, L) contributes 0 only because the prologue multiplies
-// by the mask.
+// with pad = (k - 1) d / 2 (centered zero padding). The zero padding lies
+// outside [0, L), not outside the mask: a masked column inside [0, L)
+// contributes 0 only because the prologue multiplies by the mask.
 //
-// Bound: operations. Per output the kernel does C_in * k FMAs (1408 at
-// C = 128, k = 11) against ~8 bytes of input and output, far above the
-// card's f32 operations-per-byte balance (67e12 / 3.35e12 = 20), so the
-// least time is 2 B L C_in C_out k / 67e12 (2.64 ms at B=8, C=128,
-// L=61440, k=11). The design keeps the activated tensor h out of device
-// memory, feeds the FMAs from registers with few shared-memory wavefronts
-// per FMA, and hides the loads behind the FMAs.
+// Numerics: 3xTF32. Every operand v (h and w) is split in two TF32 values,
+//   hi = tf32(v)        (cvt.rna.tf32.f32: round to nearest, ties away)
+//   lo = tf32(v - hi)   (v - hi is exact in f32)
+// and the tensor cores accumulate lo*hi + hi*lo + hi*hi in f32 (the lo*lo
+// term, ~2^-22 of the product, is dropped). Each product is then good to
+// ~2^-21 relative, against ~2^-10 for one TF32 pass: a single pass misses
+// the f32 tolerance 1e-4 (1 + max|y|) over C_in k = 2816 terms, the split
+// meets it. The tensor cores' f32 sums round less finely than f32 FMAs,
+// which the kernel's error against the f32 version shows. The sum order per
+// output is fixed (input-channel stage, tap, lo*hi, hi*lo, hi*hi) and
+// nothing is atomic: runs are bitwise repeatable, whatever tiling the
+// wrapper picks.
 //
-// Common design. A CTA (128 threads, 4 warps) owns a 64-channel by
-// 128-column tile of y and keeps it in registers: the 32 lanes of a warp
-// take neighbouring columns (lane + 32 j, j < 4) and each warp 16 of the
-// 64 output channels, so each thread holds 16 x 4 sums. The CTA walks C_in
-// in stages of 8 channels through a two-buffer pipeline in dynamic shared
-// memory: while stage q is activated and multiplied, cp.async brings stage
-// q + 1 (the k weight taps [k, 8, 64], raw x over the tile's window
-// [l0 - pad, l0 + 128 + pad), the mask window, and the channels' scale,
-// shift and alpha; zero-filled outside [0, L) and past C_in / C_out). A
-// stage is activated in place (the prologue: scale, shift, alpha, precise
-// sinf, mask), then every thread runs the k taps as a register-tiled outer
-// product: per tap and input channel, 16 weights (four 16-byte loads that
-// every lane of the warp shares) times 4 window values (four loads of 32
-// neighbouring words, free of bank conflicts), 64 FMAs. Stores are
-// 128-byte rows per warp.
+// Bound: operations. Per output the function does C_in k multiply-adds
+// against ~8 bytes of input and output; 3xTF32 triples them on the tensor
+// cores: the least time is 3 * 2 B L C_in C_out k / 495e12 (1.073 ms at
+// B=8, C=128, L=61440, k=11), against 2 B L C_in C_out k / 67e12 (2.644
+// ms) for f32 FMAs on the CUDA cores.
 //
-// Halo tile (counterpart of fused_conv.py). One CTA per (output tile of 128
-// columns, output-channel tile, batch row). The Pallas kernel reads each
+// The GEMM: M = output columns of a tile, N = output channels, K = (tap t,
+// input channel c). A[l][c] = h[c][l + t d] is the activated window shifted
+// by t d rows, B[c][o] = w[t][c][o]. A CTA owns TL columns by 128 output
+// channels, so each window column is activated once for 128 output
+// channels (twice at C_out = 256, by two CTAs). It walks C_in in stages of
+// CK = 8 channels, one k8 step of m64nNk8.f32.tf32.tf32 per tap, with both
+// operands in shared memory in wgmma's K-major layout without swizzle:
+// 16-byte rows of 4 channels, rows contiguous, the two k4 halves LBO apart.
+// A tap's A is the window t d rows on, a 16-byte step of the descriptor's
+// start address: the shift costs nothing.
+//
+// Warp specialization (512 threads, one CTA per SM, ~215 KB of shared
+// memory at k = 11). Two consumer warpgroups only issue the MMAs (33 per
+// stage at k = 11) on stage buffer q % 2, keeping one stage in flight, and
+// hold the f32 sums in registers: warpgroup g takes rows 64 g of a
+// 128-column tile (n128), or output channels 64 g of a 64-column tile
+// (n64). Two producer warpgroups fill the other buffer with stage q + 1:
+// B by cp.async from the split weights (split_weights_kernel, one pass per
+// launch over w, writes hi and lo already in the stage layout), and A by
+// activating the raw window (scale, shift, alpha, precise sinf, mask) that
+// cp.async brought one stage earlier, split as hi and lo. Named barriers
+// hand each buffer over (FULL) and back (EMPTY). With the producers' code
+// between the MMAs' commit and wait in one warpgroup, ptxas serialized every
+// MMA; with the roles apart it issues them back to back.
+//
+// Halo tile (counterpart of fused_conv.py). The Pallas kernel reads each
 // block and, through a second BlockSpec, its successor, so the halo is in
-// VMEM; here each CTA loads its own window including both halos (L2 serves
-// the neighbours' overlap). Halo columns are activated by both
-// neighbouring CTAs.
+// VMEM; here every column tile loads and activates its own window
+// including both halos. A CTA takes a run of consecutive tiles of one
+// (128-channel output tile, batch row), about one wave of CTAs, so the
+// pipeline fills and drains once per run rather than once per tile.
 //
 // Walking carry (counterpart of carry_conv.py). One CTA per (chunk of
 // consecutive tiles, output-channel tile, batch row); it walks its chunk
 // left to right, the pipeline running on across tile boundaries. At the
 // chunk's first tile the whole window is loaded and activated: zeros at
-// l < 0, otherwise the real preceding columns (carry_conv.py's
-// _reset_carry at i == 0, generalised to chunks that start inside the
-// sequence). At every later tile only the 128 new columns
-// [l0 + pad, l0 + 128 + pad) are loaded and activated; the 2 pad columns
-// [l0 - pad, l0 + pad) come from a carry buffer in shared memory that holds
-// them for every input channel (the role of tail_ref / hprev_ref, which
-// carry h across the sequential TPU grid in VMEM). After a stage is
-// activated, its window columns [128, 128 + 2 pad) are saved as the next
-// tile's carry (the rotation at the end of _kernel). Columns past L are
+// l < 0, otherwise the real preceding columns (carry_conv.py's _reset_carry
+// at i == 0, generalised to chunks that start inside the sequence). At
+// every later tile only the TL new columns [l0 + pad, l0 + TL + pad) are
+// loaded and activated; the 2 pad columns [l0 - pad, l0 + pad) come, as hi
+// and lo, from a carry buffer in shared memory that holds them for every
+// input channel (the role of tail_ref / hprev_ref, which carry h across the
+// sequential TPU grid in VMEM). After a stage is activated, its window rows
+// [TL, TL + 2 pad) are saved as the next tile's carry. Columns past L are
 // zero, as the conv's right padding (_zero_right_halo on the flush step);
 // no flush step is needed because a CTA emits a tile as soon as its window
-// is complete (the TPU kernel emits block i - 1 at step i). So no input
-// column is loaded or activated twice inside a chunk. The carry buffer
-// costs occupancy (C_in * 2 pad floats per CTA), so the wrapper keeps
-// chunks short while the grid still covers every SM.
+// is complete. The carry buffer (2 C_in 2 pad words) must fit beside the
+// two stages: the wrapper walks chunks of about one wave where it does
+// (k <= 7 on the main path; 4-7% faster than one-tile chunks on an H100,
+// PERF.md) and launches one-tile chunks, which carry nothing, where it
+// does not (k = 11 at C = 128).
 //
-// Plain C interface, loaded with ctypes: each entry point returns
-// cudaGetLastError() after its launch.
+// Plain C interface, loaded with ctypes: each entry point launches the
+// weight split and its conv kernel on the caller's stream and returns
+// cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TL = 128;               // output columns per tile
-constexpr int TCO = 64;               // output channels per tile
-constexpr int CK = 8;                 // input channels per stage
-constexpr int THREADS = 128;          // 4 warps: 32 column lanes each
-constexpr int LPT = TL / 32;          // columns per thread
-constexpr int CPT = TCO / 4;          // output channels per thread (warp)
+constexpr int TN = 128;          // output channels per CTA (GEMM N)
+constexpr int CK = 8;            // input channels per stage (one k8 step)
+constexpr int CONSUMERS = 256;   // two warpgroups issue the MMAs
+constexpr int PRODUCERS = 256;   // two warpgroups prepare the operands
+constexpr int THREADS = CONSUMERS + PRODUCERS;
 constexpr int KMAX = 11;
 constexpr int PADMAX = 32;
-constexpr int HW = TL + 2 * PADMAX;   // window row stride in shared memory
-constexpr int MAX_SMEM = 232448;      // per block on sm_90
+constexpr int TLMAX = 128;       // largest column tile
+constexpr int MAX_SMEM = 232448; // per block on sm_90
+
+// Operands in shared memory, in the K-major layout without swizzle that
+// wgmma reads: 16-byte rows of 4 channels (one half of the k8 step), rows
+// contiguous (8-row core matrices 128 bytes apart), the two halves LBO
+// apart. B, per tap: [2 halves][TN rows][4] words; A: [2 halves][window
+// rows][4], so the tap t's A starts t d rows on.
+constexpr int B_HALF = TN * 4;   // words
+constexpr int B_TAP = 2 * B_HALF;
+__host__ __device__ constexpr int a_half(int tl) {
+  return (tl + 2 * PADMAX) * 4;  // words
+}
+
+// A stage's operands in words: B as hi and lo for k taps, then A as hi
+// and lo.
+__host__ __device__ constexpr int stage_words(int tl, int k) {
+  return 2 * k * B_TAP + 4 * a_half(tl);
+}
+
+// A stage's raw inputs in words: x [CK][HWX] (row stride 8 mod 32), the
+// mask window [HWX], and scale, shift, alpha for its CK channels (4 CK keeps
+// 16-byte alignment).
+constexpr int HWX = TLMAX + 2 * PADMAX + 8;
+constexpr int RAW_WORDS = CK * HWX + HWX + 4 * CK;
+
+// Dynamic shared memory: two stages of operands, two of raw inputs, then
+// the carry ([C_in][2 pad] hi and lo words).
+__host__ __device__ constexpr int carry_offset(int tl, int k) {
+  return 2 * stage_words(tl, k) + 2 * RAW_WORDS;
+}
+
+int smem_bytes(int tl, int k, int carry_words) {
+  return (carry_offset(tl, k) + carry_words) * 4;
+}
 
 struct Args {
   const float* x;
@@ -94,25 +147,95 @@ struct Args {
   const float* w;
   const float* bias;
   float* y;
+  uint32_t* w_split;  // B, split and laid out by split_weights_kernel
   int c_in, c_out, length, k, dilation, pad;
 };
 
-// One pipeline stage in shared memory, in floats: the weight taps
-// [k][CK][TCO], the window [CK][HW] (raw x as loaded, then h in place), the
-// mask window [HW], and scale, shift, alpha for the stage's CK channels.
-__host__ __device__ constexpr int stage_floats(int k) {
-  return k * CK * TCO + CK * HW + HW + 4 * CK;
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
 }
 
-// Asynchronous copies to shared memory; with valid false the destination
-// is filled with zeros and nothing is read.
-__device__ __forceinline__ void copy16(float* dst, const float* src,
-                                       bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
+// wgmma matrix descriptor of a K-major operand without swizzle starting at
+// p: leading byte offset (between the two k4 halves) lbo, stride byte
+// offset (between 8-row core matrices) 128.
+__device__ __forceinline__ uint64_t smem_desc(const uint32_t* p, int lbo) {
+  const uint32_t addr = (uint32_t)__cvta_generic_to_shared(p);
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(128 >> 4) << 32);
 }
 
+// D += A B on the tensor cores, one warpgroup: m64 nN k8, TF32 in, f32
+// accumulation, both operands from shared memory.
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t da,
+                                      uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_n128(d, da, db);
+  } else {
+    wgmma_n64(d, da, db);
+  }
+}
+
+// Asynchronous 4-byte copy to shared memory; with valid false the
+// destination is filled with zero and nothing is read.
 __device__ __forceinline__ void copy4(float* dst, const float* src,
                                       bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
@@ -120,212 +243,320 @@ __device__ __forceinline__ void copy4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
-// Start loading input channels [ci0, ci0 + CK) of the window whose column
-// 0 is global column l_first: weights, x and mask at window columns
-// [col_lo, TL + 2 pad), and the channels' scale, shift and alpha. Zeros
-// outside [0, L) and past C_in / C_out.
-__device__ __forceinline__ void start_stage(const Args& a, int b, int ci0,
-                                            int co0, int l_first, int col_lo,
-                                            float* st) {
-  float* w_s = st;
-  float* x_s = st + a.k * CK * TCO;
-  float* m_s = x_s + CK * HW;
-  float* p_s = m_s + HW;
-  {  // a tap's [CK, TCO] block is one 16-byte vector per thread
-    const int c = threadIdx.x / (TCO / 4);
-    const int o = 4 * (threadIdx.x % (TCO / 4));
-    const int ci = ci0 + c;
-    const int co = co0 + o;
-    const bool vec = ci < a.c_in && co + 3 < a.c_out && a.c_out % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(a.w) % 16 == 0;
-    for (int t = 0; t < a.k; ++t) {
-      const float* src = a.w + ((int64_t)t * a.c_in + ci) * a.c_out + co;
-      float* dst = w_s + (t * CK + c) * TCO + o;
-      if (vec) {
-        copy16(dst, src, true);
-      } else {
-        for (int e = 0; e < 4; ++e) {
-          const bool ok = ci < a.c_in && co + e < a.c_out;
-          copy4(dst + e, ok ? src + e : a.w, ok);
-        }
-      }
-    }
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous MMAs.
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Named barriers (0 is __syncthreads): FULL + s, stage buffer s holds its
+// operands; EMPTY + s, the MMAs are done with buffer s (producers and
+// consumers, THREADS); RAW, among producers.
+constexpr int FULL = 1, EMPTY = 3, RAW = 5;
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// B for every (output-channel tile, stage) as the stages hold it: w[t][c]
+// [o] split as hi and lo, [co tile][stage][hi, lo][t][half][TN rows][4]
+// words, zeros past C_in / C_out. One pass before the conv kernel, so its
+// producers copy each stage's B as one contiguous block.
+__global__ void split_weights_kernel(const Args a, int stages) {
+  const int64_t block = 2 * (int64_t)a.k * B_TAP;  // words per stage
+  const int64_t total = (int64_t)((a.c_out + TN - 1) / TN) * stages * block;
+  uint32_t* out = a.w_split;
+  for (int64_t i = blockIdx.x * (int64_t)blockDim.x + threadIdx.x;
+       i < total / 2; i += (int64_t)gridDim.x * blockDim.x) {
+    // i runs over [co tile][stage][t][half][row][4]; hi and lo written
+    const int64_t tile_stage = i / (block / 2);
+    const int within = (int)(i % (block / 2));
+    const int t = within / B_TAP;
+    const int half = (within / B_HALF) % 2;
+    const int n = (within / 4) % TN;
+    const int ci = (int)(tile_stage % stages) * CK + half * 4 + within % 4;
+    const int co = (int)(tile_stage / stages) * TN + n;
+    const float v = ci < a.c_in && co < a.c_out
+                        ? a.w[((int64_t)t * a.c_in + ci) * a.c_out + co]
+                        : 0.f;
+    const uint32_t h = to_tf32(v);
+    out[tile_stage * block + within] = h;
+    out[tile_stage * block + block / 2 + within] =
+        to_tf32(v - __uint_as_float(h));
   }
-  const int width = TL + 2 * a.pad;
-  const int ncol = width - col_lo;
-  for (int i = threadIdx.x; i < CK * ncol; i += THREADS) {
-    const int c = i / ncol;
-    const int col = col_lo + i - c * ncol;
-    const int ci = ci0 + c;
-    const int l = l_first + col;
-    const bool ok = ci < a.c_in && l >= 0 && l < a.length;
-    copy4(x_s + c * HW + col,
-          ok ? a.x + ((int64_t)b * a.c_in + ci) * a.length + l : a.x, ok);
-  }
-  for (int col = col_lo + threadIdx.x; col < width; col += THREADS) {
-    const int l = l_first + col;
-    const bool ok = l >= 0 && l < a.length;
-    copy4(m_s + col, ok ? a.mask + (int64_t)b * a.length + l : a.mask, ok);
-  }
-  if (threadIdx.x < 3 * CK) {
-    const int c = threadIdx.x % CK;
-    const int which = threadIdx.x / CK;  // scale, shift, alpha
-    const int ci = ci0 + c;
-    const bool ok = ci < a.c_in;
-    const float* src = which == 2 ? a.alpha + ci
-                                  : (which == 0 ? a.scale : a.shift) +
-                                        (int64_t)b * a.c_in + ci;
-    copy4(p_s + which * CK + c, ok ? src : a.alpha, ok);
+}
+
+// Start copying stage (co tile, ci0 / CK)'s B, hi then lo, into b_hi.
+__device__ __forceinline__ void start_weights(const Args& a, int co_tile,
+                                              int ci0, int p,
+                                              uint32_t* b_hi) {
+  const int stages = (a.c_in + CK - 1) / CK;
+  const int chunks = 2 * a.k * B_TAP / 4;  // 16-byte chunks
+  const uint32_t* src =
+      a.w_split + ((int64_t)co_tile * stages + ci0 / CK) * (4 * chunks);
+  for (int i = p; i < chunks; i += PRODUCERS) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(b_hi + 4 * i);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src + 4 * i));
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-// In place over window columns [col_lo, TL + 2 pad): raw x -> h =
-// mask * (z + sin^2(alpha z) / alpha), z = x * scale + shift. The mask
-// window is zero outside [0, L), so h is zero there; channels past C_in
-// stay zero.
-__device__ __forceinline__ void activate(const Args& a, int ci0, int col_lo,
-                                         float* st) {
-  float* x_s = st + a.k * CK * TCO;
-  const float* m_s = x_s + CK * HW;
-  const float* p_s = m_s + HW;
-  const int ncol = TL + 2 * a.pad - col_lo;
-  for (int i = threadIdx.x; i < CK * ncol; i += THREADS) {
-    const int c = i / ncol;
-    const int col = col_lo + i - c * ncol;
+// Start loading the raw inputs of input channels [ci0, ci0 + CK) for
+// window rows [row_lo, width), row 0 at global column l_first: x, mask,
+// and the channels' scale, shift and alpha. Producer p takes channel p / 32
+// and every 32nd row from p % 32. Zeros outside [0, L) and past C_in.
+__device__ __forceinline__ void start_raw(const Args& a, int b, int ci0,
+                                          int l_first, int row_lo, int width,
+                                          int p, float* raw) {
+  float* m_s = raw + CK * HWX;
+  float* p_s = m_s + HWX;
+  const int c = p / 32;
+  const int ci = ci0 + c;
+  const float* x_row = a.x + ((int64_t)b * a.c_in + ci) * a.length;
+  for (int row = row_lo + p % 32; row < width; row += 32) {
+    const int l = l_first + row;
+    const bool ok = ci < a.c_in && l >= 0 && l < a.length;
+    copy4(raw + c * HWX + row, ok ? x_row + l : a.x, ok);
+  }
+  for (int row = row_lo + p; row < width; row += PRODUCERS) {
+    const int l = l_first + row;
+    const bool ok = l >= 0 && l < a.length;
+    copy4(m_s + row, ok ? a.mask + (int64_t)b * a.length + l : a.mask, ok);
+  }
+  if (p < 3 * CK) {
+    const int cp = p % CK;
+    const int which = p / CK;  // scale, shift, alpha
+    const bool ok = ci0 + cp < a.c_in;
+    const float* src = which == 2 ? a.alpha + ci0 + cp
+                                  : (which == 0 ? a.scale : a.shift) +
+                                        (int64_t)b * a.c_in + ci0 + cp;
+    copy4(p_s + which * CK + cp, ok ? src : a.alpha, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// A rows [row_lo, width) from the raw inputs: h = mask * (z + sin^2(alpha
+// z) / alpha), z = x * scale + shift, split as hi and lo. The mask window
+// is zero outside [0, L), so h is zero there; channels past C_in are zero.
+// Producer p = 64 r + 32 half + 4 j + cc takes channel 4 half + cc and rows
+// 8 r + j + 32 i: a warp covers 8 rows by 4 channels, so both its raw-x
+// reads (row stride 8 mod 32) and its A stores hit 32 banks.
+__device__ __forceinline__ void activate(const Args& a, int ci0, int row_lo,
+                                         int width, int half_words, int p,
+                                         const float* raw, uint32_t* a_hi,
+                                         uint32_t* a_lo) {
+  const float* m_s = raw + CK * HWX;
+  const float* p_s = m_s + HWX;
+  const int cc = p % 4;
+  const int half = (p / 32) % 2;
+  const int c = 4 * half + cc;
+  const bool valid = ci0 + c < a.c_in;
+  const float sc = p_s[c];
+  const float sh = p_s[CK + c];
+  const float al = p_s[2 * CK + c];
+  const float inv = 1.0f / al;
+  uint32_t* hi = a_hi + half * half_words + cc;
+  uint32_t* lo = a_lo + half * half_words + cc;
+  for (int row = row_lo + 8 * (p / 64) + (p / 4) % 8; row < width;
+       row += 32) {
     float h = 0.f;
-    if (ci0 + c < a.c_in) {
-      const float z = x_s[c * HW + col] * p_s[c] + p_s[CK + c];
-      const float al = p_s[2 * CK + c];
+    if (valid) {
+      const float z = raw[c * HWX + row] * sc + sh;
       const float s = sinf(al * z);
-      h = (z + (1.0f / al) * (s * s)) * m_s[col];
+      h = (z + inv * (s * s)) * m_s[row];
     }
-    x_s[c * HW + col] = h;
+    const uint32_t h_hi = to_tf32(h);
+    hi[row * 4] = h_hi;
+    lo[row * 4] = to_tf32(h - __uint_as_float(h_hi));
   }
 }
 
-__device__ __forceinline__ void accumulate(const Args& a, const float* st,
-                                           float (&acc)[CPT][LPT]) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const float* h_s = st + a.k * CK * TCO;
-  for (int t = 0; t < a.k; ++t) {
-    const float* hrow = h_s + lane + t * a.dilation;
-    const float* wrow = st + t * CK * TCO + warp * CPT;
-#pragma unroll
-    for (int c = 0; c < CK; ++c) {
-      float wv[CPT];  // one warp-wide broadcast per 4 weights
-#pragma unroll
-      for (int q = 0; q < CPT / 4; ++q) {
-        const float4 w4 =
-            *reinterpret_cast<const float4*>(wrow + c * TCO + 4 * q);
-        wv[4 * q] = w4.x;
-        wv[4 * q + 1] = w4.y;
-        wv[4 * q + 2] = w4.z;
-        wv[4 * q + 3] = w4.w;
-      }
-      float hv[LPT];  // 32 neighbouring words per load: no bank conflicts
-#pragma unroll
-      for (int j = 0; j < LPT; ++j) hv[j] = hrow[c * HW + 32 * j];
-#pragma unroll
-      for (int i = 0; i < CPT; ++i) {
-#pragma unroll
-        for (int j = 0; j < LPT; ++j) acc[i][j] = fmaf(wv[i], hv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void store(const Args& a, int b, int co0, int l0,
-                                      float (&acc)[CPT][LPT]) {
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-#pragma unroll
-  for (int i = 0; i < CPT; ++i) {
-    const int co = co0 + warp * CPT + i;
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) {
-      const int l = l0 + lane + 32 * j;
-      if (co < a.c_out && l < a.length) {
-        a.y[((int64_t)b * a.c_out + co) * a.length + l] = acc[i][j] + a.bias[co];
-      }
-      acc[i][j] = 0.f;
+// Moves A rows between the window and the carry buffer ([C_in][2 pad]
+// words, hi then lo): in, rows [0, 2 pad) from the carry; out, rows [TL,
+// TL + 2 pad) to it. Producer p takes channel p / 32.
+__device__ __forceinline__ void carry_rows(const Args& a, int ci0, int row0,
+                                           bool in, int half_words, int p,
+                                           uint32_t* a_hi, uint32_t* a_lo,
+                                           uint32_t* carry) {
+  const int halo = 2 * a.pad;
+  const int c = p / 32;
+  const int ci = ci0 + c;
+  uint32_t* c_hi = carry + ci * halo;
+  uint32_t* c_lo = carry + (a.c_in + ci) * halo;
+  const int word = (c / 4) * half_words + row0 * 4 + c % 4;
+  for (int j = p % 32; j < halo; j += 32) {
+    if (in) {
+      a_hi[word + 4 * j] = ci < a.c_in ? c_hi[j] : 0u;
+      a_lo[word + 4 * j] = ci < a.c_in ? c_lo[j] : 0u;
+    } else if (ci < a.c_in) {
+      c_hi[j] = a_hi[word + 4 * j];
+      c_lo[j] = a_lo[word + 4 * j];
     }
   }
 }
 
 // Tiles [tile0, tile_end) of one (output-channel tile, batch row), walked
-// left to right through a two-stage pipeline over (tile, input-channel
-// stage): stage q + 1 loads while stage q is activated and multiplied.
-// With ``carry`` (the walking-carry kernel) every tile after the first
-// takes its left 2 pad columns of h from the carry buffer and loads only
-// its new columns; without it (the halo-tile kernel, one tile) the whole
-// window is loaded.
+// left to right, C_in in stages of CK channels, through two operand
+// buffers. The producer warpgroups fill buffer q % 2 with stage q's
+// operands while the consumer warpgroups multiply stage q - 1 from the
+// other; raw inputs run one stage further ahead by cp.async. Consumer
+// warpgroup g takes rows 64 g of a 128-column tile (WM = 2, n128), or output
+// channels 64 g of a 64-column tile (WM = 1, n64). With ``carry`` every tile
+// after the first takes its left 2 pad rows from the carry buffer.
+template <int WM>
 __device__ __forceinline__ void run(const Args& a, int tile0, int tile_end,
-                                    float* carry) {
-  extern __shared__ __align__(16) float smem[];
-  const int co0 = blockIdx.y * TCO;
+                                    uint32_t* carry) {
+  constexpr int TL = 64 * WM;
+  constexpr int N = 64 * WM;       // output channels per warpgroup
+  constexpr int R = N / 2;         // accumulators per thread
+  extern __shared__ __align__(128) uint32_t smem[];
+  const int co0 = blockIdx.y * TN;
   const int b = blockIdx.z;
   const int halo = 2 * a.pad;
+  const int half_words = a_half(TL);
   const int stages = (a.c_in + CK - 1) / CK;  // per tile
   const int n = (tile_end - tile0) * stages;
-  const int per_stage = stage_floats(a.k);
-  float acc[CPT][LPT];
-#pragma unroll
-  for (int i = 0; i < CPT; ++i)
-#pragma unroll
-    for (int j = 0; j < LPT; ++j) acc[i][j] = 0.f;
+  const int words = stage_words(TL, a.k);
 
-  start_stage(a, b, 0, co0, tile0 * TL - a.pad, 0, smem);
-  for (int q = 0; q < n; ++q) {
-    const int tile = tile0 + q / stages;
-    const int ci0 = (q % stages) * CK;
-    const int col_lo = tile == tile0 ? 0 : halo;
-    float* st = smem + (q & 1) * per_stage;
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // stage q landed; stage q - 1 is done with its buffer
-    if (q + 1 < n) {
-      const int tile1 = tile0 + (q + 1) / stages;
-      start_stage(a, b, ((q + 1) % stages) * CK, co0, tile1 * TL - a.pad,
-                  tile1 == tile0 ? 0 : halo, smem + ((q + 1) & 1) * per_stage);
+  if (threadIdx.x >= CONSUMERS) {  // ---- producers
+    const int p = threadIdx.x - CONSUMERS;
+    float* raw0 = reinterpret_cast<float*>(smem + 2 * words);
+    auto start = [&](int q) {
+      const int tile = tile0 + q / stages;
+      start_raw(a, b, (q % stages) * CK, tile * TL - a.pad,
+                tile == tile0 || carry == nullptr ? 0 : halo, TL + halo, p,
+                raw0 + (q & 1) * RAW_WORDS);
+    };
+    start(0);
+    for (int q = 0; q < n; ++q) {
+      const int s = q & 1;
+      const int tile = tile0 + q / stages;
+      const int ci0 = (q % stages) * CK;
+      const int row_lo = tile == tile0 || carry == nullptr ? 0 : halo;
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      bar_sync(RAW, PRODUCERS);  // raw q landed; raw q + 1's buffer is free
+      if (q >= 2) bar_sync(EMPTY + s, THREADS);  // stage q - 2's MMAs done
+      uint32_t* b_hi = smem + s * words;
+      uint32_t* a_hi = b_hi + 2 * a.k * B_TAP;
+      uint32_t* a_lo = a_hi + 2 * half_words;
+      start_weights(a, blockIdx.y, ci0, p, b_hi);
+      if (q + 1 < n) start(q + 1);
+      if (row_lo > 0)
+        carry_rows(a, ci0, 0, true, half_words, p, a_hi, a_lo, carry);
+      activate(a, ci0, row_lo, TL + halo, half_words, p,
+               raw0 + s * RAW_WORDS, a_hi, a_lo);
+      if (carry != nullptr && tile + 1 < tile_end) {
+        // rows [TL, TL + 2 pad) are the next tile's left halo
+        bar_sync(RAW, PRODUCERS);
+        carry_rows(a, ci0, TL, false, half_words, p, a_hi, a_lo, carry);
+      }
+      // this thread's B copies have landed (raw q + 1 may still fly)
+      if (q + 1 < n) {
+        asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+      } else {
+        asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+      }
+      // generic-proxy writes, visible to the tensor cores' async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_arrive(FULL + s, THREADS);
     }
-    float* x_s = st + a.k * CK * TCO;
-    if (col_lo > 0) {  // the carried, already activated left columns
-      for (int i = threadIdx.x; i < CK * halo; i += THREADS) {
-        const int c = i / halo;
-        const int j = i - c * halo;
-        x_s[c * HW + j] = ci0 + c < a.c_in ? carry[(ci0 + c) * halo + j] : 0.f;
+    return;
+  }
+
+  // ---- consumers: the warpgroup index as a warp-uniform value keeps the
+  // descriptors in uniform registers
+  const int g = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row0 = WM == 2 ? 64 * g : 0;
+  const int n0 = WM == 2 ? 0 : 64 * g;
+  float acc[R];
+  for (int tile = tile0; tile < tile_end; ++tile) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    for (int ci0 = 0; ci0 < a.c_in; ci0 += CK) {
+      const int q = (tile - tile0) * stages + ci0 / CK;
+      const int s = q & 1;
+      const uint32_t* b_hi = smem + s * words;
+      const uint32_t* b_lo = b_hi + a.k * B_TAP;
+      const uint32_t* a_hi = b_hi + 2 * a.k * B_TAP;
+      const uint32_t* a_lo = a_hi + 2 * half_words;
+      // tap t: A starts t d rows (16 bytes each) on, B one tap (B_TAP
+      // words) on; the descriptors' address field counts 16 bytes
+      uint64_t ah = smem_desc(a_hi + row0 * 4, half_words * 4);
+      uint64_t al = smem_desc(a_lo + row0 * 4, half_words * 4);
+      uint64_t bh = smem_desc(b_hi + n0 * 4, B_HALF * 4);
+      uint64_t bl = smem_desc(b_lo + n0 * 4, B_HALF * 4);
+      bar_sync(FULL + s, THREADS);  // stage q's operands are in buffer s
+      fence_operands(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int t = 0; t < a.k; ++t) {
+        wgmma<N>(acc, al, bh);
+        wgmma<N>(acc, ah, bl);
+        wgmma<N>(acc, ah, bh);
+        ah += a.dilation;
+        al += a.dilation;
+        bh += B_TAP / 4;
+        bl += B_TAP / 4;
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (ci0 > 0) {  // stage q - 1's MMAs are done: release its buffer
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (q + 1 < n) bar_arrive(EMPTY + (s ^ 1), THREADS);
       }
     }
-    activate(a, ci0, col_lo, st);
-    __syncthreads();
-    if (carry != nullptr && tile + 1 < tile_end) {
-      // window columns [TL, TL + 2 pad) are the next tile's left halo
-      for (int i = threadIdx.x; i < CK * halo; i += THREADS) {
-        const int c = i / halo;
-        const int j = i - c * halo;
-        if (ci0 + c < a.c_in) carry[(ci0 + c) * halo + j] = x_s[c * HW + TL + j];
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(acc);
+    {  // the tile's last stage
+      const int q = (tile - tile0 + 1) * stages - 1;
+      if (q + 2 < n) bar_arrive(EMPTY + (q & 1), THREADS);
+    }
+    // accumulator layout of m64nN: warp w of the warpgroup holds rows 16 w
+    // + lane / 4 (+ 8 for e >= 2), columns 8 j + 2 (lane % 4) + e % 2
+    const int lane = threadIdx.x % 32;
+    const int col0 =
+        tile * TL + row0 + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+    const int o0 = co0 + n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = col0 + 8 * (e / 2);
+        const int o = o0 + 8 * j + e % 2;
+        if (o < a.c_out && l < a.length)
+          a.y[((int64_t)b * a.c_out + o) * a.length + l] =
+              acc[4 * j + e] + a.bias[o];
       }
     }
-    accumulate(a, st, acc);
-    if (q % stages == stages - 1) store(a, b, co0, tile * TL, acc);
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
-adain_snake_conv_tile_kernel(const Args a) {
-  run(a, blockIdx.x, blockIdx.x + 1, nullptr);
+template <int WM>
+__global__ void __launch_bounds__(THREADS, 1)
+adain_snake_conv_tile_kernel(const Args a, int tiles_per_cta) {
+  constexpr int TL = 64 * WM;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int tile0 = blockIdx.x * tiles_per_cta;
+  run<WM>(a, tile0, min(n_tiles, tile0 + tiles_per_cta), nullptr);
 }
 
-__global__ void __launch_bounds__(THREADS, 4)
+template <int WM>
+__global__ void __launch_bounds__(THREADS, 1)
 adain_snake_conv_carry_kernel(const Args a, int tiles_per_chunk) {
-  extern __shared__ __align__(16) float smem[];
+  constexpr int TL = 64 * WM;
+  extern __shared__ __align__(128) uint32_t smem[];
   const int n_tiles = (a.length + TL - 1) / TL;
   const int tile0 = blockIdx.x * tiles_per_chunk;
   const int tile_end = min(n_tiles, tile0 + tiles_per_chunk);
-  // [C_in][2 pad] after the two stage buffers, when chunks walk
-  float* carry = tiles_per_chunk > 1 ? smem + 2 * stage_floats(a.k) : nullptr;
-  run(a, tile0, tile_end, carry);
+  // after the stages and the raw buffers, when chunks walk
+  uint32_t* carry =
+      tiles_per_chunk > 1 ? smem + carry_offset(TL, a.k) : nullptr;
+  run<WM>(a, tile0, tile_end, carry);
 }
 
 bool valid(int batch, int c_in, int c_out, int length, int k, int dilation) {
@@ -333,15 +564,31 @@ bool valid(int batch, int c_in, int c_out, int length, int k, int dilation) {
     return false;
   if (k <= 0 || k > KMAX || dilation <= 0 || ((k - 1) * dilation) % 2)
     return false;
-  return (c_out + TCO - 1) / TCO <= 65535 && (k - 1) * dilation / 2 <= PADMAX;
+  return (c_out + TN - 1) / TN <= 65535 && (k - 1) * dilation / 2 <= PADMAX;
 }
 
 Args make_args(const float* x, const float* mask, const float* scale,
                const float* shift, const float* alpha, const float* w,
-               const float* bias, float* y, int c_in, int c_out, int length,
-               int k, int dilation) {
-  return Args{x, mask, scale, shift, alpha, w, bias, y, c_in, c_out, length,
-              k, dilation, (k - 1) * dilation / 2};
+               const float* bias, float* y, uint32_t* w_split, int c_in,
+               int c_out, int length, int k, int dilation) {
+  return Args{x,     mask,  scale,  shift, alpha, w,        bias,
+              y,     w_split, c_in, c_out, length, k, dilation,
+              (k - 1) * dilation / 2};
+}
+
+// Words of the split weights a launch needs (the wrapper allocates them).
+int64_t split_words(int c_in, int c_out, int k) {
+  return (int64_t)((c_out + TN - 1) / TN) * ((c_in + CK - 1) / CK) * 2 * k *
+         B_TAP;
+}
+
+int split_weights(const Args& a, cudaStream_t stream) {
+  const int stages = (a.c_in + CK - 1) / CK;
+  const int64_t items = split_words(a.c_in, a.c_out, a.k) / 2;
+  const int64_t want = (items + 255) / 256;
+  const int blocks = want < 4096 ? (int)want : 4096;
+  split_weights_kernel<<<blocks, 256, 0, stream>>>(a, stages);
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory of a launch; raises the kernel's limit past the
@@ -356,52 +603,98 @@ int prepare_smem(Kernel kernel, int bytes) {
   return bytes;
 }
 
+template <int WM>
+int launch_tile(const Args& a, int batch, int tiles_per_cta,
+                cudaStream_t stream) {
+  constexpr int TL = 64 * WM;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int smem = prepare_smem(adain_snake_conv_tile_kernel<WM>,
+                                smem_bytes(TL, a.k, 0));
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_tiles + tiles_per_cta - 1) / tiles_per_cta,
+                  (a.c_out + TN - 1) / TN, batch);
+  adain_snake_conv_tile_kernel<WM><<<grid, THREADS, smem, stream>>>(
+      a, tiles_per_cta);
+  return (int)cudaGetLastError();
+}
+
+template <int WM>
+int launch_carry(const Args& a, int batch, int tiles_per_chunk,
+                 cudaStream_t stream) {
+  constexpr int TL = 64 * WM;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+  const int carry_words = tiles_per_chunk > 1 ? 2 * a.c_in * 2 * a.pad : 0;
+  const int smem = prepare_smem(adain_snake_conv_carry_kernel<WM>,
+                                smem_bytes(TL, a.k, carry_words));
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(chunks, (a.c_out + TN - 1) / TN, batch);
+  adain_snake_conv_carry_kernel<WM><<<grid, THREADS, smem, stream>>>(
+      a, tiles_per_chunk);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int adain_snake_conv_f32(const float* x, const float* mask,
                                     const float* scale, const float* shift,
                                     const float* alpha, const float* w,
-                                    const float* bias, float* y, int batch,
-                                    int c_in, int c_out, int length, int k,
-                                    int dilation, void* stream) {
-  if (!valid(batch, c_in, c_out, length, k, dilation))
+                                    const float* bias, float* y,
+                                    uint32_t* w_split, int batch, int c_in,
+                                    int c_out, int length, int k,
+                                    int dilation, int tile_len,
+                                    int tiles_per_cta, void* stream) {
+  if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_cta <= 0)
     return (int)cudaErrorInvalidValue;
-  const int smem =
-      prepare_smem(adain_snake_conv_tile_kernel, 2 * stage_floats(k) * 4);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((length + TL - 1) / TL, (c_out + TCO - 1) / TCO, batch);
-  adain_snake_conv_tile_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      make_args(x, mask, scale, shift, alpha, w, bias, y, c_in, c_out, length,
-                k, dilation));
-  return (int)cudaGetLastError();
+  const Args a = make_args(x, mask, scale, shift, alpha, w, bias, y, w_split,
+                           c_in, c_out, length, k, dilation);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = split_weights(a, s);
+  if (rc != 0) return rc;
+  switch (tile_len) {
+    case 64: return launch_tile<1>(a, batch, tiles_per_cta, s);
+    case 128: return launch_tile<2>(a, batch, tiles_per_cta, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int adain_snake_conv_carry_f32(
     const float* x, const float* mask, const float* scale, const float* shift,
     const float* alpha, const float* w, const float* bias, float* y,
-    int batch, int c_in, int c_out, int length, int k, int dilation,
-    int tiles_per_chunk, void* stream) {
+    uint32_t* w_split, int batch, int c_in, int c_out, int length, int k,
+    int dilation, int tile_len, int tiles_per_chunk, void* stream) {
   if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_chunk <= 0)
     return (int)cudaErrorInvalidValue;
-  const int n_tiles = (length + TL - 1) / TL;
-  const int chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
-  const int carry_floats = tiles_per_chunk > 1 ? c_in * (k - 1) * dilation : 0;
-  const int smem = prepare_smem(adain_snake_conv_carry_kernel,
-                                (2 * stage_floats(k) + carry_floats) * 4);
-  if (smem == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(chunks, (c_out + TCO - 1) / TCO, batch);
-  adain_snake_conv_carry_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      make_args(x, mask, scale, shift, alpha, w, bias, y, c_in, c_out, length,
-                k, dilation),
-      tiles_per_chunk);
-  return (int)cudaGetLastError();
+  const Args a = make_args(x, mask, scale, shift, alpha, w, bias, y, w_split,
+                           c_in, c_out, length, k, dilation);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = split_weights(a, s);
+  if (rc != 0) return rc;
+  switch (tile_len) {
+    case 64: return launch_carry<1>(a, batch, tiles_per_chunk, s);
+    case 128: return launch_carry<2>(a, batch, tiles_per_chunk, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
-// {output columns per tile, output channels per tile, largest k, largest
-// pad}: the wrapper checks its own constants against these.
+// Dynamic shared memory of a launch in bytes (0 when it does not fit):
+// the wrapper's chunk choice checks its own formula against this one.
+extern "C" int adain_snake_conv_smem_bytes(int tile_len, int k,
+                                           int carry_words) {
+  const int bytes = smem_bytes(tile_len, k, carry_words);
+  return bytes <= MAX_SMEM ? bytes : 0;
+}
+
+// Words of the split-weight scratch a launch needs.
+extern "C" int64_t adain_snake_conv_split_words(int c_in, int c_out, int k) {
+  return split_words(c_in, c_out, k);
+}
+
+// {largest column tile, output channels per tile, largest k, largest pad}:
+// the wrapper checks its own constants against these.
 extern "C" void adain_snake_conv_geometry(int* out) {
-  out[0] = TL;
-  out[1] = TCO;
+  out[0] = TLMAX;
+  out[1] = TN;
   out[2] = KMAX;
   out[3] = PADMAX;
 }

@@ -38,6 +38,8 @@ CLASSES = (  # first match wins
     ("istft_oa", r"istft_oa"),
     ("adain_snake_conv_carry", r"adain_snake_conv_carry"),
     ("adain_snake_conv", r"adain_snake_conv_tile"),
+    # the weight split both conv wrappers launch before their kernel
+    ("conv_weight_split", r"split_weights_kernel"),
     ("lstm", r"(?i)rnn|lstm"),
     ("conv_gemm", r"(?i)conv|gemm|xmma|cutlass|implicit|sm90|wgrad|dgrad"),
     ("elementwise_reduce", r"(?i)elementwise|reduce|vectorized|unrolled"

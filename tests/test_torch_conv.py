@@ -135,24 +135,154 @@ def test_wrappers_on_cpu_take_plain_path():
             asc.adain_snake_conv_carry(*bad_args)
 
 
-@pytest.mark.parametrize("batch,c_out,length", [
+@pytest.mark.parametrize("k,d,length", CASES)
+def test_3xtf32_emulation_matches_jax_reference(k, d, length):
+    """The kernels' split arithmetic (emulated on the CPU) against the JAX
+    reference, at the plain version's tolerance."""
+    x, mask, gamma, beta, alpha, w, bias = map(torch.from_numpy,
+                                               _inputs(k, length))
+    x_t = x.transpose(1, 2).contiguous()
+    scale, shift = asc.fold_adain(*asc.instance_moments(x_t, mask), gamma,
+                                  beta)
+    _close(asc.adain_snake_conv_3xtf32_plain(x_t, mask, scale, shift, alpha,
+                                             w, bias, k, d).numpy(),
+           adain_snake_conv_reference(*_jax_args(k, length), k, d))
+
+
+def test_tf32_round_is_cvt_rna():
+    """Round to nearest on 10 mantissa bits, ties away from zero, sign
+    kept; TF32 values, zeros and powers of two pass unchanged."""
+    ulp = 2.0 ** -10
+    v = torch.tensor([1.0, 1.0 + ulp / 2, 1.0 + ulp / 2 - 2.0 ** -23,
+                      -(1.0 + ulp / 2), 1.0 + 3 * ulp / 2, 0.0, -0.0,
+                      2.0 ** -30, 3.0 + ulp / 4])
+    want = [1.0, 1.0 + ulp, 1.0, -(1.0 + ulp), 1.0 + 2 * ulp, 0.0, -0.0,
+            2.0 ** -30, 3.0]
+    out = asc.tf32_round(v)
+    assert out.tolist() == want
+    assert torch.signbit(out[6])
+    rng = np.random.RandomState(3)
+    r = torch.from_numpy(rng.randn(4096).astype(np.float32) * 100)
+    hi = asc.tf32_round(r)
+    assert torch.equal(asc.tf32_round(hi), hi)  # idempotent
+    assert ((hi.view(torch.int32) & 0x1FFF) == 0).all()
+    assert float(((r - hi).abs() / r.abs()).max()) <= 2.0 ** -11
+
+
+def test_3xtf32_split_holds_the_f32_tolerance_and_tf32_does_not():
+    """Why the kernels split: at C=256, k=11, d=5 (2816 terms a sum), 3xTF32
+    stays within chip_smoke's CONV_TOL of the f32 version, 1e-4 * (1 +
+    max|plain|), and a single TF32 pass does not."""
+    rng = np.random.RandomState(0)
+    batch, c, length, k, d = 2, 256, 1000, 11, 5
+
+    def t(a):
+        return torch.from_numpy(a.astype(np.float32))
+
+    args = (t(rng.randn(batch, c, length) * 0.5),
+            t((np.arange(length)[None] < np.array([[length], [700]]))
+              .astype(np.float32)),
+            t(1 + 0.1 * rng.randn(batch, c)), t(0.1 * rng.randn(batch, c)),
+            t(np.abs(rng.randn(c)) + 0.5),
+            t(rng.randn(k, c, c) / np.sqrt(c * k)), t(0.1 * rng.randn(c)))
+    plain = asc.adain_snake_conv_plain(*args, k, d)
+    tol = 1e-4 * (1.0 + float(plain.abs().max()))
+    split = asc.adain_snake_conv_3xtf32_plain(*args, k, d)
+    single = asc.adain_snake_conv_3xtf32_plain(*args, k, d, passes=1)
+    assert float((split - plain).abs().max()) <= tol / 10
+    assert float((single - plain).abs().max()) > tol
+    with pytest.raises(ValueError, match="passes"):
+        asc.adain_snake_conv_3xtf32_plain(*args, k, d, passes=2)
+
+
+SHAPES = [
     (8, 128, 61440),   # b8 stage 1 (F 512)
     (8, 256, 10240),   # b8 stage 0
     (1, 128, 11520),   # one stream window (64 + 2 * 16 frames), stage 1
     (1, 256, 1920),    # one stream window, stage 0
     (1, 128, 37),      # shorter than one tile
-])
-def test_carry_chunks_cover_the_card(batch, c_out, length):
-    """Chunks tile each row exactly; the grid reaches the 132 SMs of an
-    H100 wherever the row has the tiles for it, and chunks stay long
-    where it has more."""
+]
+
+
+def _busiest_sm(batch, c_out, length, sms, tile_len):
+    ctas = batch * -(-c_out // asc.COUT_TILE) * -(-length // tile_len)
+    return -(-ctas // sms) * asc.TILE_COST[tile_len]
+
+
+@pytest.mark.parametrize("batch,c_out,length", SHAPES)
+def test_column_tile_finishes_the_busiest_sm_first(batch, c_out, length):
+    """The chosen tile minimises the busiest SM's work on an H100's 132
+    SMs, and among equal choices is the longest."""
     sms = 132
-    per_chunk = asc.carry_tiles_per_chunk(batch, c_out, length, sms)
-    n_tiles = -(-length // asc.TILE_LEN)
+    tile_len = asc.column_tile(batch, c_out, length, sms)
+    assert tile_len in asc.TILE_LENS
+    best = min(_busiest_sm(batch, c_out, length, sms, tl)
+               for tl in asc.TILE_LENS)
+    assert _busiest_sm(batch, c_out, length, sms, tile_len) == best
+    assert all(tl <= tile_len for tl in asc.TILE_LENS
+               if _busiest_sm(batch, c_out, length, sms, tl) == best)
+
+
+def test_column_tile_by_shape():
+    """Large shapes take the 128-column tile; a B=1 stage-0 stream window
+    (15 tiles of 128, two output-channel tiles) spreads over 60 CTAs of 64
+    columns."""
+    assert asc.column_tile(8, 128, 61440, 132) == 128
+    assert asc.column_tile(8, 256, 10240, 132) == 128
+    assert asc.column_tile(1, 128, 11520, 132) == 128
+    assert asc.column_tile(1, 256, 1920, 132) == 64
+
+
+@pytest.mark.parametrize("kernel,dilation", [(3, 5), (7, 3), (11, 1),
+                                             (11, 5)])
+@pytest.mark.parametrize("batch,c_out,length", SHAPES)
+def test_carry_chunks_cover_the_card(batch, c_out, length, kernel, dilation):
+    """Chunks of the chosen tile tile each row exactly. Where the carry
+    buffer fits beside the stage buffers, about one wave of CTAs walks (no
+    more CTAs than the 132 SMs of an H100, at least half of them where the
+    rows have the tiles); where it does not, one tile a chunk."""
+    sms = 132
+    tile_len = asc.column_tile(batch, c_out, length, sms)
+    per_chunk = asc.carry_tiles_per_chunk(batch, c_out, c_out, length,
+                                          kernel, dilation, sms, tile_len)
+    n_tiles = -(-length // tile_len)
     chunks = -(-n_tiles // per_chunk)
     assert 1 <= per_chunk <= n_tiles
     assert (chunks - 1) * per_chunk < n_tiles <= chunks * per_chunk
-    ctas = chunks * batch * -(-c_out // asc.COUT_TILE)
-    most = n_tiles * batch * -(-c_out // asc.COUT_TILE)
-    assert ctas >= min(asc.CARRY_CTAS_PER_SM * sms, most)
-    assert ctas <= 2 * asc.CARRY_CTAS_PER_SM * sms or per_chunk == 1
+    rows = batch * -(-c_out // asc.COUT_TILE)
+    carry = 2 * c_out * (kernel - 1) * dilation
+    if asc.smem_bytes(tile_len, kernel, carry) > asc.MAX_SMEM:
+        assert per_chunk == 1
+    else:
+        assert chunks * rows <= sms
+        assert chunks * rows >= min(sms, n_tiles * rows) / 2
+
+
+@pytest.mark.parametrize("batch,c_out,length", SHAPES)
+def test_tile_runs_cover_the_card(batch, c_out, length):
+    """The halo-tile kernel's runs of consecutive tiles cover each row
+    exactly, in about one wave: no more CTAs than the 132 SMs of an H100,
+    at least half of them where the rows have the tiles."""
+    sms = 132
+    tile_len = asc.column_tile(batch, c_out, length, sms)
+    per_cta = asc.tiles_per_cta(batch, c_out, length, sms, tile_len)
+    n_tiles = -(-length // tile_len)
+    runs = -(-n_tiles // per_cta)
+    rows = batch * -(-c_out // asc.COUT_TILE)
+    assert 1 <= per_cta <= n_tiles
+    assert (runs - 1) * per_cta < n_tiles <= runs * per_cta
+    assert runs * rows <= max(sms, rows)
+    assert runs * rows >= min(sms, n_tiles * rows) / 2
+
+
+def test_carry_walks_where_its_buffer_fits():
+    """At b8's stage 1 (C=128) the carry walks at k <= 7 and at k=11, d=1;
+    at k=11, d >= 3 its buffer does not fit, and chunks are one tile."""
+    def chunk(kernel, dilation):
+        return asc.carry_tiles_per_chunk(8, 128, 128, 61440, kernel,
+                                         dilation, 132, 128)
+
+    assert [chunk(k, d) for k, d in [(3, 5), (7, 3), (7, 5), (11, 1)]] == [
+        30] * 4
+    assert chunk(11, 3) == chunk(11, 5) == 1
+    assert asc.smem_bytes(128, 11, 0) <= asc.MAX_SMEM
