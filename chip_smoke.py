@@ -10,23 +10,25 @@ From the root of a checkout. It
    (one nvcc per source, all at once) and reports the build time and each
    kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card
-   (max-abs tolerance stated per kernel) and times kernel, plain version
-   and, where there is one, the nearest single PyTorch call, with CUDA
-   events, beside the kernel's bound (the conv kernels' at four shapes, the
-   halo tile's at each column tile, and the carry kernel's walking chunks
-   beside one-tile chunks);
+   (tolerance stated per kernel) and times kernel, plain version and, where
+   there is one, the nearest single PyTorch call, with CUDA events, beside
+   the kernel's bound (the conv kernels' at four shapes, the halo tile's at
+   each column tile, and the carry kernel's walking chunks beside one-tile
+   chunks; the iSTFT kernel's two entries, the head from conv_post's raw
+   output and the polar one, at the timed and stream-window shapes, beside
+   the eager route the head replaced and ``torch.istft``);
 4. drives the batch path — ``Synthesizer.synthesize_batch`` and
    ``dispatch -> launch_decode -> collect`` at the full ``KokoroConfig()``
    with seeded random weights and a random voice — on three requests in
    pcm16, f32, mulaw8k and mulaw24k, and checks lengths, finiteness,
-   non-silence and that every kernel ran as often as each stage B runs it;
-   then holds each kernel against its plain version at the shapes that
-   path gave it;
+   non-silence and that every kernel ran as often as each stage B runs it
+   (the iSTFT kernel once per Generator pass);
 5. drives the streaming path: exact streams concatenate bit for bit to
    ``collect()``; a windowed stream gives finite, non-silent chunks of the
    right count and length, with every kernel launched per window as per
    stage B; and the mulaw24k bytes equal ``mulaw_encode_np`` of the card's
-   own int16 rendering;
+   own int16 rendering; then holds each kernel against its plain version
+   at the shapes both paths gave it;
 6. holds the port on the card against the port on the CPU at full width
    (B=2, frame bucket 128), both stage Bs fed the card's stage-A outputs.
 
@@ -53,6 +55,13 @@ F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 
 ISTFT_TOL = 1e-4       # max-abs, as the JAX package holds its Pallas iSTFT
+# the head entry: max-abs over (1 + max|plain|), since magnitudes reach
+# e^8 ~ 2981 (exp of the clipped log-magnitude)
+HEAD_TOL = 1e-4
+# per frame, the head kernel's f32 arithmetic: 191 FMAs (the folded bases)
+# plus 19 + 15 adds, 5 envelope and 22 polar products; its 44 SFU
+# transcendentals are not counted
+ISTFT_OPS_PER_FRAME = 2 * 191 + 19 + 15 + 5 + 22
 CONV_TOL = 1e-4        # max-abs over (1 + max|plain|): f32 sums of C k terms
 CPU_GPU_TOL = 5e-3     # rms/scale, the golden-audio gate's waveform bound
 
@@ -144,6 +153,125 @@ def check_istft(torch, oa, shapes):
             fail(f"istft_oa disagrees with plain at {(batch, frames)}: {err}")
         worst = max(worst, err)
     return worst
+
+
+def head_inputs(torch, batch, frames, seed, edges=False):
+    """conv_post-like raw output [B, 22, L]: log-magnitudes ~N(0, 4), raw
+    phases ~N(0, 9). ``edges``: log-magnitudes ~N(0, 100) (beyond both clip
+    edges, -12 and 8) and one NaN (a phase channel of the last row's middle
+    frame, when L >= 8)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((batch, 22, frames), device="cuda", generator=gen)
+    x[:, :11] *= 10.0 if edges else 2.0
+    x[:, 11:] *= 3.0
+    if edges and frames >= 8:
+        x[-1, 15, frames // 2] = float("nan")
+    return x
+
+
+def check_head(torch, oa, shapes):
+    """Head kernel vs ``istft_head_plain`` at each (batch, frames, edges)
+    -> max abs error over the finite samples. NaN must land in the same
+    samples; audio sample 0 must be exactly 0."""
+    worst = 0.0
+    for i, (batch, frames, edges) in enumerate(shapes):
+        x = head_inputs(torch, batch, frames, seed=100 + i, edges=edges)
+        out = oa.istft_head(x)
+        torch.cuda.synchronize()
+        ref = oa.istft_head_plain(x)
+        if out.shape != (batch, frames * 5):
+            fail(f"istft_head shape {tuple(out.shape)} at {(batch, frames)}")
+        nan = torch.isnan(ref)
+        if not torch.equal(torch.isnan(out), nan):
+            fail(f"istft_head: NaN samples differ from plain at "
+                 f"{(batch, frames)}")
+        if edges and frames >= 8 and not bool(nan.any()):
+            fail("istft_head: the NaN input gave no NaN sample")
+        if not bool((out[:, 0] == 0).all()):
+            fail(f"istft_head: audio sample 0 is not 0 at {(batch, frames)}")
+        fin = ~nan
+        err = float((out[fin] - ref[fin]).abs().max())
+        tol = HEAD_TOL * (1.0 + float(ref[fin].abs().max()))
+        log(f"  istft_head [{batch}, 22, {frames}]"
+            f"{' beyond the clip edges + NaN' if edges else ''}: "
+            f"max|kernel - plain| = {err:.3e} (tolerance {tol:.3e})")
+        if not err <= tol:
+            fail(f"istft_head disagrees with plain at {(batch, frames)}: "
+                 f"{err} > {tol}")
+        worst = max(worst, err)
+    return worst
+
+
+def time_istft(torch, oa, flush):
+    """Both entries of the iSTFT kernel, timed: the head at [8, 22, 61440]
+    and at a B=1 stream window [1, 22, 11520], the polar entry at
+    [8, 61440, 11]. Beside each: its plain version, the bound, the eager
+    route the head replaced (clamp/exp, pi * sin, two channels-last copies,
+    the polar kernel) and torch.istft(center=True) on the same spectrum,
+    which is not the same function (it drops the first n_fft/2 samples and
+    keeps F * hop - hop). Last, a [1, 22, 4] head and a 4-float add: the
+    floor of this timing method."""
+    def eager(x):
+        mag = torch.exp(torch.clamp(x[:, :11], -12.0, 8.0))
+        phase = math.pi * torch.sin(x[:, 11:])
+        return oa.istft_oa(mag.transpose(1, 2).contiguous(),
+                           phase.transpose(1, 2).contiguous())
+
+    window = torch.hann_window(20, periodic=True, device="cuda")
+
+    def nearest(spec):
+        return lambda: torch.istft(spec, 20, 5, 20, window, center=True)
+
+    def measure(calls, reps):
+        for call in calls.values():
+            call()
+        return {key: cuda_ms(call, reps, flush) for key, call in calls.items()}
+
+    def bounds(row, batch, frames, in_bytes):
+        row["bound_ms"], row["bound_by"] = bound(
+            in_bytes + batch * frames * 5 * 4,
+            batch * frames * ISTFT_OPS_PER_FRAME)
+        row["shape"] = [batch, frames]
+        return row
+
+    out = {}
+    for name, (batch, frames) in (("head", (8, 61440)),
+                                  ("head_window", (1, 11520))):
+        x = head_inputs(torch, batch, frames, seed=99)
+        spec = torch.polar(torch.exp(torch.clamp(x[:, :11], -12.0, 8.0)),
+                           math.pi * torch.sin(x[:, 11:]))
+        out[name] = bounds(measure({
+            "ms": lambda: oa.istft_head(x),
+            "plain_ms": lambda: oa.istft_head_plain(x),
+            "eager_route_ms": lambda: eager(x),
+            "nearest_call_ms": nearest(spec),
+        }, 50 if batch > 1 else 100), batch, frames, x.numel() * 4)
+    mag, phase = istft_inputs(torch, 8, 61440, seed=99)
+    spec = torch.polar(mag, phase).transpose(1, 2).contiguous()
+    out["polar"] = bounds(measure({
+        "ms": lambda: oa.istft_oa(mag, phase),
+        "plain_ms": lambda: oa.istft_oa_plain(mag, phase),
+        "nearest_call_ms": nearest(spec),
+    }, 50), 8, 61440, 2 * mag.numel() * 4)
+    tiny = head_inputs(torch, 1, 4, seed=98)
+    four = torch.zeros(4, device="cuda")
+    out["floor"] = measure({"head_1x22x4_ms": lambda: oa.istft_head(tiny),
+                            "torch_add_4_floats_ms": lambda: four.add_(1.0)},
+                           100)
+    for name in ("head", "head_window", "polar"):
+        row = out[name]
+        log(f"istft {name} at {row['shape']}: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} "
+            f"ms ({row['bound_by']}, {row['bound_ms'] / row['ms']:.0%} of "
+            "it reached)"
+            + (f", eager route {row['eager_route_ms']:.4f} ms"
+               if "eager_route_ms" in row else "")
+            + f", torch.istft(center=True) {row['nearest_call_ms']:.4f} ms "
+            "(not the same function)")
+    log(f"timing floor: a [1, 22, 4] head {out['floor']['head_1x22x4_ms']:.4f}"
+        f" ms, a 4-float torch add {out['floor']['torch_add_4_floats_ms']:.4f}"
+        " ms")
+    return out
 
 
 def conv_inputs(torch, batch, channels, length, kernel, seed,
@@ -302,7 +430,7 @@ def main() -> None:
             mulaw_encode_np,
         )
         from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
-        from illufly_tts_tpu_torch.model import layers
+        from illufly_tts_tpu_torch.model import layers, vocoder
         from illufly_tts_tpu_torch.model.config import KokoroConfig
         from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
         from illufly_tts_tpu_torch.ops import cuda_build
@@ -345,23 +473,17 @@ def main() -> None:
         (1, 4096, False),   # B=1
         (2, 256, True),     # zero input
     ])
-    mag, phase = istft_inputs(torch, 8, 61440, seed=99)
-    for _ in range(3):
-        oa.istft_oa(mag, phase)
-        oa.istft_oa_plain(mag, phase)
-    istft = {
-        "ms": cuda_ms(lambda: oa.istft_oa(mag, phase), 50, flush),
-        "plain_ms": cuda_ms(lambda: oa.istft_oa_plain(mag, phase), 20, flush),
-    }
-    batch, frames = mag.shape[:2]
-    istft["bound_ms"], istft["bound_by"] = bound(
-        2 * mag.numel() * 4 + batch * frames * 5 * 4,
-        batch * frames * 5 * 88 * 2)  # 88 FMAs per output sample
-    log(f"istft_oa at [8, 61440, 11]: kernel {istft['ms']:.4f} ms, plain "
-        f"{istft['plain_ms']:.4f} ms, bound {istft['bound_ms'] * 1e3:.2f} us "
-        f"({istft['bound_by']}), library: none (torch.istft(center=False) "
-        "refuses the zero window envelope at sample 0)")
-    del mag, phase
+    log("istft_head kernel vs plain (conv_post-like raw output):")
+    head_err = check_head(torch, oa, [
+        (8, 61440, False),   # B=8 at frame bucket 512
+        (1, 11520, False),   # a B=1 stream window (64 + 2 * 16 frames)
+        (1, 1, False),       # ragged: one frame
+        (2, 37, False),      # shorter than one 252-frame tile
+        (3, 1001, False),    # not a multiple of the tile or of 4
+        (2, 4096, True),     # beyond both clip edges, one NaN
+        (3, 1001, True),
+    ])
+    istft = time_istft(torch, oa, flush)
 
     cfg = KokoroConfig()
     # every (k, d) the config's residual blocks use, at both stages' widths
@@ -418,6 +540,13 @@ def main() -> None:
     conv_shapes = {name: set() for name in CONV_KERNELS}
     for name in CONV_KERNELS:  # the blocks call through the module names
         setattr(layers, name, recorded(getattr(asc, name), conv_shapes[name]))
+    head_shapes = set()
+
+    def head_recorded(x, n_fft, hop):
+        head_shapes.add((x.shape[0], x.shape[2]))
+        return oa.istft_head(x, n_fft, hop)
+
+    vocoder.istft_head = head_recorded
 
     def voices(texts):
         return ["smoke_voice"] * len(texts)
@@ -455,7 +584,6 @@ def main() -> None:
 
     reset_counts()
     stage_b_runs = 0
-    istft_shapes = set()
     timings = {}
     buckets = {}
     for name, texts in requests.items():
@@ -466,7 +594,6 @@ def main() -> None:
             out = synth.collect(h)
             wall = time.perf_counter() - t0
             stage_b_runs += 1
-            istft_shapes.add((h.b_bucket, h.f_bucket * 120))
             per_frame = 200 if fmt == "mulaw8k" else 600
             for i, wave in enumerate(out):
                 check_wave(f"{name}/{fmt}[{i}]", wave,
@@ -552,14 +679,15 @@ def main() -> None:
         f"{timings['mixed_4']['pcm16']:.1f} ms")
     for name in CONV_KERNELS:
         setattr(layers, name, getattr(asc, name))
+    vocoder.istft_head = oa.istft_head
 
     log("kernels vs plain at the shapes both paths gave them:")
     for name in CONV_KERNELS:
         err = check_conv(torch, asc, name, [
             (*shape, False) for shape in sorted(conv_shapes[name])])
         conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
-    istft_err = max(istft_err, check_istft(
-        torch, oa, [(b, f, False) for b, f in sorted(istft_shapes)]))
+    head_err = max(head_err, check_head(
+        torch, oa, [(b, f, False) for b, f in sorted(head_shapes)]))
 
     # ---- 6. card vs CPU -----------------------------------------------------------
     t0 = time.perf_counter()
@@ -589,6 +717,7 @@ def main() -> None:
             print(f"FAIL: {f}", file=sys.stderr)
         sys.exit(1)
 
+    head = istft["head"]
     rows = [{
         "name": "istft_oa",
         "route": "cuda",
@@ -597,13 +726,24 @@ def main() -> None:
         "launches": counts["istft_oa"],
         "launches_stream": stream_counts["istft_oa"],
         "stage_b_runs": stage_b_runs,
-        "max_abs_err": istft_err,
-        **istft,
+        "entry": "istft_head (conv_post's raw [B, 22, L] -> audio)",
+        "max_abs_err": head_err,
+        **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "eager_route_ms",
+                                      "nearest_call_ms", "shape")},
         "library_ms": None,
         "library_note": "no single PyTorch call computes it: "
                         "torch.istft(center=False) refuses the zero window "
-                        "envelope at sample 0 (NOLA check)",
-        "shape": [8, 61440, 11],
+                        "envelope at sample 0 (NOLA check); nearest_call_ms "
+                        "is torch.istft(center=True) on the same spectrum, "
+                        "not the same function",
+        "eager_route_note": "the Generator's head before this kernel: "
+                            "clamp/exp, pi * sin, two channels-last copies, "
+                            "then the polar entry",
+        "window": istft["head_window"],
+        "polar": {"entry": "istft_oa (mag, phase) [B, F, 11]",
+                  "max_abs_err": istft_err, **istft["polar"]},
+        "timing_floor": istft["floor"],
         "card": card,
     }]
     for name, (replaces, role) in CONV_KERNELS.items():

@@ -3,9 +3,10 @@
 AdaIN residual decode stack + harmonic-source generator emitting the
 waveform through the tiny iSTFT head. Channels-first inside.
 
-The Generator always ends in ``ops/istft_oa.py::istft_oa`` — the CUDA
-kernel on the card, its plain version on the CPU — which is the counterpart
-of the JAX ``use_pallas_istft=True`` setting.
+The Generator always ends in ``ops/istft_oa.py::istft_head`` — one CUDA
+kernel from conv_post's raw output to audio on the card, its plain version
+on the CPU — which is the counterpart of the JAX ``use_pallas_istft=True``
+setting (its exp/clip and pi * sin head included).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.istft_oa import istft_oa
+from ..ops.istft_oa import istft_head
 from ..ops.stft import stft_magphase
 from .config import KokoroConfig
 from .layers import (
@@ -133,13 +134,11 @@ class Generator(nn.Module):
                 acc = out if acc is None else acc + out
             x = acc / self.num_kernels
 
-        x = self.conv_post(leaky_relu(x, 0.01)).float()
-        k = n_fft // 2 + 1
-        mag = torch.exp(torch.clamp(x[:, :k], -12.0, 8.0))
-        phase = math.pi * torch.sin(x[:, k:])
-        # [B, K, L'] -> the kernel's [B, L', K]; output is already F * hop
-        return istft_oa(mag.transpose(1, 2).contiguous(),
-                        phase.transpose(1, 2).contiguous(), n_fft, hop)
+        # conv_post's raw [B, n_fft + 2, L'] goes straight into the head
+        # kernel (exp/clip, pi * sin and the iSTFT in one launch); the
+        # output is already F * hop
+        return istft_head(self.conv_post(leaky_relu(x, 0.01)).float(), n_fft,
+                          hop)
 
 
 class Decoder(nn.Module):

@@ -18,7 +18,10 @@ collect`` in pcm16; and ``b1_stream``, the ``b1`` string streamed windowed
 which also reports the time to the first chunk and the device span of
 ``decode_prepare`` and of each window's Generator (``decode_window``),
 between CUDA events recorded around each call (idle gaps included).
-Every request also reports the kernel wrappers' own launch counts. Seed
+Every request also reports the kernel wrappers' own launch counts, and the
+kernels that ran just before each iSTFT kernel launch on the device
+timeline (from the profiler's trace): on the Generator's tail that is
+conv_post's convolution, with no elementwise or copy kernel between. Seed
 0's random weights give ~25 frames per token. Prints one JSON line;
 ``--out`` also writes it to a file.
 """
@@ -30,9 +33,12 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+BUILD = os.path.join(ROOT, "build")  # git-ignored scratch for the trace
 
 CLASSES = (  # first match wins
     ("istft_oa", r"istft_oa"),
@@ -81,6 +87,26 @@ def kernel_times(prof, torch):
         if us > 0:
             out.append((evt.key, float(us), int(evt.count)))
     return sorted(out, key=lambda r: -r[1])
+
+
+def before_istft(prof, depth=2):
+    """{names of the ``depth`` kernels before an iSTFT kernel, in order:
+    count} over the trace's device kernels, ordered by start time."""
+    os.makedirs(BUILD, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = sorted((e["ts"], e["name"]) for e in events
+                     if e.get("cat") == "kernel" and e.get("ph") == "X")
+    names = [name for _, name in kernels]
+    out = {}
+    for i, name in enumerate(names):
+        if re.search(CLASSES[0][1], name):
+            key = " | ".join(n[:150] for n in names[max(0, i - depth):i])
+            out[key] = out.get(key, 0) + 1
+    return out
 
 
 def main() -> int:
@@ -150,6 +176,7 @@ def main() -> int:
                     s.elapsed_time(e) for s, e in span) / len(span)
                 extra[f"{key}_calls"] = len(span)
         kernels = kernel_times(prof, torch)
+        extra["kernels_before_istft"] = before_istft(prof)
         busy = sum(us for _, us, _ in kernels)
         by_class = {c: 0.0 for c, _ in CLASSES}
         by_class["other"] = 0.0
