@@ -30,7 +30,21 @@ From the root of a checkout. It
    own int16 rendering; then holds each kernel against its plain version
    at the shapes both paths gave it;
 6. holds the port on the card against the port on the CPU at full width
-   (B=2, frame bucket 128), both stage Bs fed the card's stage-A outputs.
+   (B=2, frame bucket 128), both stage Bs fed the card's stage-A outputs;
+7. serves text: ``TTSServiceManager(batch_size=4)`` over
+   ``CachedTTSPipeline`` on phase 4's Synthesizer takes eight tasks from
+   three users (zh with a date and a temperature, en with a time, a date
+   and money, mixed zh/en, a blended voice, mulaw8k, word timestamps) and
+   then a repeat of the first, and checks that every task completes in its
+   user's sequence order with finite, non-silent audio of the length its
+   fitted frames give, monotone timestamps within the audio, the IPA handed
+   to ``dispatch`` equal to ``FRONTEND_TABLE``'s, every kernel launched as
+   often as the Generator passes give, and no launch for the repeat (an
+   audio-cache hit); then a ~260-character paragraph through
+   ``process(segment_text=True)`` and one windowed ``stream_process``. On
+   a host without ``jieba`` (which the Chinese G2P imports) the G2P's
+   outputs come from ``FRONTEND_TABLE``; the normalizers, the pipeline, the
+   scheduler and the model run as they are.
 
 It prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Any failed check exits non-zero with no result line;
@@ -70,6 +84,41 @@ MIXED = "tʰjɛn→tʃʰi↘tʃən→pu↗tsʰwo↘. hello wɝld."
 EN = "ðɪs ɪz ə smˈoʊk tˈɛst ʌv ðə pˈɔɹt."
 FORMATS = ("pcm16", "f32", "mulaw8k", "mulaw24k")
 STREAM_WINDOW, STREAM_HALO = 64, 16   # model frames
+
+# phase 7, text in: the scheduler's tasks as (user, sequence_id, text,
+# voice, output format, word timestamps); REPEAT, sent once they are done,
+# repeats the first and must come from the pipeline's audio cache
+BLEND = "smoke_voice*0.7+smoke_voice_b*0.3"
+TASKS = (
+    ("alice", 1, "今天是2024年3月5日，气温25℃。", "smoke_voice", "pcm16",
+     False),
+    ("bob", 1, "The meeting starts at 3:30 PM on June 1st and costs $42.",
+     "smoke_voice", "pcm16", False),
+    ("carol", 1, "我们用Python写了一个TTS服务，效果很好。", "smoke_voice",
+     "pcm16", False),
+    ("alice", 2, "请在下午三点之前提交报告。", BLEND, "pcm16", False),
+    ("bob", 2, "Please hold the line, your call is important to us.",
+     "smoke_voice", "mulaw8k", False),
+    ("carol", 2, "今天天气真好，我们去公园散步。", "smoke_voice", "pcm16", True),
+    ("alice", 3, "欢迎使用语音合成服务。", "smoke_voice", "f32", False),
+    ("bob", 3, "Thank you for calling, goodbye.", "smoke_voice", "f32", False),
+)
+REPEAT = ("alice", 4) + TASKS[0][2:]
+WARM_TEXTS = ("预热一下。", "Warm up once.")
+PARAGRAPH = (
+    "清晨六点，城市还没有完全醒来。街道两旁的路灯依次熄灭，早餐店的老板已经忙着"
+    "蒸包子、煮豆浆。公交车载着第一批乘客驶过大桥，江面上飘着薄薄的雾。七点半以"
+    "后，上班的人越来越多，地铁站里排起了长队。学校门口，家长们叮嘱孩子注意安全，"
+    "老师微笑着迎接每一位学生。中午的阳光很温暖，公园里有人下棋，有人散步，还有人"
+    "坐在长椅上读报纸。到了傍晚，商场的灯光亮起来，年轻人约朋友一起吃饭、看电影。"
+    "据统计，这座城市去年接待游客超过3200万人次，比前年增长了12.5%。夜深了，城"
+    "市慢慢安静下来，只有远处的货车还在运送明天需要的蔬菜和水果。"
+)
+STREAM_TEXT = ("欢迎收听今天的新闻。This is the evening report, with the "
+               "weather and the traffic.")
+# every text phase 7 hands the frontend, in the order frontend_table walks
+FRONTEND_TEXTS = (WARM_TEXTS + tuple(task[2] for task in TASKS)
+                  + (PARAGRAPH, STREAM_TEXT))
 
 # the fused AdaIN-Snake-conv kernels: wrapper name -> (TPU kernel it
 # replaces, the residual-block conv it runs)
@@ -414,6 +463,360 @@ def recorded(fn, shapes):
     return call
 
 
+def recorded_head(fn, shapes):
+    """The iSTFT head ``fn`` that also records each call's (B, L)."""
+    def call(x, n_fft, hop):
+        shapes.add((x.shape[0], x.shape[2]))
+        return fn(x, n_fft, hop)
+    return call
+
+
+def record_shapes(layers, vocoder, asc, oa):
+    """Route the Generator's kernel calls through recorders -> (conv shapes
+    by kernel, head shapes); ``unrecord`` routes them back."""
+    conv_shapes = {name: set() for name in CONV_KERNELS}
+    for name in CONV_KERNELS:  # the blocks call through the module names
+        setattr(layers, name, recorded(getattr(asc, name), conv_shapes[name]))
+    head_shapes = set()
+    vocoder.istft_head = recorded_head(oa.istft_head, head_shapes)
+    return conv_shapes, head_shapes
+
+
+def unrecord(layers, vocoder, asc, oa):
+    for name in CONV_KERNELS:
+        setattr(layers, name, getattr(asc, name))
+    vocoder.istft_head = oa.istft_head
+
+
+def frontend_table(pipe):
+    """The text frontend's whole output for phase 7: ``{"normalized":
+    {text: preprocess_text(text)}, "g2p": {G2P input: [phonemes, IPA]},
+    "words": {G2P input: word IPA pairs}}`` for ``FRONTEND_TEXTS`` (words
+    for the timestamped tasks' texts), through the frontend of ``pipe``, a
+    frontend-only ``TTSPipeline`` (the port's or the JAX package's: both
+    take the same calls). The paragraph goes through ``segment_text`` and
+    ``_ipa_within_budget`` as ``process(..., segment_text=True)`` sends
+    it, which split it into G2P inputs."""
+    g2p = pipe.g2p
+    inputs = []
+
+    class Recorder:
+        def text_to_phonemes(self, text):
+            inputs.append(text)
+            return g2p.text_to_phonemes(text)
+
+        def convert_to_ipa(self, phonemes):
+            return g2p.convert_to_ipa(phonemes)
+
+    normalized = {text: pipe.preprocess_text(text) for text in FRONTEND_TEXTS}
+    pipe.g2p = Recorder()
+    try:
+        for text, norm in normalized.items():
+            if text == PARAGRAPH:
+                for segment in pipe.segment_text(norm):
+                    pipe._ipa_within_budget(segment)
+            else:
+                pipe.text_to_phonemes(norm)
+    finally:
+        pipe.g2p = g2p
+    table = {}
+    for text in inputs:
+        phonemes = g2p.text_to_phonemes(text)
+        table[text] = [phonemes, g2p.convert_to_ipa(phonemes)]
+    words = {normalized[task[2]]: [list(w) for w in g2p.text_to_ipa_words(
+        normalized[task[2]])] for task in TASKS if task[5]}
+    return {"normalized": normalized, "g2p": table, "words": words}
+
+
+class FrozenG2P:
+    """``ChineseG2P``'s outputs for phase 7's G2P inputs, read from
+    ``FRONTEND_TABLE`` (the JAX package's frontend froze them; see
+    ``frontend_table``). It stands in for the G2P on a host without
+    ``jieba``, which the Chinese G2P imports; a text outside the table
+    raises KeyError."""
+
+    def __init__(self, table):
+        self.table = table
+        self.ipa = dict(table["g2p"].values())
+
+    def text_to_phonemes(self, text):
+        return self.table["g2p"][text][0]
+
+    def convert_to_ipa(self, phonemes):
+        return self.ipa[phonemes]
+
+    def text_to_ipa_words(self, text):
+        return [tuple(w) for w in self.table["words"][text]]
+
+
+def frozen_frontend(pipeline_cls):
+    """``pipeline_cls`` with the real normalizers and ``FrozenG2P``."""
+    from illufly_tts_tpu_torch import pipeline as pmod
+
+    class FrozenFrontendPipeline(pipeline_cls):
+        def _init_frontend(self, british):
+            self.british = british
+            self.en_g2p = self.en_callback = None
+            self.g2p = FrozenG2P(FRONTEND_TABLE)
+            self.zh_normalizer = pmod.ZhTextNormalizer()
+            self.en_normalizer = pmod.EnTextNormalizer()
+
+    return FrozenFrontendPipeline
+
+
+def serving_phase(torch, np, synth, oa, asc, conv_per_generator, card,
+                  failures, check_wave):
+    """Phase 7: text requests through ``TTSServiceManager`` and
+    ``CachedTTSPipeline`` on the card, then a segmented paragraph through
+    ``process`` and a windowed ``stream_process``. -> the summary dict."""
+    import asyncio
+    import tempfile
+
+    from illufly_tts_tpu_torch.pipeline import (
+        MAX_PHONEMES,
+        CachedTTSPipeline,
+        TTSPipeline,
+    )
+    from illufly_tts_tpu_torch.runtime.scheduler import (
+        TaskStatus,
+        TTSServiceManager,
+    )
+
+    try:
+        import jieba  # noqa: F401  (the Chinese G2P needs it)
+    except ImportError:
+        jieba = None
+    if jieba is None:
+        log("frontend: frozen table (jieba absent on this host)")
+        pipe_cls = frozen_frontend(CachedTTSPipeline)
+    else:
+        live = TTSPipeline.__new__(TTSPipeline)
+        live._init_frontend_only()
+        same = frontend_table(live) == FRONTEND_TABLE
+        log(f"frontend: live (jieba {jieba.__version__}); its output for "
+            f"phase 7's texts equals the frozen table: {same}")
+        if not same:
+            failures.append("the live frontend differs from FRONTEND_TABLE")
+        pipe_cls = CachedTTSPipeline
+    g2p_table = FRONTEND_TABLE["g2p"]
+
+    t0 = time.perf_counter()
+    synth.register_random_voice("smoke_voice_b", seed=1)
+    pipe = pipe_cls(synthesizer=synth)
+    log(f"{pipe_cls.__name__}(synthesizer=synth) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    pipe.batch_process_texts(list(WARM_TEXTS), ["smoke_voice"] * 2)
+    torch.cuda.synchronize()
+    log(f"warm pass (frontend first use + one batch): "
+        f"{time.perf_counter() - t0:.2f} s")
+    for text in FRONTEND_TEXTS:
+        if pipe.preprocess_text(text) != FRONTEND_TABLE["normalized"][text]:
+            failures.append(f"normalized text differs from the table: "
+                            f"{text!r}")
+
+    # every Generator pass of stage B, and what reaches dispatch
+    passes, dispatched = [], []
+    stage_b, dispatch = synth._stage_b, synth.dispatch
+
+    def counted_stage_b(*args):
+        passes.append(1)
+        return stage_b(*args)
+
+    def recorded_dispatch(phonemes_list, voice_ids, *args, **kw):
+        handle = dispatch(phonemes_list, voice_ids, *args, **kw)
+        dispatched.append((list(phonemes_list), list(voice_ids), handle))
+        return handle
+
+    def reset():
+        oa.launches = 0
+        for name in asc.launches:
+            asc.launches[name] = 0
+        passes.clear()
+        dispatched.clear()
+
+    def counts(label, generator_passes):
+        got = {"istft_oa": oa.launches, **asc.launches}
+        want = {"istft_oa": generator_passes,
+                **{name: conv_per_generator * generator_passes
+                   for name in asc.launches}}
+        log(f"{label}: {generator_passes} Generator passes, launches {got}")
+        if got != want:
+            failures.append(f"{label}: launches {got}, want {want}")
+        return got
+
+    def frames_of():
+        """(IPA, voice) -> fitted frames, over this run's dispatches."""
+        return {(ipa, voice): int(h.fitted_totals[i])
+                for ipa_list, voices, h in dispatched
+                for i, (ipa, voice) in enumerate(zip(ipa_list, voices))}
+
+    def expected_ipa(text):
+        return g2p_table[FRONTEND_TABLE["normalized"][text]][1][
+            :MAX_PHONEMES]
+
+    async def run(manager, tasks):
+        """Submit ``tasks`` and wait for them -> [(task, submit time)]."""
+        sent = []
+        for user, seq, text, voice, fmt, stamps in tasks:
+            t_submit = time.time()
+            tid = await manager.submit_task(
+                text, voice, user_id=user, sequence_id=seq,
+                output_format=fmt, return_timestamps=stamps)
+            sent.append((manager.tasks[tid], t_submit))
+        deadline = time.monotonic() + 300.0
+        while any(task.status in (TaskStatus.PENDING, TaskStatus.PROCESSING)
+                  for task, _ in sent):
+            if time.monotonic() > deadline:
+                raise TimeoutError("phase 7 tasks did not finish in 300 s")
+            await asyncio.sleep(0.005)
+        return sent
+
+    async def serve(out_dir):
+        manager = TTSServiceManager(pipeline=pipe, batch_size=4,
+                                    output_dir=out_dir)
+        await manager.start()
+        try:
+            reset()
+            first = await run(manager, TASKS)
+            torch.cuda.synchronize()
+            served = (counts("serving path (8 text requests)", len(passes)),
+                      len(passes), frames_of(), list(dispatched))
+            reset()
+            repeat = await run(manager, [REPEAT])
+            cached = counts("cache-hit request", 0)
+            if passes or dispatched:
+                failures.append("the cache-hit request reached the "
+                                "Synthesizer")
+            return manager.stats(), first, repeat, served, cached
+        finally:
+            await manager.shutdown()
+
+    synth._stage_b, synth.dispatch = counted_stage_b, recorded_dispatch
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            stats, first, repeat, served, cached = asyncio.run(
+                serve(out_dir))
+
+        launches, generator_passes, frames, sent_batches = served
+        per_task = []
+        for (task, t_submit), spec in zip(first + repeat, TASKS + (REPEAT,)):
+            user, seq, text, voice, fmt, stamps = spec
+            label = (f"task {user}/{seq} ({fmt}"
+                     f"{', timestamps' if stamps else ''}"
+                     f"{', blend' if voice == BLEND else ''})")
+            wall_ms = ((task.completed_at or time.time()) - t_submit) * 1e3
+            per_task.append({"user": user, "sequence_id": seq, "format": fmt,
+                             "voice": voice, "timestamps": stamps,
+                             "status": task.status.value,
+                             "wall_ms": wall_ms})
+            log(f"  {label}: {task.status.value} in {wall_ms:.1f} ms "
+                "(submit_task to result, host clock)")
+            if task.status != TaskStatus.COMPLETED:
+                failures.append(f"{label}: {task.status.value} "
+                                f"({task.error})")
+                continue
+            ipa = expected_ipa(text)
+            n_frames = frames.get((ipa, voice))
+            if n_frames is None:
+                failures.append(f"{label}: its frozen-table IPA never "
+                                "reached dispatch")
+                continue
+            audio = task.audio_chunks[0]
+            check_wave(label, audio,
+                        n_frames * (200 if fmt == "mulaw8k" else 600))
+            if stamps:
+                words = task.timestamps or []
+                dur = audio.size / 24000
+                ends = [0.0] + [w["end_s"] for w in words]
+                if not words or any(
+                        not (ends[i] - 1e-6 <= w["start_s"] <= w["end_s"]
+                             <= dur + 1e-6) for i, w in enumerate(words)):
+                    failures.append(f"{label}: timestamps not monotone "
+                                    f"within the audio: {words}")
+                log(f"    {len(words)} words, last ends at "
+                    f"{words[-1]['end_s'] if words else None} s of "
+                    f"{dur:.3f} s")
+        if not np.array_equal(first[0][0].audio_chunks[0],
+                              repeat[0][0].audio_chunks[0]):
+            failures.append("the cache-hit request's audio differs from "
+                            "the first")
+        sent_ipa = {ipa for ipa_list, _, _ in sent_batches
+                    for ipa in ipa_list}
+        want_ipa = {expected_ipa(task[2]) for task in TASKS}
+        log(f"IPA handed to dispatch equals the frozen table's for all "
+            f"{len(want_ipa)} texts: {sent_ipa == want_ipa}; batches "
+            f"{[len(b[0]) for b in sent_batches]}")
+        if sent_ipa != want_ipa:
+            failures.append(f"dispatched IPA {sorted(sent_ipa)} != table "
+                            f"{sorted(want_ipa)}")
+        for user in {task[0] for task in TASKS}:
+            done = [task.completed_at or 0.0
+                    for (task, _), spec in zip(first + repeat,
+                                               TASKS + (REPEAT,))
+                    if spec[0] == user]
+            if done != sorted(done):
+                failures.append(f"user {user}'s tasks finished out of "
+                                "sequence order")
+        log(f"scheduler stats: {json.dumps(stats)}")
+
+        # a paragraph, segmented, through process()
+        reset()
+        t0 = time.perf_counter()
+        audio = pipe.process(PARAGRAPH, "smoke_voice", segment_text=True)
+        paragraph_ms = (time.perf_counter() - t0) * 1e3
+        pieces = [(ipa_list[0], h) for ipa_list, _, h in dispatched]
+        para_launches = counts(f"paragraph ({len(pieces)} pieces)",
+                               len(passes))
+        table_ipa = {row[1] for row in g2p_table.values()}
+        if any(ipa not in table_ipa or len(ipa) > MAX_PHONEMES
+               for ipa, _ in pieces):
+            failures.append("a paragraph piece is not a frozen-table IPA "
+                            f"within {MAX_PHONEMES} phonemes")
+        check_wave("paragraph", audio,
+                    sum(int(h.fitted_totals[0]) for _, h in pieces) * 600)
+        log(f"paragraph ({len(PARAGRAPH)} characters, segment_text=True): "
+            f"{len(pieces)} pieces, {audio.size / 24000:.2f} s of audio in "
+            f"{paragraph_ms:.1f} ms")
+
+        # one windowed stream
+        reset()
+        t0 = time.perf_counter()
+        gen = pipe.stream_process(STREAM_TEXT, "smoke_voice",
+                                  window_frames=STREAM_WINDOW,
+                                  halo_frames=STREAM_HALO, exact=False)
+        chunks = [next(gen)]
+        first_chunk_ms = (time.perf_counter() - t0) * 1e3
+        chunks += list(gen)
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        (ipa_list, _, h), = dispatched
+        total = int(h.fitted_totals[0])
+        windows = -(-total // STREAM_WINDOW)
+        stream_launches = counts(f"windowed stream ({windows} windows)",
+                                 windows)
+        if ipa_list != [expected_ipa(STREAM_TEXT)]:
+            failures.append("the stream's IPA differs from the table's")
+        check_wave("windowed stream", np.concatenate(chunks), total * 600)
+        log(f"windowed stream_process ({STREAM_WINDOW} + {STREAM_HALO} "
+            f"frames): {len(chunks)} chunks, first after "
+            f"{first_chunk_ms:.1f} ms, all after {stream_ms:.1f} ms")
+    finally:
+        del synth._stage_b, synth.dispatch
+    return {
+        "card": card,
+        "frontend": "frozen table" if jieba is None else "live",
+        "tasks": per_task,
+        "generator_passes": generator_passes,
+        "launches": launches,
+        "launches_cache_hit": cached,
+        "scheduler_stats": stats,
+        "paragraph": {"characters": len(PARAGRAPH), "pieces": len(pieces),
+                      "ms": paragraph_ms, "launches": para_launches},
+        "stream": {"windows": windows, "first_chunk_ms": first_chunk_ms,
+                   "all_chunks_ms": stream_ms, "launches": stream_launches},
+    }
+
+
 def main() -> None:
     import torch
 
@@ -537,16 +940,7 @@ def main() -> None:
         "long_8": [long_zh, long_en] * 4,
     }
     failures = []
-    conv_shapes = {name: set() for name in CONV_KERNELS}
-    for name in CONV_KERNELS:  # the blocks call through the module names
-        setattr(layers, name, recorded(getattr(asc, name), conv_shapes[name]))
-    head_shapes = set()
-
-    def head_recorded(x, n_fft, hop):
-        head_shapes.add((x.shape[0], x.shape[2]))
-        return oa.istft_head(x, n_fft, hop)
-
-    vocoder.istft_head = head_recorded
+    conv_shapes, head_shapes = record_shapes(layers, vocoder, asc, oa)
 
     def voices(texts):
         return ["smoke_voice"] * len(texts)
@@ -677,9 +1071,7 @@ def main() -> None:
         f"{len(chunks)} chunks, first after {first_ms:.1f} ms, all after "
         f"{stream_ms:.1f} ms; full render (pcm16, section 4) "
         f"{timings['mixed_4']['pcm16']:.1f} ms")
-    for name in CONV_KERNELS:
-        setattr(layers, name, getattr(asc, name))
-    vocoder.istft_head = oa.istft_head
+    unrecord(layers, vocoder, asc, oa)
 
     log("kernels vs plain at the shapes both paths gave them:")
     for name in CONV_KERNELS:
@@ -711,6 +1103,28 @@ def main() -> None:
         f"{time.perf_counter() - t0:.1f} s")
     if not rms / scale < CPU_GPU_TOL:
         failures.append(f"card vs CPU rms/scale {rms / scale}")
+    del cpu
+
+    # ---- 7. serving path ----------------------------------------------------------
+    serve_conv, serve_head = record_shapes(layers, vocoder, asc, oa)
+    try:
+        serving = serving_phase(torch, np, synth, oa, asc,
+                                conv_per_generator, card, failures,
+                                check_wave)
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+    log("kernels vs plain at the shapes the serving path gave them (those "
+        "not checked above):")
+    for name in CONV_KERNELS:
+        new = sorted(serve_conv[name] - conv_shapes[name])
+        if new:
+            err = check_conv(torch, asc, name,
+                             [(*shape, False) for shape in new])
+            conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
+    new = sorted(serve_head - head_shapes)
+    if new:
+        head_err = max(head_err, check_head(
+            torch, oa, [(b, f, False) for b, f in new]))
 
     if failures:
         for f in failures:
@@ -726,6 +1140,9 @@ def main() -> None:
         "launches": counts["istft_oa"],
         "launches_stream": stream_counts["istft_oa"],
         "stage_b_runs": stage_b_runs,
+        "launches_serving": serving["launches"]["istft_oa"],
+        "launches_per_text_request": serving["launches"]["istft_oa"]
+        / len(TASKS),
         "entry": "istft_head (conv_post's raw [B, 22, L] -> audio)",
         "max_abs_err": head_err,
         **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -755,6 +1172,9 @@ def main() -> None:
             "launches": counts[name],
             "launches_stream": stream_counts[name],
             "stage_b_runs": stage_b_runs,
+            "launches_serving": serving["launches"][name],
+            "launches_per_text_request": serving["launches"][name]
+            / len(TASKS),
             "role": role,
             **conv[name],
             "library_note": "F.conv1d (cuDNN, TF32 off) alone on an "
@@ -767,10 +1187,266 @@ def main() -> None:
     log(json.dumps({"requests_wall_ms": timings,
                     "stream_first_chunk_ms": first_ms,
                     "stream_all_chunks_ms": stream_ms}))
+    log(json.dumps({"serving": serving}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }}), flush=True)
+
+
+# the frontend's output for phase 7's texts, made by frontend_table() with
+# the JAX package's frontend; tests/test_torch_frontend.py holds it to it
+FRONTEND_TABLE = {
+    "normalized": {
+        '预热一下。':
+            '预热一下。',
+        'Warm up once.':
+            'Warm up once.',
+        '今天是2024年3月5日，气温25℃。':
+            '今天是二零二四年三月五日，气温二十五摄氏度。',
+        'The meeting starts at 3:30 PM on June 1st and costs $42.':
+            'The meeting starts at three thirty in the afternoon on J'
+            'une first and costs forty two dollars.',
+        '我们用Python写了一个TTS服务，效果很好。':
+            '我们用 Python写了一个 TTS服务，效果很好。',
+        '请在下午三点之前提交报告。':
+            '请在下午三点之前提交报告。',
+        'Please hold the line, your call is important to us.':
+            'Please hold the line, your call is important to us.',
+        '今天天气真好，我们去公园散步。':
+            '今天天气真好，我们去公园散步。',
+        '欢迎使用语音合成服务。':
+            '欢迎使用语音合成服务。',
+        'Thank you for calling, goodbye.':
+            'Thank you for calling, goodbye.',
+        '清晨六点，城市还没有完全醒来。街道两旁的路灯依次熄灭，早餐店的老板已经忙着蒸包子、煮豆浆。公交车载着第一批乘客驶'
+        '过大桥，江面上飘着薄薄的雾。七点半以后，上班的人越来越多，地铁站里排起了长队。学校门口，家长们叮嘱孩子注意安全，'
+        '老师微笑着迎接每一位学生。中午的阳光很温暖，公园里有人下棋，有人散步，还有人坐在长椅上读报纸。到了傍晚，商场的灯'
+        '光亮起来，年轻人约朋友一起吃饭、看电影。据统计，这座城市去年接待游客超过3200万人次，比前年增长了12.5%。'
+        '夜深了，城市慢慢安静下来，只有远处的货车还在运送明天需要的蔬菜和水果。':
+            '清晨六点，城市还没有完全醒来。街道两旁的路灯依次熄灭，早餐店的老板已经忙着蒸包子、煮豆浆。公交车载着第一批乘客驶'
+            '过大桥，江面上飘着薄薄的雾。七点半以后，上班的人越来越多，地铁站里排起了长队。学校门口，家长们叮嘱孩子注意安全，'
+            '老师微笑着迎接每一位学生。中午的阳光很温暖，公园里有人下棋，有人散步，还有人坐在长椅上读报纸。到了傍晚，商场的灯'
+            '光亮起来，年轻人约朋友一起吃饭、看电影。据统计，这座城市去年接待游客超过三千二百万人次，比前年增长了百分之十二点'
+            '五。夜深了，城市慢慢安静下来，只有远处的货车还在运送明天需要的蔬菜和水果。',
+        '欢迎收听今天的新闻。This is the evening report, with the weather a'
+        'nd the traffic.':
+            '欢迎收听今天的新闻。 This is the evening report, with the weather '
+            'and the traffic.',
+    },
+    "g2p": {
+        '预热一下。': [
+            'ㄩ4ㄖㄜ4/ㄧ2ㄒㄧㄚ4.',
+            'y↘ʐɤ↘ i↗ɕja↘.',
+        ],
+        'Warm up once.': [
+            'wˈɔɹm ˌʌp wˈʌns .',
+            'wˈɔɹm ˌʌp wˈʌns .',
+        ],
+        '今天是二零二四年三月五日，气温二十五摄氏度。': [
+            'ㄐㄧㄣ1ㄊㄧㄢ1/ㄕㄭ4/ㄦ4ㄌㄧㄥ2ㄦ4/ㄙㄭ4ㄋㄧㄢ2/ㄙㄢ1ㄩㄝ4/ㄨ3ㄖㄭ4, ㄑㄧ4ㄨㄣ1/ㄦ4ㄕㄭ2'
+            'ㄨ3/ㄕㄜ4ㄕㄭ4ㄉㄨ4.',
+            'tɕin→tʰjɛn→ ʂɨ↘ ɚ↘liŋ↗ɚ↘ sɨ↘njɛn↗ san→ɥe↘ u↓ʐɨ↘, tɕʰi↘wə'
+            'n→ ɚ↘ʂɨ↗u↓ ʂɤ↘ʂɨ↘tu↘.',
+        ],
+        'The meeting starts at three thirty in the afternoon on J'
+        'une first and costs forty two dollars.': [
+            'ðə mˈitɪŋ stˈɑɹts æt θɹˈi θˈɝti ɪn ði ˌæftɚnˈun ˌɔn dʒˈu'
+            'n fˈɝst ænd kˈɔsts fˈɔɹti tˈu dˈɑlɚz .',
+            'ðə mˈitɪŋ stˈɑɹts æt θɹˈi θˈɝti ɪn ði ˌæftɚnˈun ˌɔn dʒˈu'
+            'n fˈɝst ænd kˈɔsts fˈɔɹti tˈu dˈɑlɚz .',
+        ],
+        '我们用 Python写了一个 TTS服务，效果很好。': [
+            'ㄨㄛ3ㄇㄣ5/ㄩㄥ4 pˈaɪθɑn ㄒㄧㄝ3/ㄌㄜ5/ㄧ2ㄍㄜ5 tˌitˌiˈɛs ㄈㄨ2ㄨ4, ㄒㄧㄠ4ㄍ'
+            'ㄨㄛ3/ㄏㄣ2ㄏㄠ3.',
+            'wo↓mən jʊŋ↘ pˈaɪθɑn ɕje↓ lɤ i↗kɤ tˌitˌiˈɛs fu↗u↘, ɕjau↘k'
+            'wo↓ xən↗xau↓.',
+        ],
+        '请在下午三点之前提交报告。': [
+            'ㄑㄧㄥ3/ㄗㄞ4/ㄒㄧㄚ4ㄨ3/ㄙㄢ1ㄉㄧㄢ3/ㄓㄭ1ㄑㄧㄢ2/ㄊㄧ2ㄐㄧㄠ1/ㄅㄠ4ㄍㄠ4.',
+            'tɕʰiŋ↓ tsai↘ ɕja↘u↓ san→tjɛn↓ ʈʂɨ→tɕʰjɛn↗ tʰi↗tɕjau→ pau'
+            '↘kau↘.',
+        ],
+        'Please hold the line, your call is important to us.': [
+            'plˈiz hˈoʊld ðə lˈaɪn , jʊɹ kˈɔl ɪz ɪmpˈɔɹtənt tʊ ˌʌs .',
+            'plˈiz hˈoʊld ðə lˈaɪn , jʊɹ kˈɔl ɪz ɪmpˈɔɹtənt tʊ ˌʌs .',
+        ],
+        '今天天气真好，我们去公园散步。': [
+            'ㄐㄧㄣ1ㄊㄧㄢ1ㄊㄧㄢ1ㄑㄧ4/ㄓㄣ1/ㄏㄠ3, ㄨㄛ3ㄇㄣ5/ㄑㄩ4/ㄍㄨㄥ1ㄩㄢ2/ㄙㄢ4ㄅㄨ4.',
+            'tɕin→tʰjɛn→tʰjɛn→tɕʰi↘ ʈʂən→ xau↓, wo↓mən tɕʰy↘ kʊŋ→ɥɛn↗'
+            ' san↘pu↘.',
+        ],
+        '欢迎使用语音合成服务。': [
+            'ㄏㄨㄢ1ㄧㄥ2/ㄕㄭ3ㄩㄥ4/ㄩ3ㄧㄣ1/ㄏㄜ2ㄔㄥ2/ㄈㄨ2ㄨ4.',
+            'xwan→iŋ↗ ʂɨ↓jʊŋ↘ y↓in→ xɤ↗ʈʂʰəŋ↗ fu↗u↘.',
+        ],
+        'Thank you for calling, goodbye.': [
+            'θˈæŋk ju fɔɹ kˈɔlɪŋ , ɡʊdbˈaɪ .',
+            'θˈæŋk ju fɔɹ kˈɔlɪŋ , ɡʊdbˈaɪ .',
+        ],
+        '清晨六点，城市还没有完全醒来。街道两旁的路灯依次熄灭，早餐店的老板已经忙着蒸包子、煮豆浆。公交车载着第一批乘客驶'
+        '过大桥，江面上飘着薄薄的雾。七点半以后，上班的人越来越多，地铁站里排起了长队。学校门口，家长们叮嘱孩子注意安全，'
+        '老师微笑着迎接每一位学生。中午的阳光很温暖，公园里有人下棋，有人散步，还有人坐在长椅上读报纸。到了傍晚，商场的灯'
+        '光亮起来，年轻人约朋友一起吃饭、看电影。据统计，这座城市去年接待游客超过三千二百万人次，比前年增长了百分之十二点'
+        '五。夜深了，城市慢慢安静下来，只有远处的货车还在运送明天需要的蔬菜和水果。': [
+            'ㄑㄧㄥ1ㄔㄣ2/ㄌㄧㄡ4ㄉㄧㄢ3, ㄔㄥ2ㄕㄭ4/ㄏㄞ2/ㄇㄟ2ㄧㄡ3/ㄨㄢ2ㄑㄩㄢ2/ㄒㄧㄥ3ㄌㄞ2. ㄐㄧㄝ'
+            '1ㄉㄠ4/ㄌㄧㄤ3ㄆㄤ2/ㄉㄜ5/ㄌㄨ4ㄉㄥ1/ㄧ1ㄘㄭ4/ㄒㄧ1ㄇㄧㄝ4, ㄗㄠ3ㄘㄢ1/ㄉㄧㄢ4/ㄉㄜ5/ㄌ'
+            'ㄠ2ㄅㄢ2/ㄧ3ㄐㄧㄥ1/ㄇㄤ2/ㄓㄜ5/ㄓㄥ1/ㄅㄠ1ㄗㄭ5, ㄓㄨ3/ㄉㄡ4ㄐㄧㄤ1. ㄍㄨㄥ1ㄐㄧㄠ1ㄔㄜ'
+            '1/ㄗㄞ4/ㄓㄜ5/ㄉㄧ4ㄧ1ㄆㄧ1/ㄔㄥ2ㄎㄜ4/ㄕㄭ3ㄍㄨㄛ4/ㄉㄚ4ㄑㄧㄠ2, ㄐㄧㄤ1ㄇㄧㄢ4/ㄕㄤ4/'
+            'ㄆㄧㄠ1/ㄓㄜ5/ㄅㄠ2ㄅㄠ2ㄉㄜ5/ㄨ4. ㄑㄧ1ㄉㄧㄢ3/ㄅㄢ4/ㄧ3ㄏㄡ4, ㄕㄤ4ㄅㄢ1/ㄉㄜ5/ㄖㄣ2'
+            '/ㄩㄝ4ㄌㄞ2ㄩㄝ4/ㄉㄨㄛ1, ㄉㄧ4ㄊㄧㄝ3ㄓㄢ4/ㄌㄧ3/ㄆㄞ2ㄑㄧ3/ㄌㄜ5/ㄔㄤ2ㄉㄨㄟ4. ㄒㄩㄝ2'
+            'ㄒㄧㄠ4/ㄇㄣ2ㄎㄡ3, ㄐㄧㄚ1ㄓㄤ3/ㄇㄣ5/ㄉㄧㄥ1ㄓㄨ3/ㄏㄞ2ㄗㄭ5/ㄓㄨ4ㄧ4ㄢ1ㄑㄩㄢ2, ㄌㄠ3'
+            'ㄕㄭ1/ㄨㄟ1ㄒㄧㄠ4/ㄓㄜ5/ㄧㄥ2ㄐㄧㄝ1/ㄇㄟ3/ㄧ2ㄨㄟ4/ㄒㄩㄝ2ㄕㄥ1. ㄓㄨㄥ1ㄨ3/ㄉㄜ5/ㄧㄤ'
+            '2ㄍㄨㄤ1/ㄏㄣ3/ㄨㄣ1ㄋㄨㄢ3, ㄍㄨㄥ1ㄩㄢ2/ㄌㄧ2ㄧㄡ3ㄖㄣ2/ㄒㄧㄚ4ㄑㄧ2, ㄧㄡ3ㄖㄣ2/ㄙㄢ4'
+            'ㄅㄨ4, ㄏㄞ2ㄧㄡ3/ㄖㄣ2/ㄗㄨㄛ4ㄗㄞ4/ㄔㄤ2ㄧ3/ㄕㄤ4ㄉㄨ2/ㄅㄠ4ㄓㄭ3. ㄉㄠ4/ㄌㄜ5/ㄅㄤ4'
+            'ㄨㄢ3, ㄕㄤ1ㄔㄤ2/ㄉㄜ5/ㄉㄥ1ㄍㄨㄤ1/ㄌㄧㄤ4/ㄑㄧ3ㄌㄞ5, ㄋㄧㄢ2ㄑㄧㄥ1ㄖㄣ2/ㄩㄝ1/ㄆㄥ2'
+            'ㄧㄡ5/ㄧ4ㄑㄧ3/ㄔㄭ1ㄈㄢ4, ㄎㄢ4/ㄉㄧㄢ4ㄧㄥ3. ㄐㄩ4ㄊㄨㄥ3ㄐㄧ4, ㄓㄜ4/ㄗㄨㄛ4/ㄔㄥ2ㄕ'
+            'ㄭ4/ㄑㄩ4ㄋㄧㄢ2/ㄐㄧㄝ1ㄉㄞ4/ㄧㄡ2ㄎㄜ4/ㄔㄠ1ㄍㄨㄛ4/ㄙㄢ1ㄑㄧㄢ1/ㄦ4ㄅㄞ3/ㄨㄢ4ㄖㄣ2ㄘㄭ'
+            '4, ㄅㄧ3/ㄑㄧㄢ2ㄋㄧㄢ2/ㄗㄥ1ㄓㄤ3/ㄌㄜ5/ㄅㄞ3ㄈㄣ1ㄓㄭ1ㄕㄭ2/ㄦ4ㄉㄧㄢ3ㄨ3. ㄧㄝ4ㄕㄣ1'
+            '/ㄌㄜ5, ㄔㄥ2ㄕㄭ4/ㄇㄢ4ㄇㄢ4/ㄢ1ㄐㄧㄥ4ㄒㄧㄚ4ㄌㄞ5, ㄓㄭ2ㄧㄡ3/ㄩㄢ2ㄔㄨ3/ㄉㄜ5/ㄏㄨㄛ'
+            '4ㄔㄜ1/ㄏㄞ2/ㄗㄞ4/ㄩㄣ4ㄙㄨㄥ4/ㄇㄧㄥ2ㄊㄧㄢ1/ㄒㄩ1ㄧㄠ4/ㄉㄜ5/ㄕㄨ1ㄘㄞ4/ㄏㄜ2/ㄕㄨㄟ2'
+            'ㄍㄨㄛ3.',
+            'tɕʰiŋ→ʈʂʰən↗ ljou↘tjɛn↓, ʈʂʰəŋ↗ʂɨ↘ xai↗ mei↗jou↓ wan↗tɕʰ'
+            'ɥɛn↗ ɕiŋ↓lai↗. tɕje→tau↘ ljaŋ↓pʰaŋ↗ tɤ lu↘təŋ→ i→tsʰɨ↘ ɕ'
+            'i→mje↘, tsau↓tsʰan→ tjɛn↘ tɤ lau↗pan↗ i↓tɕiŋ→ maŋ↗ ʈʂɤ ʈ'
+            'ʂəŋ→ pau→tsɨ, ʈʂu↓ tou↘tɕjaŋ→. kʊŋ→tɕjau→ʈʂʰɤ→ tsai↘ ʈʂɤ'
+            ' ti↘i→pʰi→ ʈʂʰəŋ↗kʰɤ↘ ʂɨ↓kwo↘ ta↘tɕʰjau↗, tɕjaŋ→mjɛn↘ ʂa'
+            'ŋ↘ pʰjau→ ʈʂɤ pau↗pau↗tɤ u↘. tɕʰi→tjɛn↓ pan↘ i↓xou↘, ʂaŋ'
+            '↘pan→ tɤ ʐən↗ ɥe↘lai↗ɥe↘ two→, ti↘tʰje↓ʈʂan↘ li↓ pʰai↗tɕ'
+            'ʰi↓ lɤ ʈʂʰaŋ↗twei↘. ɕɥe↗ɕjau↘ mən↗kʰou↓, tɕja→ʈʂaŋ↓ mən '
+            'tiŋ→ʈʂu↓ xai↗tsɨ ʈʂu↘i↘an→tɕʰɥɛn↗, lau↓ʂɨ→ wei→ɕjau↘ ʈʂɤ'
+            ' iŋ↗tɕje→ mei↓ i↗wei↘ ɕɥe↗ʂəŋ→. ʈʂʊŋ→u↓ tɤ jaŋ↗kwaŋ→ xən'
+            '↓ wən→nwan↓, kʊŋ→ɥɛn↗ li↗jou↓ʐən↗ ɕja↘tɕʰi↗, jou↓ʐən↗ sa'
+            'n↘pu↘, xai↗jou↓ ʐən↗ tswo↘tsai↘ ʈʂʰaŋ↗i↓ ʂaŋ↘tu↗ pau↘ʈʂɨ'
+            '↓. tau↘ lɤ paŋ↘wan↓, ʂaŋ→ʈʂʰaŋ↗ tɤ təŋ→kwaŋ→ ljaŋ↘ tɕʰi↓'
+            'lai, njɛn↗tɕʰiŋ→ʐən↗ ɥe→ pʰəŋ↗jou i↘tɕʰi↓ ʈʂʰɨ→fan↘, kʰa'
+            'n↘ tjɛn↘iŋ↓. tɕy↘tʰʊŋ↓tɕi↘, ʈʂɤ↘ tswo↘ ʈʂʰəŋ↗ʂɨ↘ tɕʰy↘nj'
+            'ɛn↗ tɕje→tai↘ jou↗kʰɤ↘ ʈʂʰau→kwo↘ san→tɕʰjɛn→ ɚ↘pai↓ wan'
+            '↘ʐən↗tsʰɨ↘, pi↓ tɕʰjɛn↗njɛn↗ tsəŋ→ʈʂaŋ↓ lɤ pai↓fən→ʈʂɨ→ʂ'
+            'ɨ↗ ɚ↘tjɛn↓u↓. je↘ʂən→ lɤ, ʈʂʰəŋ↗ʂɨ↘ man↘man↘ an→tɕiŋ↘ɕja'
+            '↘lai, ʈʂɨ↗jou↓ ɥɛn↗ʈʂʰu↓ tɤ xwo↘ʈʂʰɤ→ xai↗ tsai↘ yn↘sʊŋ↘'
+            ' miŋ↗tʰjɛn→ ɕy→jau↘ tɤ ʂu→tsʰai↘ xɤ↗ ʂwei↗kwo↓.',
+        ],
+        '清晨六点，城市还没有完全醒来。街道两旁的路灯依次熄灭，早餐店的老板已经忙着蒸包子、煮豆浆。公交车载着第一批乘客驶'
+        '过大桥，江面上飘着薄薄的雾。七点半以后，上班的人越来越多，地铁站里排起了长队。学校门口，家长们叮嘱孩子注意安全，'
+        '老师微笑着迎接每一位学生。中午的阳光很温暖，': [
+            'ㄑㄧㄥ1ㄔㄣ2/ㄌㄧㄡ4ㄉㄧㄢ3, ㄔㄥ2ㄕㄭ4/ㄏㄞ2/ㄇㄟ2ㄧㄡ3/ㄨㄢ2ㄑㄩㄢ2/ㄒㄧㄥ3ㄌㄞ2. ㄐㄧㄝ'
+            '1ㄉㄠ4/ㄌㄧㄤ3ㄆㄤ2/ㄉㄜ5/ㄌㄨ4ㄉㄥ1/ㄧ1ㄘㄭ4/ㄒㄧ1ㄇㄧㄝ4, ㄗㄠ3ㄘㄢ1/ㄉㄧㄢ4/ㄉㄜ5/ㄌ'
+            'ㄠ2ㄅㄢ2/ㄧ3ㄐㄧㄥ1/ㄇㄤ2/ㄓㄜ5/ㄓㄥ1/ㄅㄠ1ㄗㄭ5, ㄓㄨ3/ㄉㄡ4ㄐㄧㄤ1. ㄍㄨㄥ1ㄐㄧㄠ1ㄔㄜ'
+            '1/ㄗㄞ4/ㄓㄜ5/ㄉㄧ4ㄧ1ㄆㄧ1/ㄔㄥ2ㄎㄜ4/ㄕㄭ3ㄍㄨㄛ4/ㄉㄚ4ㄑㄧㄠ2, ㄐㄧㄤ1ㄇㄧㄢ4/ㄕㄤ4/'
+            'ㄆㄧㄠ1/ㄓㄜ5/ㄅㄠ2ㄅㄠ2ㄉㄜ5/ㄨ4. ㄑㄧ1ㄉㄧㄢ3/ㄅㄢ4/ㄧ3ㄏㄡ4, ㄕㄤ4ㄅㄢ1/ㄉㄜ5/ㄖㄣ2'
+            '/ㄩㄝ4ㄌㄞ2ㄩㄝ4/ㄉㄨㄛ1, ㄉㄧ4ㄊㄧㄝ3ㄓㄢ4/ㄌㄧ3/ㄆㄞ2ㄑㄧ3/ㄌㄜ5/ㄔㄤ2ㄉㄨㄟ4. ㄒㄩㄝ2'
+            'ㄒㄧㄠ4/ㄇㄣ2ㄎㄡ3, ㄐㄧㄚ1ㄓㄤ3/ㄇㄣ5/ㄉㄧㄥ1ㄓㄨ3/ㄏㄞ2ㄗㄭ5/ㄓㄨ4ㄧ4ㄢ1ㄑㄩㄢ2, ㄌㄠ3'
+            'ㄕㄭ1/ㄨㄟ1ㄒㄧㄠ4/ㄓㄜ5/ㄧㄥ2ㄐㄧㄝ1/ㄇㄟ3/ㄧ2ㄨㄟ4/ㄒㄩㄝ2ㄕㄥ1. ㄓㄨㄥ1ㄨ3/ㄉㄜ5/ㄧㄤ'
+            '2ㄍㄨㄤ1/ㄏㄣ3/ㄨㄣ1ㄋㄨㄢ3,',
+            'tɕʰiŋ→ʈʂʰən↗ ljou↘tjɛn↓, ʈʂʰəŋ↗ʂɨ↘ xai↗ mei↗jou↓ wan↗tɕʰ'
+            'ɥɛn↗ ɕiŋ↓lai↗. tɕje→tau↘ ljaŋ↓pʰaŋ↗ tɤ lu↘təŋ→ i→tsʰɨ↘ ɕ'
+            'i→mje↘, tsau↓tsʰan→ tjɛn↘ tɤ lau↗pan↗ i↓tɕiŋ→ maŋ↗ ʈʂɤ ʈ'
+            'ʂəŋ→ pau→tsɨ, ʈʂu↓ tou↘tɕjaŋ→. kʊŋ→tɕjau→ʈʂʰɤ→ tsai↘ ʈʂɤ'
+            ' ti↘i→pʰi→ ʈʂʰəŋ↗kʰɤ↘ ʂɨ↓kwo↘ ta↘tɕʰjau↗, tɕjaŋ→mjɛn↘ ʂa'
+            'ŋ↘ pʰjau→ ʈʂɤ pau↗pau↗tɤ u↘. tɕʰi→tjɛn↓ pan↘ i↓xou↘, ʂaŋ'
+            '↘pan→ tɤ ʐən↗ ɥe↘lai↗ɥe↘ two→, ti↘tʰje↓ʈʂan↘ li↓ pʰai↗tɕ'
+            'ʰi↓ lɤ ʈʂʰaŋ↗twei↘. ɕɥe↗ɕjau↘ mən↗kʰou↓, tɕja→ʈʂaŋ↓ mən '
+            'tiŋ→ʈʂu↓ xai↗tsɨ ʈʂu↘i↘an→tɕʰɥɛn↗, lau↓ʂɨ→ wei→ɕjau↘ ʈʂɤ'
+            ' iŋ↗tɕje→ mei↓ i↗wei↘ ɕɥe↗ʂəŋ→. ʈʂʊŋ→u↓ tɤ jaŋ↗kwaŋ→ xən'
+            '↓ wən→nwan↓,',
+        ],
+        '清晨六点，城市还没有完全醒来。街道两旁的路灯依次熄灭，早餐店的老板已经忙着蒸包子、煮豆浆。公交车载着第一批乘客驶'
+        '过大桥，江面上飘着薄薄的雾。': [
+            'ㄑㄧㄥ1ㄔㄣ2/ㄌㄧㄡ4ㄉㄧㄢ3, ㄔㄥ2ㄕㄭ4/ㄏㄞ2/ㄇㄟ2ㄧㄡ3/ㄨㄢ2ㄑㄩㄢ2/ㄒㄧㄥ3ㄌㄞ2. ㄐㄧㄝ'
+            '1ㄉㄠ4/ㄌㄧㄤ3ㄆㄤ2/ㄉㄜ5/ㄌㄨ4ㄉㄥ1/ㄧ1ㄘㄭ4/ㄒㄧ1ㄇㄧㄝ4, ㄗㄠ3ㄘㄢ1/ㄉㄧㄢ4/ㄉㄜ5/ㄌ'
+            'ㄠ2ㄅㄢ2/ㄧ3ㄐㄧㄥ1/ㄇㄤ2/ㄓㄜ5/ㄓㄥ1/ㄅㄠ1ㄗㄭ5, ㄓㄨ3/ㄉㄡ4ㄐㄧㄤ1. ㄍㄨㄥ1ㄐㄧㄠ1ㄔㄜ'
+            '1/ㄗㄞ4/ㄓㄜ5/ㄉㄧ4ㄧ1ㄆㄧ1/ㄔㄥ2ㄎㄜ4/ㄕㄭ3ㄍㄨㄛ4/ㄉㄚ4ㄑㄧㄠ2, ㄐㄧㄤ1ㄇㄧㄢ4/ㄕㄤ4/'
+            'ㄆㄧㄠ1/ㄓㄜ5/ㄅㄠ2ㄅㄠ2ㄉㄜ5/ㄨ4.',
+            'tɕʰiŋ→ʈʂʰən↗ ljou↘tjɛn↓, ʈʂʰəŋ↗ʂɨ↘ xai↗ mei↗jou↓ wan↗tɕʰ'
+            'ɥɛn↗ ɕiŋ↓lai↗. tɕje→tau↘ ljaŋ↓pʰaŋ↗ tɤ lu↘təŋ→ i→tsʰɨ↘ ɕ'
+            'i→mje↘, tsau↓tsʰan→ tjɛn↘ tɤ lau↗pan↗ i↓tɕiŋ→ maŋ↗ ʈʂɤ ʈ'
+            'ʂəŋ→ pau→tsɨ, ʈʂu↓ tou↘tɕjaŋ→. kʊŋ→tɕjau→ʈʂʰɤ→ tsai↘ ʈʂɤ'
+            ' ti↘i→pʰi→ ʈʂʰəŋ↗kʰɤ↘ ʂɨ↓kwo↘ ta↘tɕʰjau↗, tɕjaŋ→mjɛn↘ ʂa'
+            'ŋ↘ pʰjau→ ʈʂɤ pau↗pau↗tɤ u↘.',
+        ],
+        '七点半以后，上班的人越来越多，地铁站里排起了长队。学校门口，家长们叮嘱孩子注意安全，老师微笑着迎接每一位学生。中'
+        '午的阳光很温暖，': [
+            'ㄑㄧ1ㄉㄧㄢ3/ㄅㄢ4/ㄧ3ㄏㄡ4, ㄕㄤ4ㄅㄢ1/ㄉㄜ5/ㄖㄣ2/ㄩㄝ4ㄌㄞ2ㄩㄝ4/ㄉㄨㄛ1, ㄉㄧ4ㄊㄧㄝ'
+            '3ㄓㄢ4/ㄌㄧ3/ㄆㄞ2ㄑㄧ3/ㄌㄜ5/ㄔㄤ2ㄉㄨㄟ4. ㄒㄩㄝ2ㄒㄧㄠ4/ㄇㄣ2ㄎㄡ3, ㄐㄧㄚ1ㄓㄤ3/ㄇㄣ'
+            '5/ㄉㄧㄥ1ㄓㄨ3/ㄏㄞ2ㄗㄭ5/ㄓㄨ4ㄧ4ㄢ1ㄑㄩㄢ2, ㄌㄠ3ㄕㄭ1/ㄨㄟ1ㄒㄧㄠ4/ㄓㄜ5/ㄧㄥ2ㄐㄧㄝ1'
+            '/ㄇㄟ3/ㄧ2ㄨㄟ4/ㄒㄩㄝ2ㄕㄥ1. ㄓㄨㄥ1ㄨ3/ㄉㄜ5/ㄧㄤ2ㄍㄨㄤ1/ㄏㄣ3/ㄨㄣ1ㄋㄨㄢ3,',
+            'tɕʰi→tjɛn↓ pan↘ i↓xou↘, ʂaŋ↘pan→ tɤ ʐən↗ ɥe↘lai↗ɥe↘ two→'
+            ', ti↘tʰje↓ʈʂan↘ li↓ pʰai↗tɕʰi↓ lɤ ʈʂʰaŋ↗twei↘. ɕɥe↗ɕjau↘'
+            ' mən↗kʰou↓, tɕja→ʈʂaŋ↓ mən tiŋ→ʈʂu↓ xai↗tsɨ ʈʂu↘i↘an→tɕʰ'
+            'ɥɛn↗, lau↓ʂɨ→ wei→ɕjau↘ ʈʂɤ iŋ↗tɕje→ mei↓ i↗wei↘ ɕɥe↗ʂəŋ'
+            '→. ʈʂʊŋ→u↓ tɤ jaŋ↗kwaŋ→ xən↓ wən→nwan↓,',
+        ],
+        '公园里有人下棋，有人散步，还有人坐在长椅上读报纸。到了傍晚，商场的灯光亮起来，年轻人约朋友一起吃饭、看电影。据统'
+        '计，这座城市去年接待游客超过三千二百万人次，比前年增长了百分之十二点五。夜深了，城市慢慢安静下来，只有远处的货车'
+        '还在运送明天需要的蔬菜和水果。': [
+            'ㄍㄨㄥ1ㄩㄢ2/ㄌㄧ2ㄧㄡ3ㄖㄣ2/ㄒㄧㄚ4ㄑㄧ2, ㄧㄡ3ㄖㄣ2/ㄙㄢ4ㄅㄨ4, ㄏㄞ2ㄧㄡ3/ㄖㄣ2/ㄗㄨㄛ'
+            '4ㄗㄞ4/ㄔㄤ2ㄧ3/ㄕㄤ4ㄉㄨ2/ㄅㄠ4ㄓㄭ3. ㄉㄠ4/ㄌㄜ5/ㄅㄤ4ㄨㄢ3, ㄕㄤ1ㄔㄤ2/ㄉㄜ5/ㄉㄥ1'
+            'ㄍㄨㄤ1/ㄌㄧㄤ4/ㄑㄧ3ㄌㄞ5, ㄋㄧㄢ2ㄑㄧㄥ1ㄖㄣ2/ㄩㄝ1/ㄆㄥ2ㄧㄡ5/ㄧ4ㄑㄧ3/ㄔㄭ1ㄈㄢ4, ㄎ'
+            'ㄢ4/ㄉㄧㄢ4ㄧㄥ3. ㄐㄩ4ㄊㄨㄥ3ㄐㄧ4, ㄓㄜ4/ㄗㄨㄛ4/ㄔㄥ2ㄕㄭ4/ㄑㄩ4ㄋㄧㄢ2/ㄐㄧㄝ1ㄉㄞ4/'
+            'ㄧㄡ2ㄎㄜ4/ㄔㄠ1ㄍㄨㄛ4/ㄙㄢ1ㄑㄧㄢ1/ㄦ4ㄅㄞ3/ㄨㄢ4ㄖㄣ2ㄘㄭ4, ㄅㄧ3/ㄑㄧㄢ2ㄋㄧㄢ2/ㄗㄥ1'
+            'ㄓㄤ3/ㄌㄜ5/ㄅㄞ3ㄈㄣ1ㄓㄭ1ㄕㄭ2/ㄦ4ㄉㄧㄢ3ㄨ3. ㄧㄝ4ㄕㄣ1/ㄌㄜ5, ㄔㄥ2ㄕㄭ4/ㄇㄢ4ㄇㄢ4'
+            '/ㄢ1ㄐㄧㄥ4ㄒㄧㄚ4ㄌㄞ5, ㄓㄭ2ㄧㄡ3/ㄩㄢ2ㄔㄨ3/ㄉㄜ5/ㄏㄨㄛ4ㄔㄜ1/ㄏㄞ2/ㄗㄞ4/ㄩㄣ4ㄙㄨㄥ'
+            '4/ㄇㄧㄥ2ㄊㄧㄢ1/ㄒㄩ1ㄧㄠ4/ㄉㄜ5/ㄕㄨ1ㄘㄞ4/ㄏㄜ2/ㄕㄨㄟ2ㄍㄨㄛ3.',
+            'kʊŋ→ɥɛn↗ li↗jou↓ʐən↗ ɕja↘tɕʰi↗, jou↓ʐən↗ san↘pu↘, xai↗jo'
+            'u↓ ʐən↗ tswo↘tsai↘ ʈʂʰaŋ↗i↓ ʂaŋ↘tu↗ pau↘ʈʂɨ↓. tau↘ lɤ pa'
+            'ŋ↘wan↓, ʂaŋ→ʈʂʰaŋ↗ tɤ təŋ→kwaŋ→ ljaŋ↘ tɕʰi↓lai, njɛn↗tɕʰ'
+            'iŋ→ʐən↗ ɥe→ pʰəŋ↗jou i↘tɕʰi↓ ʈʂʰɨ→fan↘, kʰan↘ tjɛn↘iŋ↓. '
+            'tɕy↘tʰʊŋ↓tɕi↘, ʈʂɤ↘ tswo↘ ʈʂʰəŋ↗ʂɨ↘ tɕʰy↘njɛn↗ tɕje→tai↘'
+            ' jou↗kʰɤ↘ ʈʂʰau→kwo↘ san→tɕʰjɛn→ ɚ↘pai↓ wan↘ʐən↗tsʰɨ↘, p'
+            'i↓ tɕʰjɛn↗njɛn↗ tsəŋ→ʈʂaŋ↓ lɤ pai↓fən→ʈʂɨ→ʂɨ↗ ɚ↘tjɛn↓u↓.'
+            ' je↘ʂən→ lɤ, ʈʂʰəŋ↗ʂɨ↘ man↘man↘ an→tɕiŋ↘ɕja↘lai, ʈʂɨ↗jou'
+            '↓ ɥɛn↗ʈʂʰu↓ tɤ xwo↘ʈʂʰɤ→ xai↗ tsai↘ yn↘sʊŋ↘ miŋ↗tʰjɛn→ ɕ'
+            'y→jau↘ tɤ ʂu→tsʰai↘ xɤ↗ ʂwei↗kwo↓.',
+        ],
+        '公园里有人下棋，有人散步，还有人坐在长椅上读报纸。到了傍晚，商场的灯光亮起来，年轻人约朋友一起吃饭、看电影。据统'
+        '计，': [
+            'ㄍㄨㄥ1ㄩㄢ2/ㄌㄧ2ㄧㄡ3ㄖㄣ2/ㄒㄧㄚ4ㄑㄧ2, ㄧㄡ3ㄖㄣ2/ㄙㄢ4ㄅㄨ4, ㄏㄞ2ㄧㄡ3/ㄖㄣ2/ㄗㄨㄛ'
+            '4ㄗㄞ4/ㄔㄤ2ㄧ3/ㄕㄤ4ㄉㄨ2/ㄅㄠ4ㄓㄭ3. ㄉㄠ4/ㄌㄜ5/ㄅㄤ4ㄨㄢ3, ㄕㄤ1ㄔㄤ2/ㄉㄜ5/ㄉㄥ1'
+            'ㄍㄨㄤ1/ㄌㄧㄤ4/ㄑㄧ3ㄌㄞ5, ㄋㄧㄢ2ㄑㄧㄥ1ㄖㄣ2/ㄩㄝ1/ㄆㄥ2ㄧㄡ5/ㄧ4ㄑㄧ3/ㄔㄭ1ㄈㄢ4, ㄎ'
+            'ㄢ4/ㄉㄧㄢ4ㄧㄥ3. ㄐㄩ4ㄊㄨㄥ3ㄐㄧ4,',
+            'kʊŋ→ɥɛn↗ li↗jou↓ʐən↗ ɕja↘tɕʰi↗, jou↓ʐən↗ san↘pu↘, xai↗jo'
+            'u↓ ʐən↗ tswo↘tsai↘ ʈʂʰaŋ↗i↓ ʂaŋ↘tu↗ pau↘ʈʂɨ↓. tau↘ lɤ pa'
+            'ŋ↘wan↓, ʂaŋ→ʈʂʰaŋ↗ tɤ təŋ→kwaŋ→ ljaŋ↘ tɕʰi↓lai, njɛn↗tɕʰ'
+            'iŋ→ʐən↗ ɥe→ pʰəŋ↗jou i↘tɕʰi↓ ʈʂʰɨ→fan↘, kʰan↘ tjɛn↘iŋ↓. '
+            'tɕy↘tʰʊŋ↓tɕi↘,',
+        ],
+        '这座城市去年接待游客超过三千二百万人次，比前年增长了百分之十二点五。夜深了，城市慢慢安静下来，只有远处的货车还在'
+        '运送明天需要的蔬菜和水果。': [
+            'ㄓㄜ4/ㄗㄨㄛ4/ㄔㄥ2ㄕㄭ4/ㄑㄩ4ㄋㄧㄢ2/ㄐㄧㄝ1ㄉㄞ4/ㄧㄡ2ㄎㄜ4/ㄔㄠ1ㄍㄨㄛ4/ㄙㄢ1ㄑㄧㄢ1/ㄦ'
+            '4ㄅㄞ3/ㄨㄢ4ㄖㄣ2ㄘㄭ4, ㄅㄧ3/ㄑㄧㄢ2ㄋㄧㄢ2/ㄗㄥ1ㄓㄤ3/ㄌㄜ5/ㄅㄞ3ㄈㄣ1ㄓㄭ1ㄕㄭ2/ㄦ4ㄉ'
+            'ㄧㄢ3ㄨ3. ㄧㄝ4ㄕㄣ1/ㄌㄜ5, ㄔㄥ2ㄕㄭ4/ㄇㄢ4ㄇㄢ4/ㄢ1ㄐㄧㄥ4ㄒㄧㄚ4ㄌㄞ5, ㄓㄭ2ㄧㄡ3/ㄩ'
+            'ㄢ2ㄔㄨ3/ㄉㄜ5/ㄏㄨㄛ4ㄔㄜ1/ㄏㄞ2/ㄗㄞ4/ㄩㄣ4ㄙㄨㄥ4/ㄇㄧㄥ2ㄊㄧㄢ1/ㄒㄩ1ㄧㄠ4/ㄉㄜ5/ㄕㄨ'
+            '1ㄘㄞ4/ㄏㄜ2/ㄕㄨㄟ2ㄍㄨㄛ3.',
+            'ʈʂɤ↘ tswo↘ ʈʂʰəŋ↗ʂɨ↘ tɕʰy↘njɛn↗ tɕje→tai↘ jou↗kʰɤ↘ ʈʂʰau'
+            '→kwo↘ san→tɕʰjɛn→ ɚ↘pai↓ wan↘ʐən↗tsʰɨ↘, pi↓ tɕʰjɛn↗njɛn↗'
+            ' tsəŋ→ʈʂaŋ↓ lɤ pai↓fən→ʈʂɨ→ʂɨ↗ ɚ↘tjɛn↓u↓. je↘ʂən→ lɤ, ʈʂ'
+            'ʰəŋ↗ʂɨ↘ man↘man↘ an→tɕiŋ↘ɕja↘lai, ʈʂɨ↗jou↓ ɥɛn↗ʈʂʰu↓ tɤ '
+            'xwo↘ʈʂʰɤ→ xai↗ tsai↘ yn↘sʊŋ↘ miŋ↗tʰjɛn→ ɕy→jau↘ tɤ ʂu→ts'
+            'ʰai↘ xɤ↗ ʂwei↗kwo↓.',
+        ],
+        '欢迎收听今天的新闻。 This is the evening report, with the weather '
+        'and the traffic.': [
+            'ㄏㄨㄢ1ㄧㄥ2/ㄕㄡ1ㄊㄧㄥ1/ㄐㄧㄣ1ㄊㄧㄢ1/ㄉㄜ5/ㄒㄧㄣ1ㄨㄣ2. ðɪs ɪz ði ˈivnɪŋ ɹ'
+            'ɪpˈɔɹt , wɪð ðə wˈɛðɚ ænd ðə tɹˈæfɪk .',
+            'xwan→iŋ↗ ʂou→tʰiŋ→ tɕin→tʰjɛn→ tɤ ɕin→wən↗. ðɪs ɪz ði ˈi'
+            'vnɪŋ ɹɪpˈɔɹt , wɪð ðə wˈɛðɚ ænd ðə tɹˈæfɪk .',
+        ],
+    },
+    "words": {
+        '今天天气真好，我们去公园散步。': [
+            ['今天天气', 'tɕin→tʰjɛn→tʰjɛn→tɕʰi↘'],
+            ['真', 'ʈʂən→'],
+            ['好', 'xau↓'],
+            [',', ','],
+            ['我们', 'wo↓mən'],
+            ['去', 'tɕʰy↘'],
+            ['公园', 'kʊŋ→ɥɛn↗'],
+            ['散步', 'san↘pu↘'],
+            ['.', '.'],
+        ],
+    },
+}
 
 
 if __name__ == "__main__":

@@ -12,6 +12,11 @@ _LAZY = {
     "Synthesizer": ("illufly_tts_tpu_torch.engine.synthesizer", "Synthesizer"),
     "KokoroConfig": ("illufly_tts_tpu_torch.model.config", "KokoroConfig"),
     "KokoroModel": ("illufly_tts_tpu_torch.model.kokoro", "KokoroModel"),
+    "TTSPipeline": ("illufly_tts_tpu_torch.pipeline", "TTSPipeline"),
+    "CachedTTSPipeline": ("illufly_tts_tpu_torch.pipeline",
+                          "CachedTTSPipeline"),
+    "TTSServiceManager": ("illufly_tts_tpu_torch.runtime.scheduler",
+                          "TTSServiceManager"),
 }
 
 __all__ = ["__version__", *_LAZY]

@@ -83,6 +83,7 @@ class DispatchHandle:
         "n", "b_bucket", "t_bucket", "ids", "mask", "ref", "d",
         "pred_dur", "totals", "f_bucket", "device_audio", "audio",
         "fitted_totals", "fmt", "keep_durations", "host_pred_dur", "pitch",
+        "ts_ctx",
     )
 
     def __init__(self, n, b_bucket, t_bucket, ids, mask, ref, d,
@@ -104,6 +105,7 @@ class DispatchHandle:
         self.pitch = pitch
         self.keep_durations = False
         self.host_pred_dur = None
+        self.ts_ctx = None  # pipeline-owned frontend context for timestamps
 
 
 def resolve_device(device=None) -> torch.device:
@@ -128,10 +130,12 @@ class Synthesizer:
         token_buckets: Sequence[int] = TOKEN_BUCKETS,
         frame_buckets: Sequence[int] = FRAME_BUCKETS,
         batch_buckets: Sequence[int] = BATCH_BUCKETS,
+        repo_id: str = "",
     ):
         """``params``: a flax-layout tree (``{"params": ...}``, numpy
         arrays), e.g. the JAX ``Synthesizer.params``; None draws the same
-        random parameters the JAX engine draws for ``seed``."""
+        random parameters the JAX engine draws for ``seed``. ``repo_id``
+        enables the offline HF-cache voice search of ``load_voice``."""
         self.device = resolve_device(device)
         self.config = config or KokoroConfig()
         if self.config.dtype != torch.float32:
@@ -145,6 +149,7 @@ class Synthesizer:
         load_flax_params(model, params)
         self.model = model.to(self.device).eval().requires_grad_(False)
         self.voices_dir = voices_dir
+        self.repo_id = repo_id
         # pick() assumes ascending order
         self.token_buckets = tuple(sorted(token_buckets))
         self.frame_buckets = tuple(sorted(frame_buckets))
@@ -155,39 +160,115 @@ class Synthesizer:
         self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
         self._lock = threading.Lock()
 
+    def load_params(self, path: str) -> None:
+        """Not ported yet (ROADMAP queue 1, checkpoint loading): flax
+        msgpack needs flax, and a torch Kokoro checkpoint (.pt/.pth) needs
+        the port of ``model/convert.py``. Pass ``params=`` (a flax-layout
+        numpy tree) to the constructor instead."""
+        raise NotImplementedError(
+            f"load_params({path!r}): checkpoint loading is not ported yet "
+            "(ROADMAP queue 1); pass params= to Synthesizer instead"
+        )
+
     # --- voices ---------------------------------------------------------------
 
     def load_voice(self, voice_id: str) -> np.ndarray:
         """Voice pack [L, 256] (style embedding indexed by phoneme length),
-        registered or read from ``voices_dir`` as .npy/.npz/.pt. Kept on
-        the host: each item's row ships with the batch upload."""
+        registered, or read as .npy/.npz/.pt from ``voices_dir`` and then,
+        with ``repo_id`` set, from the offline HF snapshot cache
+        ``$HF_HOME/hub/models--<org>--<name>/snapshots/*/voices/``. Kept on
+        the host: each item's row ships with the batch upload.
+
+        ``voice_id`` may also be a blend spec ``"a*0.6+b*0.4"`` (see
+        ``blend_voices``); the blended pack is cached under the spec."""
         if voice_id in self._voices:
             return self._voices[voice_id]
-        pack = None
-        if self.voices_dir:
+        if "+" in voice_id or "*" in voice_id:
+            self.register_voice(voice_id, self.blend_voices(voice_id))
+            return self._voices[voice_id]
+
+        def try_dir(directory: str):
             for ext in (".npy", ".npz", ".pt"):
-                path = os.path.join(self.voices_dir, f"{voice_id}{ext}")
+                path = os.path.join(directory, f"{voice_id}{ext}")
                 if not os.path.exists(path):
                     continue
                 if ext == ".npy":
-                    pack = np.load(path)
-                elif ext == ".npz":
+                    return np.load(path)
+                if ext == ".npz":
                     with np.load(path) as z:
-                        pack = z[list(z.keys())[0]]
-                else:
-                    pack = torch.load(path, map_location="cpu",
-                                      weights_only=True).numpy()
-                break
+                        return z[list(z.keys())[0]]
+                return torch.load(path, map_location="cpu",
+                                  weights_only=True).numpy()
+            return None
+
+        pack = try_dir(self.voices_dir) if self.voices_dir else None
+        searched = [self.voices_dir] if self.voices_dir else []
+        if pack is None and self.repo_id:
+            # the HF snapshot cache's voices/ dir, searched offline: the
+            # on-disk layout snapshot_download uses, no network
+            hub = os.path.join(
+                os.environ.get(
+                    "HF_HOME",
+                    os.path.join(os.path.expanduser("~"), ".cache",
+                                 "huggingface"),
+                ),
+                "hub",
+                "models--" + self.repo_id.replace("/", "--"),
+                "snapshots",
+            )
+            if os.path.isdir(hub):
+                for rev in sorted(os.listdir(hub)):
+                    vdir = os.path.join(hub, rev, "voices")
+                    searched.append(vdir)
+                    if os.path.isdir(vdir):
+                        pack = try_dir(vdir)
+                        if pack is not None:
+                            break
+            else:
+                searched.append(hub)
         if pack is None:
             raise ValueError(
-                f"voice not found: {voice_id} (searched "
-                f"{[self.voices_dir] if self.voices_dir else []})"
+                f"voice not found: {voice_id} (searched {searched})"
             )
         pack = np.asarray(pack, np.float32)
         if pack.ndim == 3:  # [L, 1, 256] -> [L, 256]
             pack = pack[:, 0, :]
         self.register_voice(voice_id, pack)
         return self._voices[voice_id]
+
+    def blend_voices(self, spec: str) -> np.ndarray:
+        """Weighted mix of voice packs: ``"a+b"`` (equal), ``"a*0.7+b*0.3"``.
+        Weights are normalized to sum to 1; packs of different lengths are
+        aligned on the shortest (length-indexed rows stay consistent)."""
+        comps = []
+        for part in spec.split("+"):
+            name, _, w = part.partition("*")
+            name = name.strip()
+            if not name or "+" in name:
+                raise ValueError(f"bad voice blend component: {part!r}")
+            try:
+                weight = float(w) if w.strip() else 1.0
+            except ValueError:
+                raise ValueError(
+                    f"bad weight in voice blend component: {part!r}"
+                )
+            if weight <= 0 or not np.isfinite(weight):
+                raise ValueError(
+                    f"voice blend weight must be positive: {part!r}"
+                )
+            comps.append((name, weight))
+        total = sum(w for _, w in comps)
+        packs = [self.load_voice(name) for name, _ in comps]
+        min_len = min(p.shape[0] for p in packs)
+        out = np.zeros((min_len, packs[0].shape[1]), np.float32)
+        for (_, w), p in zip(comps, packs):
+            if p.shape[1] != out.shape[1]:
+                raise ValueError(
+                    f"voice blend dim mismatch in {spec!r}: "
+                    f"{p.shape[1]} vs {out.shape[1]}"
+                )
+            out += (w / total) * p[:min_len]
+        return out
 
     def register_voice(self, voice_id: str, pack: np.ndarray) -> None:
         pack = np.asarray(pack, np.float32)
@@ -202,6 +283,24 @@ class Synthesizer:
             np.float32
         ) * 0.1
         self.register_voice(voice_id, pack)
+
+    def list_voices(self) -> List[str]:
+        names = set(self._voices)
+        if self.voices_dir and os.path.isdir(self.voices_dir):
+            for f in os.listdir(self.voices_dir):
+                base, ext = os.path.splitext(f)
+                if ext in (".npy", ".npz", ".pt", ".pth"):
+                    names.add(base)
+        return sorted(names)
+
+    def is_voice_loaded(self, voice_id: str) -> bool:
+        if voice_id in self._voices:
+            return True
+        try:
+            self.load_voice(voice_id)
+            return True
+        except Exception:
+            return False
 
     # --- stages ----------------------------------------------------------------
 

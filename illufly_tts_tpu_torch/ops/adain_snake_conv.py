@@ -31,6 +31,7 @@ like the JAX package, they stay plain tensor ops.
 from __future__ import annotations
 
 import ctypes
+import threading
 from functools import lru_cache
 from typing import Tuple
 
@@ -50,8 +51,16 @@ TILE_COST = {128: 1.0, 64: 0.66}
 MAX_SMEM = 232448      # bytes of shared memory one CTA may take
 
 # kernel launches since the last reset, by kernel (plain-version calls do
-# not count)
+# not count), bumped under a lock: the scheduler's worker threads launch
+# concurrently
 launches = {"adain_snake_conv": 0, "adain_snake_conv_carry": 0}
+_launches_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    """Add one launch of kernel ``name`` to ``launches``."""
+    with _launches_lock:
+        launches[name] += 1
 
 
 def instance_moments(x: torch.Tensor, mask: torch.Tensor,
@@ -266,7 +275,7 @@ def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
     y = _launch(_library().adain_snake_conv_f32, x, mask, scale, shift,
                 alpha, w, b, kernel, dilation, tile_len,
                 tiles_per_cta(batch, w.shape[2], length, sms, tile_len))
-    launches["adain_snake_conv"] += 1
+    count_launch("adain_snake_conv")
     return y
 
 
@@ -286,5 +295,5 @@ def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
                                       kernel, dilation, sms, tile_len)
     y = _launch(_library().adain_snake_conv_carry_f32, x, mask, scale, shift,
                 alpha, w, b, kernel, dilation, tile_len, per_chunk)
-    launches["adain_snake_conv_carry"] += 1
+    count_launch("adain_snake_conv_carry")
     return y

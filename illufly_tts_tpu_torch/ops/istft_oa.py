@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from functools import lru_cache
 
 import numpy as np
@@ -36,8 +37,17 @@ N_FFT = 20
 HOP = 5
 K = N_FFT // 2 + 1
 
-# kernel launches since the last reset (plain-version calls do not count)
+# kernel launches since the last reset (plain-version calls do not count),
+# bumped under a lock: the scheduler's worker threads launch concurrently
 launches = 0
+_launches_lock = threading.Lock()
+
+
+def count_launch() -> None:
+    """Add one launch to ``launches``."""
+    global launches
+    with _launches_lock:
+        launches += 1
 
 
 def istft_oa_plain(mag: torch.Tensor, phase: torch.Tensor,
@@ -106,7 +116,6 @@ def _check(fn: str, *tensors: torch.Tensor) -> None:
 
 def _launch(entry, inputs, batch: int, frames: int) -> torch.Tensor:
     """Run ``entry`` (a C entry point) on ``inputs`` -> audio [B, F * 5]."""
-    global launches
     dev = inputs[0].device
     out = torch.empty((batch, frames * HOP), dtype=torch.float32, device=dev)
     rc = entry(*(t.data_ptr() for t in inputs), out.data_ptr(), batch,
@@ -114,7 +123,7 @@ def _launch(entry, inputs, batch: int, frames: int) -> torch.Tensor:
                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"istft_oa kernel launch failed: cudaError {rc}")
-    launches += 1
+    count_launch()
     return out
 
 

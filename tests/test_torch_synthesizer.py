@@ -128,6 +128,7 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "import illufly_tts_tpu_torch as p\n"
         "p.Synthesizer, p.KokoroConfig\n"
+        "p.TTSPipeline, p.CachedTTSPipeline, p.TTSServiceManager\n"
         "assert not any(m.split('.')[0] in ('jax', 'flax', 'illufly_tts_tpu')"
         " for m in sys.modules)\n"
         "print('PORT OK')\n"
