@@ -44,7 +44,24 @@ From the root of a checkout. It
    ``process(segment_text=True)`` and one windowed ``stream_process``. On
    a host without ``jieba`` (which the Chinese G2P imports) the G2P's
    outputs come from ``FRONTEND_TABLE``; the normalizers, the pipeline, the
-   scheduler and the model run as they are.
+   scheduler and the model run as they are;
+8. serves HTTP and MCP: first it times ``launch_decode`` on the host for a
+   plain and a timestamped handle at long_8's shape beside that stage B's
+   CUDA-event span (a timestamped launch must not wait for its own stage
+   B); then the port's ``create_app`` over phase 7's pipeline, on
+   loopback with a bearer token, answers ten requests one at a time
+   (``/api/tts`` as WAV for a zh and a mixed text, as FLAC and as mulaw8k,
+   ``/v1/audio/speech`` as FLAC, ``/api/tts/stream``, info, voices,
+   ``/metrics`` and a repeat that the audio cache answers), and the port's
+   MCP server over SSE answers ``text_to_speech`` and ``list_voices`` from
+   the port's client. WAV bodies must equal the engine's own B=1 pcm16
+   render bit for bit, FLAC bodies decode (CRC and MD5 checked) to the same
+   samples, the mulaw8k payload equals the engine's bytes, the info route
+   names a cuda device, the FLAC encoder is the native one, and every
+   request launches the kernels exactly as often as its Generator passes
+   give (none for the cache hits). Each request's client wall time, the
+   server's FLAC encoding time and the share of the scheduler poll's 50 ms
+   step are printed beside the card's name and power limit.
 
 It prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Any failed check exits non-zero with no result line;
@@ -564,23 +581,12 @@ def frozen_frontend(pipeline_cls):
     return FrozenFrontendPipeline
 
 
-def serving_phase(torch, np, synth, oa, asc, conv_per_generator, card,
-                  failures, check_wave):
-    """Phase 7: text requests through ``TTSServiceManager`` and
-    ``CachedTTSPipeline`` on the card, then a segmented paragraph through
-    ``process`` and a windowed ``stream_process``. -> the summary dict."""
-    import asyncio
-    import tempfile
-
-    from illufly_tts_tpu_torch.pipeline import (
-        MAX_PHONEMES,
-        CachedTTSPipeline,
-        TTSPipeline,
-    )
-    from illufly_tts_tpu_torch.runtime.scheduler import (
-        TaskStatus,
-        TTSServiceManager,
-    )
+def text_pipeline(synth, failures):
+    """The ``CachedTTSPipeline`` phases 7 and 8 serve text with, on
+    ``synth``: with the live frontend where ``jieba`` imports (held to
+    ``FRONTEND_TABLE``), else with ``FrozenG2P``. -> (pipeline, which
+    frontend)."""
+    from illufly_tts_tpu_torch.pipeline import CachedTTSPipeline, TTSPipeline
 
     try:
         import jieba  # noqa: F401  (the Chinese G2P needs it)
@@ -598,13 +604,29 @@ def serving_phase(torch, np, synth, oa, asc, conv_per_generator, card,
         if not same:
             failures.append("the live frontend differs from FRONTEND_TABLE")
         pipe_cls = CachedTTSPipeline
-    g2p_table = FRONTEND_TABLE["g2p"]
-
     t0 = time.perf_counter()
     synth.register_random_voice("smoke_voice_b", seed=1)
     pipe = pipe_cls(synthesizer=synth)
     log(f"{pipe_cls.__name__}(synthesizer=synth) in "
         f"{time.perf_counter() - t0:.2f} s")
+    return pipe, "frozen table" if jieba is None else "live"
+
+
+def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
+                  conv_per_generator, card, failures, check_wave):
+    """Phase 7: text requests through ``TTSServiceManager`` and
+    ``CachedTTSPipeline`` on the card, then a segmented paragraph through
+    ``process`` and a windowed ``stream_process``. -> the summary dict."""
+    import asyncio
+    import tempfile
+
+    from illufly_tts_tpu_torch.pipeline import MAX_PHONEMES
+    from illufly_tts_tpu_torch.runtime.scheduler import (
+        TaskStatus,
+        TTSServiceManager,
+    )
+
+    g2p_table = FRONTEND_TABLE["g2p"]
     t0 = time.perf_counter()
     pipe.batch_process_texts(list(WARM_TEXTS), ["smoke_voice"] * 2)
     torch.cuda.synchronize()
@@ -804,7 +826,7 @@ def serving_phase(torch, np, synth, oa, asc, conv_per_generator, card,
         del synth._stage_b, synth.dispatch
     return {
         "card": card,
-        "frontend": "frozen table" if jieba is None else "live",
+        "frontend": frontend,
         "tasks": per_task,
         "generator_passes": generator_passes,
         "launches": launches,
@@ -815,6 +837,313 @@ def serving_phase(torch, np, synth, oa, asc, conv_per_generator, card,
         "stream": {"windows": windows, "first_chunk_ms": first_chunk_ms,
                    "all_chunks_ms": stream_ms, "launches": stream_launches},
     }
+
+
+def riff_data(body):
+    """The payload of a RIFF/WAVE body's ``data`` chunk (chunk walk: the
+    mu-law WAV carries a ``fact`` chunk before it)."""
+    import struct
+
+    pos = 12
+    while pos + 8 <= len(body):
+        cid = body[pos:pos + 4]
+        size = struct.unpack("<I", body[pos + 4:pos + 8])[0]
+        if cid == b"data":
+            return body[pos + 8:pos + 8 + size]
+        pos += 8 + size + (size % 2)
+    raise ValueError("no data chunk")
+
+
+def repair_timing(torch, synth, texts, failures):
+    """The host time of ``launch_decode`` beside the CUDA-event span of the
+    stage B it launches, on ``texts`` (long_8's shape), for a plain and a
+    timestamped (``keep_durations``) handle. Stage A has finished before the
+    call, so the span is stage B and the audio copy. A timestamped handle's
+    durations were copied to the host at dispatch, so its launch must not
+    wait for its own stage B."""
+    voices = ["smoke_voice"] * len(texts)
+    out = {}
+    for keep in (False, True):
+        torch.cuda.synchronize()
+        h = synth.dispatch(texts, voices, keep_durations=keep)
+        synth._pick_f_bucket(h)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        synth.launch_decode(h)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        span_ms = start.elapsed_time(end)
+        label = "timestamped" if keep else "plain"
+        out[label] = {"launch_decode_host_ms": host_ms,
+                      "stage_b_span_ms": span_ms,
+                      "shape": [h.b_bucket, h.t_bucket, h.f_bucket]}
+        log(f"launch_decode on a {label} handle at long_8's shape "
+            f"(B={h.b_bucket}, T={h.t_bucket}, F={h.f_bucket}): host "
+            f"{host_ms:.2f} ms, its stage B's span {span_ms:.2f} ms "
+            f"({host_ms / span_ms:.3f} of it)")
+        if keep:
+            if host_ms > 0.5 * span_ms:
+                failures.append(f"a timestamped launch_decode held the host "
+                                f"{host_ms:.1f} ms of its stage B's "
+                                f"{span_ms:.1f} ms")
+            dur = synth.rendered_durations(h)
+            if list(dur.sum(axis=1)) != list(h.fitted_totals[: h.n]):
+                failures.append("rendered_durations disagree with the "
+                                "fitted frame totals")
+        synth.collect(h)
+    return out
+
+
+def http_phase(torch, np, synth, pipe, oa, asc, conv_per_generator, card,
+               failures):
+    """Phase 8: the port's ``create_app`` and MCP server over phase 7's
+    pipeline, served on loopback and requested one at a time. -> the
+    summary dict."""
+    import asyncio
+    import base64
+    import tempfile
+
+    import aiohttp
+    from aiohttp import web
+
+    from illufly_tts_tpu_torch.api import endpoints
+    from illufly_tts_tpu_torch.api.auth import create_access_token
+    from illufly_tts_tpu_torch.audio import flac as flac_mod
+    from illufly_tts_tpu_torch.client.mcp_client import TTSMcpClient
+    from illufly_tts_tpu_torch.mcp.server import ManagerBackend, MCPServer
+
+    voice = "smoke_voice"
+    zh, mixed, speech, streamed = (TASKS[0][2], TASKS[2][2], TASKS[3][2],
+                                   TASKS[6][2])
+    # (label, method, path, JSON body, Generator passes it should take):
+    # the FLAC request shares the WAV request's pcm16 render, so it and the
+    # repeat come from the pipeline's audio cache
+    requests = (
+        ("tts wav zh", "POST", "/api/tts", {"text": zh, "voice_id": voice}, 1),
+        ("tts wav mixed", "POST", "/api/tts",
+         {"text": mixed, "voice_id": voice}, 1),
+        ("tts flac zh", "POST", "/api/tts",
+         {"text": zh, "voice_id": voice, "format": "flac"}, 0),
+        ("tts mulaw8k zh", "POST", "/api/tts",
+         {"text": zh, "voice_id": voice, "format": "mulaw8k"}, 1),
+        ("openai speech flac", "POST", "/v1/audio/speech",
+         {"model": "kokoro", "input": speech, "voice": voice,
+          "response_format": "flac"}, 1),
+        ("tts stream", "POST", "/api/tts/stream",
+         {"text": streamed, "voice_id": voice}, 1),
+        ("info", "GET", "/api/tts/info", None, 0),
+        ("voices", "GET", "/api/tts/voices", None, 0),
+        ("metrics", "GET", "/metrics", None, 0),
+        ("tts wav zh repeat", "POST", "/api/tts",
+         {"text": zh, "voice_id": voice}, 0),
+    )
+    passes = []
+    stage_b = synth._stage_b
+
+    def counted_stage_b(*args):
+        passes.append(1)
+        return stage_b(*args)
+
+    flac_ms = []
+    encode_flac = flac_mod.encode_flac
+
+    def timed_encode_flac(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return encode_flac(*args, **kwargs)
+        finally:
+            flac_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def reset():
+        oa.launches = 0
+        for name in asc.launches:
+            asc.launches[name] = 0
+        passes.clear()
+
+    def check_launches(label, want_passes):
+        got = {"istft_oa": oa.launches, **asc.launches}
+        want = {"istft_oa": want_passes,
+                **{name: conv_per_generator * want_passes
+                   for name in asc.launches}}
+        if len(passes) != want_passes or got != want:
+            failures.append(f"{label}: {len(passes)} Generator passes, "
+                            f"launches {got}, want {want}")
+        return got
+
+    async def serve(app):
+        # the SSE handler of a closed session waits for the app's cleanup,
+        # which comes after the shutdown wait: keep that wait short
+        runner = web.AppRunner(app, shutdown_timeout=2.0)
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        return runner, runner.addresses[0][1]
+
+    async def http(out_dir, token):
+        app = endpoints.create_app(pipeline=pipe, max_wait_time=0.1,
+                                   batch_size=4, output_dir=out_dir)
+        runner, port = await serve(app)
+        results = []
+        try:
+            manager = app["service_manager"]
+            headers = {"Authorization": f"Bearer {token}"}
+            async with aiohttp.ClientSession(headers=headers) as session:
+                for label, method, path, body, want_passes in requests:
+                    known = set(manager.tasks)
+                    flac_ms.clear()
+                    reset()
+                    t0 = time.perf_counter()
+                    async with session.request(
+                            method, f"http://127.0.0.1:{port}{path}",
+                            json=body) as resp:
+                        payload = await resp.read()
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                    t_recv = time.time()
+                    got = check_launches(label, want_passes)
+                    done = [manager.tasks[t].completed_at
+                            for t in set(manager.tasks) - known]
+                    poll_ms = ((t_recv - max(done)) * 1e3
+                               if done and all(done) else None)
+                    results.append({
+                        "label": label, "status": resp.status,
+                        "body": payload, "wall_ms": wall_ms,
+                        "generator_passes": len(passes), "launches": got,
+                        "server_flac_ms": sum(flac_ms) if flac_ms else None,
+                        "completed_to_response_ms": poll_ms,
+                    })
+        finally:
+            await runner.cleanup()
+        return results
+
+    async def mcp(out_dir):
+        backend = ManagerBackend(pipeline=pipe, batch_size=4,
+                                 max_wait_time=0.1, output_dir=out_dir)
+        runner, port = await serve(MCPServer(backend).create_sse_app())
+        try:
+            reset()
+            t0 = time.perf_counter()
+            async with TTSMcpClient(host="127.0.0.1", port=port,
+                                    timeout=300.0) as client:
+                spoken = await client.text_to_speech(zh, voice=voice)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                listed = await client.list_voices()
+            got = check_launches("MCP text_to_speech", 1)
+            return spoken, listed, wall_ms, got
+        finally:
+            await runner.cleanup()
+
+    os.environ.pop("TTS_DEV_MODE", None)
+    os.environ.pop("TTS_MCP_TOKEN", None)
+    os.environ.pop("TTS_METRICS_PUBLIC", None)
+    os.environ["FASTAPI_SECRET_KEY"] = os.urandom(16).hex()
+    token = create_access_token("smoke_user")
+    # run-to-run bit equality with the engine's own render below
+    torch.backends.cudnn.deterministic = True
+    pipe.clear_caches()
+    synth._stage_b, flac_mod.encode_flac = counted_stage_b, timed_encode_flac
+    try:
+        with tempfile.TemporaryDirectory() as out_dir:
+            results = asyncio.run(http(out_dir, token))
+            spoken, listed, mcp_ms, mcp_launches = asyncio.run(mcp(out_dir))
+    finally:
+        del synth._stage_b
+        flac_mod.encode_flac = encode_flac
+    torch.backends.cudnn.deterministic = False
+    native = flac_mod._get_lib() is not None
+
+    by_label = {r["label"]: r for r in results}
+    for r in results:
+        if r["status"] != 200:
+            failures.append(f"{r['label']}: HTTP {r['status']}: "
+                            f"{r['body'][:200]!r}")
+    if any(r["status"] != 200 for r in results):
+        return {"requests": [{k: v for k, v in r.items() if k != "body"}
+                             for r in results]}
+
+    def envelope(label):
+        return json.loads(by_label[label]["body"])
+
+    def audio_of(label):
+        return base64.b64decode(envelope(label)["audio_base64"])
+
+    # the engine's own B=1 renders of the same texts, with the audio cache
+    # cleared so each renders anew
+    pipe.clear_caches()
+    torch.backends.cudnn.deterministic = True
+    engine = {(text, fmt): pipe.batch_process_texts(
+        [text], [voice], output_format=fmt)[0]
+        for text, fmt in ((zh, "pcm16"), (mixed, "pcm16"), (zh, "mulaw8k"),
+                          (speech, "pcm16"), (streamed, "f32"))}
+    torch.backends.cudnn.deterministic = False
+    checks = {}
+    for label, text in (("tts wav zh", zh), ("tts wav mixed", mixed),
+                        ("tts wav zh repeat", zh)):
+        pcm = np.frombuffer(riff_data(audio_of(label)), "<i2")
+        checks[label] = np.array_equal(pcm, engine[(text, "pcm16")])
+    wav_zh = np.frombuffer(riff_data(audio_of("tts wav zh")), "<i2")
+    flac_zh, rate = flac_mod.decode_flac(audio_of("tts flac zh"))
+    checks["tts flac zh"] = (rate == 24000 and np.array_equal(flac_zh, wav_zh)
+                             and envelope("tts flac zh")["format"] == "flac")
+    checks["tts mulaw8k zh"] = (
+        riff_data(audio_of("tts mulaw8k zh"))
+        == engine[(zh, "mulaw8k")].tobytes()
+        and envelope("tts mulaw8k zh")["sample_rate"] == 8000)
+    speech_pcm, rate = flac_mod.decode_flac(
+        by_label["openai speech flac"]["body"])
+    checks["openai speech flac"] = (
+        rate == 24000 and np.array_equal(speech_pcm, engine[(speech, "pcm16")]))
+    stream_body = by_label["tts stream"]["body"]
+    stream_pcm = np.frombuffer(stream_body[44:], "<i2")
+    checks["tts stream"] = (stream_body[:4] == b"RIFF"
+                            and stream_pcm.size == engine[(streamed,
+                                                           "f32")].size
+                            and int(np.abs(stream_pcm).max()) > 0)
+    info = envelope("info")
+    checks["info"] = str(info.get("device", "")).startswith("cuda")
+    checks["voices"] = voice in {v["id"] for v in envelope("voices")["voices"]}
+    metrics = by_label["metrics"]["body"].decode()
+    checks["metrics"] = "tts_tasks_completed_total" in metrics
+    checks["native flac encoder"] = native
+    mcp_wav = (base64.b64decode(spoken["audio_base64"])
+               if isinstance(spoken, dict)
+               and spoken.get("status") == "success" else b"")
+    checks["mcp text_to_speech"] = (
+        len(mcp_wav) == len(audio_of("tts wav zh")) and mcp_wav[:4] == b"RIFF")
+    checks["mcp list_voices"] = voice in {v.get("id") for v in listed}
+    for label, ok in checks.items():
+        if not ok:
+            failures.append(f"phase 8 check failed: {label}")
+    log(f"HTTP/MCP checks (WAV bodies bitwise equal to the engine's B=1 "
+        f"pcm16 render, FLAC lossless to them, mulaw8k equal to the "
+        f"engine's bytes, info device {info.get('device')!r}, native FLAC "
+        f"encoder {native}): {json.dumps(checks)}")
+
+    rows = []
+    for r in results:
+        share = 50.0 / r["wall_ms"]
+        rows.append({k: v for k, v in r.items() if k != "body"}
+                    | {"poll_step_share": share})
+        extra = (f", FLAC encode on the server {r['server_flac_ms']:.2f} ms"
+                 if r["server_flac_ms"] is not None else "")
+        poll = (f", completed -> response {r['completed_to_response_ms']:.1f}"
+                f" ms" if r["completed_to_response_ms"] is not None else "")
+        log(f"  {r['label']}: HTTP {r['status']}, {len(r['body'])} bytes in "
+            f"{r['wall_ms']:.1f} ms (client wall; the 50 ms poll step is "
+            f"{share:.2f} of it){poll}{extra}; {r['generator_passes']} "
+            f"Generator passes [{card}]")
+    log(f"  MCP over SSE: text_to_speech {len(mcp_wav)} bytes and "
+        f"list_voices in {mcp_ms:.1f} ms (client wall, connect included) "
+        f"[{card}]")
+    total = {name: sum(r["launches"][name] for r in results)
+             for name in results[0]["launches"]}
+    return {"card": card, "requests": rows, "launches": total,
+            "mcp": {"wall_ms": mcp_ms, "wav_bytes": len(mcp_wav),
+                    "launches": mcp_launches},
+            "checks": checks, "native_flac": native}
 
 
 def main() -> None:
@@ -1106,9 +1435,10 @@ def main() -> None:
     del cpu
 
     # ---- 7. serving path ----------------------------------------------------------
+    pipe, frontend = text_pipeline(synth, failures)
     serve_conv, serve_head = record_shapes(layers, vocoder, asc, oa)
     try:
-        serving = serving_phase(torch, np, synth, oa, asc,
+        serving = serving_phase(torch, np, synth, pipe, frontend, oa, asc,
                                 conv_per_generator, card, failures,
                                 check_wave)
     finally:
@@ -1122,6 +1452,28 @@ def main() -> None:
                              [(*shape, False) for shape in new])
             conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
     new = sorted(serve_head - head_shapes)
+    if new:
+        head_err = max(head_err, check_head(
+            torch, oa, [(b, f, False) for b, f in new]))
+
+    # ---- 8. HTTP and MCP ----------------------------------------------------------
+    repair = repair_timing(torch, synth, requests["long_8"], failures)
+    http_conv, http_head = record_shapes(layers, vocoder, asc, oa)
+    try:
+        http = http_phase(torch, np, synth, pipe, oa, asc,
+                          conv_per_generator, card, failures)
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+    http["repair"] = repair
+    log("kernels vs plain at the shapes the HTTP phase gave them (those not "
+        "checked above):")
+    for name in CONV_KERNELS:
+        new = sorted(http_conv[name] - conv_shapes[name] - serve_conv[name])
+        if new:
+            err = check_conv(torch, asc, name,
+                             [(*shape, False) for shape in new])
+            conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
+    new = sorted(http_head - head_shapes - serve_head)
     if new:
         head_err = max(head_err, check_head(
             torch, oa, [(b, f, False) for b, f in new]))
@@ -1143,6 +1495,7 @@ def main() -> None:
         "launches_serving": serving["launches"]["istft_oa"],
         "launches_per_text_request": serving["launches"]["istft_oa"]
         / len(TASKS),
+        "launches_http": http["launches"]["istft_oa"],
         "entry": "istft_head (conv_post's raw [B, 22, L] -> audio)",
         "max_abs_err": head_err,
         **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -1175,6 +1528,7 @@ def main() -> None:
             "launches_serving": serving["launches"][name],
             "launches_per_text_request": serving["launches"][name]
             / len(TASKS),
+            "launches_http": http["launches"][name],
             "role": role,
             **conv[name],
             "library_note": "F.conv1d (cuDNN, TF32 off) alone on an "
@@ -1188,6 +1542,7 @@ def main() -> None:
                     "stream_first_chunk_ms": first_ms,
                     "stream_all_chunks_ms": stream_ms}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"http": http}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -76,8 +76,9 @@ class _HostCopy:
 
 class DispatchHandle:
     """In-flight batch: stage-A outputs + the non-blocking frame-total
-    copy. ``d``/``pred_dur`` stay until stage B consumes them, so a fresh
-    handle can be streamed windowed."""
+    copy (and, with ``keep_durations``, the durations' copy). ``d``/
+    ``pred_dur`` stay until stage B consumes them, so a fresh handle can be
+    streamed windowed."""
 
     __slots__ = (
         "n", "b_bucket", "t_bucket", "ids", "mask", "ref", "d",
@@ -104,7 +105,7 @@ class DispatchHandle:
         self.fmt = fmt
         self.pitch = pitch
         self.keep_durations = False
-        self.host_pred_dur = None
+        self.host_pred_dur = None       # _HostCopy of pred_dur[:n]
         self.ts_ctx = None  # pipeline-owned frontend context for timestamps
 
 
@@ -406,6 +407,10 @@ class Synthesizer:
             totals=_HostCopy(totals), fmt=fmt, pitch=put(pitch_arr),
         )
         handle.keep_durations = keep_durations
+        if keep_durations:
+            # a stage-A output: copied beside the totals, so reading it
+            # later never queues behind this batch's stage B
+            handle.host_pred_dur = _HostCopy(pred_dur[:n])
         return handle
 
     def _pick_f_bucket(self, handle: DispatchHandle) -> int:
@@ -434,8 +439,6 @@ class Synthesizer:
                 handle.ids, handle.mask, handle.d, handle.pred_dur,
                 handle.ref, handle.pitch, f_bucket, handle.fmt,
             )
-        if handle.keep_durations and handle.host_pred_dur is None:
-            handle.host_pred_dur = handle.pred_dur[: handle.n].cpu().numpy()
         # stage-A intermediates are no longer needed
         handle.d = handle.pred_dur = None
 
@@ -490,14 +493,12 @@ class Synthesizer:
         int32; position 0 is BOS. Needs ``keep_durations=True``; callable
         before any decode."""
         if handle.host_pred_dur is None:
-            if not handle.keep_durations or handle.pred_dur is None:
-                raise ValueError(
-                    "dispatch(..., keep_durations=True) required for "
-                    "rendered_durations"
-                )
-            handle.host_pred_dur = handle.pred_dur[: handle.n].cpu().numpy()
+            raise ValueError(
+                "dispatch(..., keep_durations=True) required for "
+                "rendered_durations"
+            )
         self._pick_f_bucket(handle)
-        pd = handle.host_pred_dur.astype(np.int64)
+        pd = handle.host_pred_dur.numpy().astype(np.int64)
         cum_prev = np.cumsum(pd, axis=-1) - pd
         return np.clip(handle.f_bucket - cum_prev, 0, pd).astype(np.int32)
 

@@ -16,6 +16,7 @@ import torch
 from illufly_tts_tpu.audio.mel import mel_l1
 from illufly_tts_tpu_torch.engine import synthesizer as synth_mod
 from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+from tests.test_client_only_imports import FASTAPI_STUB
 from tests.test_golden_audio import GOLDEN_DIR, SEED, TEXTS
 from tests.test_torch_params import port_config
 
@@ -89,6 +90,34 @@ def test_voice_files(tmp_path):
         s.load_voice("missing")
 
 
+def test_timestamped_dispatch_copies_durations_beside_totals(synth,
+                                                            monkeypatch):
+    """``keep_durations``: ``dispatch`` starts the host copy of
+    ``pred_dur[:n]`` beside the frame totals, and ``_decode`` and
+    ``rendered_durations`` read it without a ``Tensor.cpu`` call (on the
+    card such a copy queues behind the batch's own stage B)."""
+    h = synth.dispatch(TEXTS, ["golden_voice"] * 2, keep_durations=True)
+    assert h.host_pred_dur is not None
+    np.testing.assert_array_equal(h.host_pred_dur.numpy(),
+                                  h.pred_dur[: h.n].numpy())
+
+    def no_cpu(self, *args, **kwargs):
+        raise AssertionError("Tensor.cpu called")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "cpu", no_cpu)
+        before = synth.rendered_durations(h)
+        synth.launch_decode(h)
+        after = synth.rendered_durations(h)
+    np.testing.assert_array_equal(before, after)
+    assert [a.size for a in synth.collect(h)] == \
+        [int(t) * 600 for t in before.sum(axis=1)]
+    plain = synth.dispatch(TEXTS, ["golden_voice"] * 2)
+    assert plain.host_pred_dur is None
+    with pytest.raises(ValueError, match="keep_durations=True"):
+        synth.rendered_durations(plain)
+
+
 def test_default_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -122,7 +151,11 @@ def test_port_imports_no_jax():
         if f.endswith(".py")
     )
     assert len(modules) >= 15, modules
-    body = (
+    for m in ("api.endpoints", "api.fastapi_compat", "mcp.server",
+              "client.mcp_client", "audio.flac", "__main__"):
+        assert f"illufly_tts_tpu_torch.{m}" in modules, m
+    # the FastAPI shim imports fastapi at module top: a stub stands in
+    body = FASTAPI_STUB + (
         "import importlib\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
