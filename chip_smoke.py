@@ -61,7 +61,24 @@ From the root of a checkout. It
    request launches the kernels exactly as often as its Generator passes
    give (none for the cache hits). Each request's client wall time, the
    server's FLAC encoding time and the share of the scheduler poll's 50 ms
-   step are printed beside the card's name and power limit.
+   step are printed beside the card's name and power limit;
+9. moves weights: ``save_params`` writes the engine's seeded weights as
+   flax msgpack and ``load_params`` reads them into a second Synthesizer on
+   the card: parameters and a B=1 pcm16 render must be bitwise equal
+   (``load_params`` timed on the host);
+10. trains at the full ``KokoroConfig()`` with the JAX ``train`` CLI's
+   defaults (B=8, 64 tokens, 128 frames): ``train()`` for 3 steps on its
+   synthetic-teacher batches (finite losses; step 0 against the port on the
+   CPU on the same batch and weights), one batch's gradients through the
+   kernels (``ops/kernel_grad.py``) against those through the plain
+   versions (every leaf within ``GRAD_TOL``; the Generator's resblock convs,
+   alphas and AdaIN fcs non-zero), forward/backward ms per step and each
+   kernel's backward recompute at the training shape, one adversarial step,
+   a checkpoint resumed (the next step's loss equal to an uninterrupted
+   run's), and 3 ``adapt_voice`` steps on ``rendered_batches`` (a finite
+   style, a non-zero style gradient). Every teacher-forced forward must
+   launch each kernel as one Generator pass does; the backward launches
+   none.
 
 It prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Any failed check exits non-zero with no result line;
@@ -95,6 +112,20 @@ HEAD_TOL = 1e-4
 ISTFT_OPS_PER_FRAME = 2 * 191 + 19 + 15 + 5 + 22
 CONV_TOL = 1e-4        # max-abs over (1 + max|plain|): f32 sums of C k terms
 CPU_GPU_TOL = 5e-3     # rms/scale, the golden-audio gate's waveform bound
+# phase 10: the JAX train CLI's defaults; step 0's duration loss, card vs
+# CPU (stage A is plain f32 on both); each gradient leaf, through the
+# kernels vs through the plain versions (relative L2: the 3xTF32 forward's
+# ~1e-5 relative error per conv, grown through 48 convs and the exp head);
+# the loss of the second step after a resume (the first is bitwise equal)
+TRAIN = {"batch": 8, "tokens": 64, "frames": 128}
+STEP0_DUR_TOL = 1e-4
+GRAD_TOL = 1e-2
+RESUME_STEP4_TOL = 1e-4
+# leaves whose gradient is no stable number, held to 1e-3 of the global
+# norm instead (tests/test_torch_training.py): the bias of a conv whose
+# output goes through an instance norm (analytically zero), and the noise
+# convs fed the spectrum of a silent harmonic source
+DEGENERATE = r"\.conv1(_\d)?\.bias$|\.noise_conv_\d\."
 
 ZH = "ni→xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst."
 MIXED = "tʰjɛn→tʃʰi↘tʃən→pu↗tsʰwo↘. hello wɝld."
@@ -1146,6 +1177,376 @@ def http_phase(torch, np, synth, pipe, oa, asc, conv_per_generator, card,
             "checks": checks, "native_flac": native}
 
 
+def weights_phase(torch, synth, cfg, card, failures, reset_counts,
+                  check_counts):
+    """Phase 9: the engine's weights to flax msgpack (``save_params``) and
+    into a second Synthesizer on the card (``load_params``): parameters and
+    a B=1 pcm16 render bitwise equal. -> the summary dict."""
+    import tempfile
+
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+
+    torch.backends.cudnn.deterministic = True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "weights.msgpack")
+        t0 = time.perf_counter()
+        synth.save_params(path)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        size = os.path.getsize(path)
+        other = Synthesizer(  # other weights until the load
+            cfg, seed=1, token_buckets=synth.token_buckets,
+            frame_buckets=synth.frame_buckets,
+            batch_buckets=synth.batch_buckets)
+        t0 = time.perf_counter()
+        other.load_params(path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+    ours, theirs = synth.model.state_dict(), other.model.state_dict()
+    same_params = ours.keys() == theirs.keys() and all(
+        torch.equal(value, theirs[name]) for name, value in ours.items())
+    other.register_random_voice("smoke_voice", seed=0)
+    reset_counts()
+    renders = [engine.collect(engine.dispatch([ZH], ["smoke_voice"],
+                                              fmt="pcm16"))[0]
+               for engine in (synth, other)]
+    counts = check_counts("weights: two B=1 pcm16 renders", 2)
+    same_audio = renders[0].tobytes() == renders[1].tobytes()
+    torch.backends.cudnn.deterministic = False
+    del other, theirs
+    torch.cuda.empty_cache()
+    log(f"weights: save_params {save_ms:.1f} ms ({size / 2**20:.1f} MiB "
+        f"flax msgpack), load_params into a second Synthesizer on the card "
+        f"{load_ms:.1f} ms (host clock, placement included; {card}); "
+        f"parameters bitwise equal: {same_params}; B=1 pcm16 renders "
+        f"({renders[0].size} samples) bitwise equal: {same_audio}")
+    if not same_params:
+        failures.append("load_params(save_params) changed the parameters")
+    if not same_audio:
+        failures.append("the reloaded engine renders other pcm16 bytes")
+    return {"save_ms": save_ms, "load_ms": load_ms, "msgpack_bytes": size,
+            "params_bitwise_equal": same_params,
+            "render_bitwise_equal": same_audio, "launches": counts,
+            "card": card}
+
+
+def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
+                   card, failures, reset_counts, check_counts):
+    """Phase 10: training at the full width. -> (summary dict, conv shapes
+    by kernel, head shapes) the training path gave the kernels."""
+    import copy
+    import re
+    import shutil
+    import tempfile
+
+    from illufly_tts_tpu_torch.training import loop
+    from illufly_tts_tpu_torch.training import step as tstep
+    from illufly_tts_tpu_torch.training.voice_adapt import (
+        adapt_voice,
+        rendered_batches,
+    )
+
+    batch, tokens, frames = TRAIN["batch"], TRAIN["tokens"], TRAIN["frames"]
+    init = copy.deepcopy(synth.model)  # the engine's seeded random weights
+    out = {"card": card, "shape": dict(TRAIN), "launches": {}, "wall_s": {}}
+    passes = {}
+    clock = [time.perf_counter()]
+
+    def lap(label):
+        """Host seconds since the last lap, kept under ``label``."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        out["wall_s"][label] = now - clock[0]
+        clock[0] = now
+    conv_shapes, head_shapes = record_shapes(layers, vocoder, asc, oa)
+
+    def run(model, steps, batches=None, **kw):
+        """``loop.train`` logging every step -> the per-step metrics."""
+        seen = []
+        loop.train(model, steps=steps, batch_size=batch, tokens=tokens,
+                   frames=frames, log_every=1, batches=batches,
+                   on_metrics=lambda step, m: seen.append(m), **kw)
+        return seen
+
+    def counted(label, generator_passes):
+        passes[label] = generator_passes
+        got = check_counts(f"training: {label}", generator_passes)
+        for name, n in got.items():
+            out["launches"][name] = out["launches"].get(name, 0) + n
+
+    # (a) train() for 3 steps on its own synthetic-teacher batches (kept)
+    drawn, synthetic = [], loop.synthetic_batches
+
+    def keep(*args, **kw):
+        for item in synthetic(*args, **kw):
+            drawn.append(item)
+            yield item
+
+    model = copy.deepcopy(init)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    loop.synthetic_batches = keep
+    try:
+        t0 = time.perf_counter()
+        metrics = run(model, 3)
+        torch.cuda.synchronize()
+        out["train_3_steps_s"] = time.perf_counter() - t0
+    finally:
+        loop.synthetic_batches = synthetic
+    # each step: the teacher's render and the student's forward
+    counted("train(), 3 steps", 6)
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["losses"] = [m["loss"] for m in metrics]
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        failures.append(f"training: non-finite metrics {metrics}")
+    log(f"training: train() at KokoroConfig() (B={batch}, tokens {tokens}, "
+        f"frames {frames}), 3 steps in {out['train_3_steps_s']:.2f} s, "
+        f"losses {out['losses']}, peak device memory "
+        f"{out['peak_memory_gib']:.2f} GiB ({card})")
+
+    lap("train(), 3 steps")
+
+    # (b) step 0 on the card against the port on the CPU, same batch and
+    # parameters
+    first = drawn[0]
+    cpu_model = copy.deepcopy(init).cpu()
+    with torch.no_grad():
+        _, cpu_m = tstep.make_loss_fn(cpu_model, frames)(first.to("cpu"))
+    del cpu_model
+    scale = float(first.target_audio.abs().mean())
+    dur_err = abs(metrics[0]["dur_loss"] - float(cpu_m["dur_loss"])) / float(
+        cpu_m["dur_loss"])
+    audio_err = abs(metrics[0]["audio_loss"] - float(cpu_m["audio_loss"]))
+    out["step0"] = {"card": metrics[0], "cpu": {k: float(v) for k, v in
+                                                cpu_m.items()},
+                    "dur_loss_rel_err": dur_err,
+                    "audio_loss_err_over_mean_abs_target": audio_err / scale}
+    log(f"training: step 0 card vs CPU: dur_loss {metrics[0]['dur_loss']:.6f}"
+        f" vs {float(cpu_m['dur_loss']):.6f} (relative {dur_err:.2e}, limit "
+        f"{STEP0_DUR_TOL}); audio_loss {metrics[0]['audio_loss']:.6f} vs "
+        f"{float(cpu_m['audio_loss']):.6f} ({audio_err / scale:.2e} of "
+        f"mean|target|, limit {CPU_GPU_TOL})")
+    if not dur_err <= STEP0_DUR_TOL or not audio_err <= CPU_GPU_TOL * scale:
+        failures.append(f"training: step 0 card vs CPU {out['step0']}")
+    lap("step 0 on the CPU")
+
+    # (c) one batch's gradients through the kernels and through the plain
+    # versions, at the trained weights; the target is +-10x the audio's
+    # peak, so no sample's L1 sign depends on either forward's rounding
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    far = first._replace(target_audio=torch.where(
+        torch.rand(first.target_audio.shape, device="cuda", generator=gen)
+        < 0.5, -1.0, 1.0) * 10.0 * float(first.target_audio.abs().max()))
+    loss_fn = tstep.make_loss_fn(model, frames)
+    model.train()  # cuDNN's LSTM backward runs in training mode only
+
+    def grads():
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(far)
+        loss.backward()
+        return {name: p.grad.detach().clone()
+                for name, p in model.named_parameters() if p.grad is not None}
+
+    reset_counts()
+    through = grads()
+    counted("gradients through the kernels", 1)
+    unrecord(layers, vocoder, asc, oa)
+    for name in CONV_KERNELS:
+        setattr(layers, name, asc.adain_snake_conv_plain)
+    vocoder.istft_head = oa.istft_head_plain
+    reset_counts()
+    try:
+        plain = grads()
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+    plain_counts = {"istft_oa": oa.launches, **asc.launches}
+    log(f"training: gradients through the plain versions, launches "
+        f"{plain_counts}")
+    if any(plain_counts.values()):
+        failures.append(f"training: the plain pass launched {plain_counts}")
+    conv_more, head_more = record_shapes(layers, vocoder, asc, oa)
+    total = math.sqrt(sum(float(g.square().sum()) for g in plain.values()))
+    degenerate = re.compile(DEGENERATE)
+    worst, worst_name = 0.0, None
+    for name, g in plain.items():
+        diff = float((through[name] - g).norm())
+        if degenerate.search(name):
+            if not diff <= 1e-3 * total:
+                failures.append(f"training: {name} gradient differs by "
+                                f"{diff} (> 1e-3 of the global norm)")
+            continue
+        err = diff / max(float(g.norm()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    zero = [name for name, g in through.items()
+            if re.search(r"generator\.(noise_)?res_.*(conv[12]_\d\.weight|"
+                         r"alpha[12]_\d|adain[12]_\d\.fc\.weight)", name)
+            and not float(g.abs().max()) > 0]
+    n_checked = sum(1 for name in through if re.search(
+        r"generator\.(noise_)?res_.*(conv[12]_\d\.weight|alpha[12]_\d|"
+        r"adain[12]_\d\.fc\.weight)", name))
+    out["gradients"] = {"leaves": len(plain), "global_norm": total,
+                        "worst_rel_l2": worst, "worst_leaf": worst_name,
+                        "tolerance": GRAD_TOL,
+                        "resblock_leaves_checked_nonzero": n_checked}
+    log(f"training: gradients through the kernels vs the plain versions, "
+        f"{len(plain)} leaves: worst relative L2 {worst:.3e} ({worst_name}; "
+        f"limit {GRAD_TOL}); {n_checked} resblock conv/alpha/adain.fc "
+        f"leaves, zero gradients: {zero}")
+    if not worst <= GRAD_TOL or zero or len(through) != len(plain):
+        failures.append(f"training: kernel vs plain gradients "
+                        f"{out['gradients']}, zero {zero}")
+    del through, plain
+    lap("gradients, kernels and plain")
+
+    # (d) forward and backward ms per step (CUDA events), then each
+    # kernel's backward recompute at the largest training shape
+    fwd, bwd = [], []
+    reset_counts()
+    for _ in range(3):
+        model.zero_grad(set_to_none=True)
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        loss, _ = loss_fn(far)
+        marks[1].record()
+        loss.backward()
+        marks[2].record()
+        marks[2].synchronize()
+        fwd.append(marks[0].elapsed_time(marks[1]))
+        bwd.append(marks[1].elapsed_time(marks[2]))
+    counted("timed forward + backward, 3 reps", 3)
+    out["forward_ms"] = statistics.median(fwd)
+    out["backward_ms"] = statistics.median(bwd)
+    log(f"training: one step at B={batch}, frames {frames}: forward "
+        f"{out['forward_ms']:.1f} ms, backward {out['backward_ms']:.1f} ms "
+        f"(CUDA events, median of 3; {card})")
+    model.zero_grad(set_to_none=True)
+    out["recompute"] = time_recompute(torch, asc, oa, flush, conv_shapes,
+                                      head_shapes, card)
+    lap("step and recompute timing")
+
+    # (e) one adversarial step (the full HiFiGANDiscriminator)
+    reset_counts()
+    gan = run(model, 1, batches=iter([first]), adversarial=True)
+    counted("one adversarial step", 2)  # the D step's and the G step's
+    out["gan"] = gan[0]
+    log(f"training: adversarial step {gan[0]}")
+    if not all(math.isfinite(v) for v in gan[0].values()):
+        failures.append(f"training: non-finite adversarial step {gan[0]}")
+    del model, loss_fn
+    torch.cuda.empty_cache()
+    lap("one adversarial step")
+
+    # (f) checkpoint and resume: 4 steps saving at step 2, then step 2's
+    # checkpoint restored into a fresh model for steps 3 and 4; cuDNN's
+    # deterministic algorithms make the forward run-to-run bit equal
+    order = [drawn[0], drawn[1], drawn[2], drawn[0]]
+    torch.backends.cudnn.deterministic = True
+    tmp = tempfile.mkdtemp()
+    try:
+        reset_counts()
+        whole = run(copy.deepcopy(init), 4, batches=iter(order),
+                    checkpoint_dir=tmp, checkpoint_every=2)
+        shutil.rmtree(os.path.join(tmp, "step_00000004"))
+        resumed = run(copy.deepcopy(init), 2, batches=iter(order[2:]),
+                      checkpoint_dir=tmp, resume=True, checkpoint_every=0)
+        counted("4 steps, then 2 resumed", 6)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    lap("checkpoint and resume")
+    step4_err = abs(resumed[1]["loss"] - whole[3]["loss"]) / abs(
+        whole[3]["loss"])
+    out["resume"] = {"step3_loss": [whole[2]["loss"], resumed[0]["loss"]],
+                     "step4_loss": [whole[3]["loss"], resumed[1]["loss"]],
+                     "step4_rel_err": step4_err}
+    log(f"training: resumed from step 2: step 3 loss {resumed[0]['loss']!r} "
+        f"vs uninterrupted {whole[2]['loss']!r} (must be equal); step 4 "
+        f"{resumed[1]['loss']!r} vs {whole[3]['loss']!r} (relative "
+        f"{step4_err:.2e}, limit {RESUME_STEP4_TOL}: step 3's gradients sum "
+        "with atomics)")
+    if resumed[0]["loss"] != whole[2]["loss"] or not (
+            step4_err <= RESUME_STEP4_TOL):
+        failures.append(f"training: resume {out['resume']}")
+
+    # (g) voice adaptation: 3 steps on batches the frozen engine model
+    # renders under another voice, from the smoke voice
+    synth.register_random_voice("train_target", seed=7)
+    target = synth.load_voice("train_target")[20]
+    start = synth.load_voice("smoke_voice")[20]
+    renders = rendered_batches(synth.model, target, 4, tokens, frames, seed=2)
+    reset_counts()
+    style, adapt_m = adapt_voice(synth.model, renders, steps=3,
+                                 frames=frames, init=start, log_every=0)
+    s = torch.tensor(style, device="cuda", requires_grad=True)
+    held = next(renders)
+    synth.model.train()
+    try:
+        loss, _ = tstep.make_loss_fn(synth.model, frames, spectral=True)(
+            held._replace(ref_s=s.expand(held.ref_s.shape)))
+        loss.backward()
+    finally:
+        synth.model.eval()
+    counted("adapt_voice 3 steps + one style gradient", 8)
+    s_grad = float(s.grad.norm())
+    moved = float(np.abs(style - start).max())
+    out["adapt_voice"] = {"metrics": adapt_m, "style_moved": moved,
+                          "style_grad_norm": s_grad}
+    log(f"training: adapt_voice 3 steps: {adapt_m}; style moved by up to "
+        f"{moved:.3e}; style gradient norm {s_grad:.3e}")
+    if not (np.isfinite(style).all() and math.isfinite(s_grad)
+            and s_grad > 0):
+        failures.append(f"training: adapt_voice {out['adapt_voice']}")
+    unrecord(layers, vocoder, asc, oa)
+    del init
+    torch.cuda.empty_cache()
+    lap("adapt_voice")
+    log(f"training: host seconds by part {out['wall_s']}")
+    out["generator_passes"] = passes
+    for name in CONV_KERNELS:
+        conv_shapes[name] |= conv_more[name]
+    return out, conv_shapes, head_shapes | head_more
+
+
+def time_recompute(torch, asc, oa, flush, conv_shapes, head_shapes, card):
+    """Each kernel's backward at its largest training shape (the plain
+    version recomputed and differentiated, ``ops/kernel_grad.py``), beside
+    its forward launch, CUDA-event medians. -> {kernel: row}."""
+    rows = {}
+    for name in CONV_KERNELS:
+        b, c, length, k, d = max(conv_shapes[name], key=lambda s: (
+            s[0] * s[1] * s[2] * s[3], s[4]))  # the most work, widest d
+        args = [t.requires_grad_(i != 1) for i, t in enumerate(
+            conv_inputs(torch, b, c, length, k, seed=7))]
+        fn = getattr(asc, name)
+        y = fn(*args, k, d)
+        inputs = [args[i] for i in (0, 2, 3, 4, 5, 6)]
+        g = torch.randn_like(y)
+        rows[name] = {
+            "shape": [b, c, length, k, d],
+            "forward_ms": cuda_ms(lambda: fn(*args, k, d), 10, flush),
+            "backward_recompute_ms": cuda_ms(
+                lambda: torch.autograd.grad(y, inputs, g, retain_graph=True),
+                10, flush)}
+    b, length = max(head_shapes)
+    x = head_inputs(torch, b, length, seed=7).requires_grad_()
+    y = oa.istft_head(x)
+    g = torch.randn_like(y)
+    rows["istft_oa"] = {
+        "shape": [b, 22, length],
+        "forward_ms": cuda_ms(lambda: oa.istft_head(x), 20, flush),
+        "backward_recompute_ms": cuda_ms(
+            lambda: torch.autograd.grad(y, [x], g, retain_graph=True), 20,
+            flush)}
+    for name, row in rows.items():
+        log(f"training: {name} at the training shape {row['shape']}: "
+            f"forward (kernel) {row['forward_ms']:.4f} ms, backward "
+            f"(plain recompute + autograd) {row['backward_recompute_ms']:.4f}"
+            f" ms ({card})")
+    return rows
+
+
 def main() -> None:
     import torch
 
@@ -1478,6 +1879,28 @@ def main() -> None:
         head_err = max(head_err, check_head(
             torch, oa, [(b, f, False) for b, f in new]))
 
+    # ---- 9. weights ------------------------------------------------------------
+    weights = weights_phase(torch, synth, cfg, card, failures, reset_counts,
+                            check_counts)
+
+    # ---- 10. training -------------------------------------------------------------
+    training, train_conv, train_head = training_phase(
+        torch, np, synth, cfg, layers, vocoder, asc, oa, flush, card,
+        failures, reset_counts, check_counts)
+    log("kernels vs plain at the shapes the training phase gave them (those "
+        "not checked above):")
+    for name in CONV_KERNELS:
+        new = sorted(train_conv[name] - conv_shapes[name] - serve_conv[name]
+                     - http_conv[name])
+        if new:
+            err = check_conv(torch, asc, name,
+                             [(*shape, False) for shape in new])
+            conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
+    new = sorted(train_head - head_shapes - serve_head - http_head)
+    if new:
+        head_err = max(head_err, check_head(
+            torch, oa, [(b, f, False) for b, f in new]))
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -1496,6 +1919,10 @@ def main() -> None:
         "launches_per_text_request": serving["launches"]["istft_oa"]
         / len(TASKS),
         "launches_http": http["launches"]["istft_oa"],
+        "launches_training": training["launches"]["istft_oa"],
+        "training_generator_passes": sum(
+            training["generator_passes"].values()),
+        "backward_recompute": training["recompute"]["istft_oa"],
         "entry": "istft_head (conv_post's raw [B, 22, L] -> audio)",
         "max_abs_err": head_err,
         **{key: head[key] for key in ("ms", "plain_ms", "bound_ms",
@@ -1529,6 +1956,10 @@ def main() -> None:
             "launches_per_text_request": serving["launches"][name]
             / len(TASKS),
             "launches_http": http["launches"][name],
+            "launches_training": training["launches"][name],
+            "training_generator_passes": sum(
+                training["generator_passes"].values()),
+            "backward_recompute": training["recompute"][name],
             "role": role,
             **conv[name],
             "library_note": "F.conv1d (cuDNN, TF32 off) alone on an "
@@ -1543,6 +1974,8 @@ def main() -> None:
                     "stream_all_chunks_ms": stream_ms}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"http": http}))
+    log(json.dumps({"weights": weights}))
+    log(json.dumps({"training": training}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

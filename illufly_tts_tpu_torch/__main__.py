@@ -3,10 +3,10 @@
 reference (reference: src/illufly_tts/__main__.py:23-142). Serves over
 aiohttp (uvicorn/fastapi are optional in this environment).
 
-``--device`` goes to the engine: CUDA by default, the CPU only when
-``--device cpu`` is passed. Without a CUDA device and without that flag the
-engine raises. ``convert``, ``train`` and ``train-voice`` are not ported
-yet (checkpoint loading and training come later)."""
+``--device`` goes to the engine (or the trained model): CUDA by default,
+the CPU only when ``--device cpu`` is passed. Without a CUDA device and
+without that flag the engine raises. ``--dp`` above 1 (data parallelism) is
+a usage error: it is not ported."""
 from __future__ import annotations
 
 import logging
@@ -300,6 +300,215 @@ def api(host, port, server_host, server_port, process_command, process_args):
     logger.info("gateway on %s:%d -> MCP %s", host, port,
                 server_host or process_command)
     web.run_app(app, host=host, port=port)
+
+
+def _tiny_cfg():
+    """Tiny model config shared by the smoke/CI paths of train/convert."""
+    from .model.config import AlbertConfig, IstftNetConfig, KokoroConfig
+
+    return KokoroConfig(
+        n_token=64, hidden_dim=64, style_dim=32, max_dur=10, n_layer=2,
+        albert=AlbertConfig(
+            vocab_size=64, embedding_size=32, hidden_size=128,
+            num_heads=4, intermediate_size=256, num_layers=2,
+            max_position=128,
+        ),
+        istftnet=IstftNetConfig(
+            upsample_rates=(10, 6), upsample_kernel_sizes=(20, 12),
+            upsample_initial_channel=128,
+            resblock_kernel_sizes=(3,),
+            resblock_dilation_sizes=((1, 3),),
+        ),
+    )
+
+
+@cli.command()
+@click.argument("checkpoint", type=click.Path(exists=True, dir_okay=False))
+@click.option("--output", "-o", default=None,
+              help="output weights path (.msgpack; default: CHECKPOINT "
+                   "with the extension swapped)")
+@click.option("--voices-dir", default=None,
+              help="also convert every .pt voice pack in this directory "
+                   "to .npy")
+@click.option("--voices-output", default=None,
+              help="output directory for converted voice packs "
+                   "(default: --voices-dir in place)")
+@click.option("--device", default=None, help=_DEVICE_HELP)
+@click.option("--tiny", is_flag=True, hidden=True)
+def convert(checkpoint, output, voices_dir, voices_output, device, tiny):
+    """Convert a torch Kokoro checkpoint to flax msgpack weights.
+
+    One-time migration step for reference users (their HF checkpoint —
+    hexgrad/Kokoro-82M-v1.1-zh `*.pth` + config.json vocab table — works
+    directly): `serve`/`synth` also accept the .pth itself via --repo-id,
+    but the converted .msgpack skips the name/layout mapping on every
+    start, and the JAX package loads it too. The weights are loaded onto
+    --device on the way (CUDA by default)."""
+    from .engine.synthesizer import Synthesizer
+    from .model.config import KokoroConfig
+
+    synth_engine = Synthesizer(config=_tiny_cfg() if tiny
+                               else KokoroConfig(), device=device)
+    if output is None:
+        output = os.path.splitext(checkpoint)[0] + ".msgpack"
+    synth_engine.load_params(checkpoint)  # raises ConversionError w/ lists
+    synth_engine.save_params(output)
+    click.echo(f"wrote {output}")
+
+    if voices_dir:
+        import numpy as np
+        import torch
+
+        out_dir = voices_output or voices_dir
+        os.makedirs(out_dir, exist_ok=True)
+        n = 0
+        for name in sorted(os.listdir(voices_dir)):
+            if not name.endswith(".pt"):
+                continue
+            pack = torch.load(
+                os.path.join(voices_dir, name), map_location="cpu",
+                weights_only=True,
+            ).numpy().astype(np.float32)
+            np.save(os.path.join(out_dir, name[:-3] + ".npy"), pack)
+            n += 1
+        click.echo(f"converted {n} voice packs -> {out_dir}")
+
+
+@cli.command("train-voice")
+@click.option("--data", "data_dir", required=True,
+              help="dataset dir of the target speaker "
+                   "(metadata.csv+wavs/ or paired wav+txt)")
+@click.option("--output", "-o", required=True,
+              help="output voice pack (.npy, standard [510,1,256] "
+                   "length-indexed layout)")
+@click.option("--repo-id", default="",
+              help="model weights (.msgpack or torch .pt/.pth); "
+                   "random init if omitted")
+@click.option("--steps", default=200, type=int, help="Adam steps")
+@click.option("--lr", default=5e-2, type=float)
+@click.option("--batch-size", default=4, type=int)
+@click.option("--tokens", default=128, type=int)
+@click.option("--frames", default=256, type=int)
+@click.option("--init-voice", default=None,
+              help="warm-start from an existing voice id (resolved via "
+                   "--voices-dir) or a pack file path")
+@click.option("--voices-dir", default=None)
+@click.option("--device", default=None, help=_DEVICE_HELP)
+@click.option("--seed", default=0, type=int)
+@click.option("--tiny", is_flag=True, hidden=True)
+def train_voice(data_dir, output, repo_id, steps, lr, batch_size, tokens,
+                frames, init_voice, voices_dir, device, seed, tiny):
+    """Learn a NEW VOICE from a few recordings of a speaker.
+
+    The model weights stay frozen; only the 256-d AdaIN style vector
+    (128 decoder + 128 prosody, reference kmodel.py:82-84) optimizes
+    against mel-L1 + multi-res STFT on the recordings. The result is a
+    standard voice pack usable everywhere a shipped voice is (serve,
+    synth, MCP, blend specs)."""
+    import numpy as np
+
+    from .engine.synthesizer import Synthesizer
+    from .model.config import KokoroConfig
+    from .training.data import SpeechDataset, dataset_batches, prefetch
+    from .training.voice_adapt import adapt_voice, style_to_pack
+
+    engine = Synthesizer(config=_tiny_cfg() if tiny else KokoroConfig(),
+                         voices_dir=voices_dir, device=device)
+    if repo_id:
+        if not os.path.isfile(repo_id):
+            # a typo'd path or an HF repo id would silently adapt
+            # against RANDOM weights and write a garbage pack
+            raise click.ClickException(
+                f"--repo-id {repo_id!r} is not a readable weights file "
+                "(.msgpack or torch .pt/.pth)"
+            )
+        engine.load_params(repo_id)
+    cfg = engine.config
+
+    init = None
+    if init_voice:
+        if os.path.isfile(init_voice):
+            pack = np.load(init_voice)
+        else:
+            pack = engine.load_voice(init_voice)
+        # packs are length-indexed [L,1,256]; the mean over lengths is
+        # the natural single-vector summary to warm-start from
+        init = np.asarray(pack, np.float32).reshape(
+            pack.shape[0], -1
+        ).mean(axis=0)
+
+    dataset = SpeechDataset(
+        data_dir, sample_rate=cfg.sample_rate,
+        style_dim=2 * cfg.style_dim,
+        samples_per_frame=cfg.samples_per_frame,
+    )
+    batches = prefetch(dataset_batches(
+        dataset, batch_size, tokens, frames, cfg.samples_per_frame,
+        seed=seed, vocab_size=cfg.albert.vocab_size,
+    ))
+    style, metrics = adapt_voice(
+        engine.model, batches, steps=steps, learning_rate=lr,
+        frames=frames, init=init, spectral=True,
+    )
+    np.save(output, style_to_pack(style))
+    click.echo(f"wrote {output} ({metrics})")
+
+
+@cli.command()
+@click.option("--steps", default=100, type=int, help="optimizer steps")
+@click.option("--batch-size", default=8, type=int)
+@click.option("--tokens", default=64, type=int, help="token bucket")
+@click.option("--frames", default=128, type=int, help="frame budget")
+@click.option("--lr", default=1e-4, type=float)
+@click.option("--checkpoint-dir", default=None,
+              help="checkpoint directory (step_%08d/state.pt)")
+@click.option("--resume", is_flag=True,
+              help="resume from the latest checkpoint in --checkpoint-dir")
+@click.option("--checkpoint-every", default=100, type=int)
+@click.option("--dp", default=0, type=int,
+              help="data-parallel over N devices (not ported yet: 0 or 1 = "
+                   "one device)")
+@click.option("--device", default=None, help=_DEVICE_HELP)
+@click.option("--tiny", is_flag=True,
+              help="tiny model config (smoke runs / CI)")
+@click.option("--seed", default=0, type=int)
+@click.option("--data", "data_dir", default=None,
+              help="dataset dir (metadata.csv+wavs/ or paired wav+txt); "
+                   "switches to the mel-L1 + multi-res-STFT objective")
+@click.option("--adversarial", is_flag=True,
+              help="add the HiFi-GAN LSGAN objective (MultiPeriod + "
+                   "MultiResolution discriminators, feature matching)")
+@click.option("--disc-lr", default=2e-4, type=float,
+              help="discriminator learning rate (with --adversarial)")
+def train(steps, batch_size, tokens, frames, lr, checkpoint_dir, resume,
+          checkpoint_every, dp, device, tiny, seed, data_dir, adversarial,
+          disc_lr):
+    """Train the model (teacher-distillation on synthetic data by
+    default, real speech data via --data; the reference ships no
+    training code). The weights start from the port's seeded random init
+    (``model/params.py::random_flax_params``), not flax's ``model.init``."""
+    if dp and dp > 1:
+        raise click.UsageError(
+            f"--dp {dp}: data-parallel training is not ported yet; the port "
+            "trains on one device (omit --dp)"
+        )
+    from .engine.synthesizer import resolve_device
+    from .model.config import KokoroConfig
+    from .model.kokoro import KokoroModel
+    from .model.params import load_flax_params, random_flax_params
+    from .training.loop import train as run_train
+
+    cfg = _tiny_cfg() if tiny else KokoroConfig()
+    model = KokoroModel(cfg)
+    load_flax_params(model, random_flax_params(model, seed))
+    model.to(resolve_device(device))
+    _, _, metrics = run_train(
+        model, steps=steps, batch_size=batch_size, tokens=tokens,
+        frames=frames, learning_rate=lr, checkpoint_dir=checkpoint_dir,
+        resume=resume, checkpoint_every=checkpoint_every, seed=seed,
+        data_dir=data_dir, adversarial=adversarial, disc_lr=disc_lr,
+    )
+    click.echo(f"done: {metrics}")
 
 
 @cli.command()

@@ -41,8 +41,14 @@ from ..audio.telephony import (
     mulaw_lut,
     resample_to_8k,
 )
+from ..model import flax_msgpack
+from ..model.convert import load_torch_checkpoint
 from ..model.kokoro import KokoroModel, _fit_durations, peak_normalize
-from ..model.params import load_flax_params, random_flax_params
+from ..model.params import (
+    export_flax_params,
+    load_flax_params,
+    random_flax_params,
+)
 from ..model.vocab import encode as encode_phonemes
 from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
 
@@ -161,15 +167,23 @@ class Synthesizer:
         self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
         self._lock = threading.Lock()
 
+    def save_params(self, path: str) -> None:
+        """Write the weights as flax msgpack: the file the JAX
+        ``Synthesizer.save_params`` writes, which its ``load_params``
+        reads."""
+        flax_msgpack.save(path, export_flax_params(self.model))
+
     def load_params(self, path: str) -> None:
-        """Not ported yet (ROADMAP queue 1, checkpoint loading): flax
-        msgpack needs flax, and a torch Kokoro checkpoint (.pt/.pth) needs
-        the port of ``model/convert.py``. Pass ``params=`` (a flax-layout
-        numpy tree) to the constructor instead."""
-        raise NotImplementedError(
-            f"load_params({path!r}): checkpoint loading is not ported yet "
-            "(ROADMAP queue 1); pass params= to Synthesizer instead"
-        )
+        """Load model weights onto ``self.device``: flax msgpack
+        (.msgpack/.bin, e.g. from the JAX ``save_params``) or a torch
+        Kokoro checkpoint (.pt/.pth) through the converter — the reference
+        user's migration path (their HF checkpoint works directly)."""
+        if path.endswith((".pt", ".pth")):
+            tree = load_torch_checkpoint(path,
+                                         export_flax_params(self.model))
+        else:
+            tree = flax_msgpack.load(path)
+        load_flax_params(self.model, tree)
 
     # --- voices ---------------------------------------------------------------
 

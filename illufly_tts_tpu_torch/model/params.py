@@ -18,6 +18,12 @@ transform:
 port parameter it cannot fill. ``random_flax_params`` is the counterpart
 of the JAX ``Synthesizer._random_init``: it draws the same numbers in the
 same leaf order, so a seed gives the JAX parameters bit for bit.
+
+``trainable_parameters`` gives what an optimizer may move: every parameter
+a flax leaf maps to. ``bias_hh_l0`` has no flax leaf (flax's one fused LSTM
+bias lives in ``bias_ih_l0``), so it stays 0 and out of training: trained,
+it would move the effective bias twice as far per Adam step as JAX does,
+and ``export_flax_params`` would drop the drift.
 """
 from __future__ import annotations
 
@@ -176,13 +182,27 @@ def load_flax_params(model: nn.Module, tree: Mapping) -> None:
             params[name].zero_()
 
 
-def export_flax_params(model: nn.Module) -> dict:
-    """The port's parameters as a ``{"params": ...}`` flax-layout tree of
-    numpy arrays (the inverse of ``load_flax_params``)."""
+def trainable_parameters(model: nn.Module) -> List[nn.Parameter]:
+    """Turn gradients on for every parameter a flax leaf maps to and off
+    for the bridge's zeros (``bias_hh_l0``) -> the former, in order."""
+    specs, zeros = _leaf_specs(model)
+    params = dict(model.named_parameters())
+    for name in zeros:
+        params[name].requires_grad_(False)
+    return [params[name].requires_grad_(True) for name, _, _ in specs]
+
+
+def export_flax_params(model: nn.Module, grads: bool = False) -> dict:
+    """The port's parameters (``grads``: their ``.grad``, zeros where none)
+    as a ``{"params": ...}`` flax-layout tree of numpy arrays (the inverse
+    of ``load_flax_params``)."""
     params = dict(model.named_parameters())
     flat = {}
     for name, path, perm in _leaf_specs(model)[0]:
-        arr = params[name].detach().cpu().float().numpy()
+        p = params[name]
+        if grads:
+            p = p.grad if p.grad is not None else torch.zeros_like(p)
+        arr = p.detach().cpu().float().numpy()
         if perm is not None:
             arr = arr.transpose(np.argsort(perm))
         flat[path] = np.ascontiguousarray(arr)

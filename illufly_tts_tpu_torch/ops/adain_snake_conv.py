@@ -25,6 +25,10 @@ shape.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts the
 launch in ``launches``; for CPU tensors it runs ``adain_snake_conv_plain``.
+On CUDA the launch goes through ``ops/kernel_grad.py::kernel_call``: where
+autograd records, the gradients of x, scale, shift, alpha, w and b come
+from ``adain_snake_conv_plain`` recomputed in the backward (the mask gets
+none).
 ``instance_moments`` and ``fold_adain`` give the folded AdaIN scale/shift;
 like the JAX package, they stay plain tensor ops.
 """
@@ -37,6 +41,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .kernel_grad import kernel_call
 
 # kernel geometry; must equal the source's (checked at load)
 TILE_LENS = (128, 64)  # output columns per CTA the kernels take
@@ -81,12 +87,17 @@ def fold_adain(mean, rstd, gamma, beta):
     return scale, beta - mean * scale
 
 
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """f32, or f64 for f64 inputs (the gradient checks run in f64)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _activate(x, mask, scale, shift, alpha):
     """mask * snake(x * scale + shift), f32 [B, C, L]."""
-    xn = x.float() * scale[:, :, None] + shift[:, :, None]
-    a = alpha.float().reshape(1, -1, 1)
+    xn = _wide(x) * scale[:, :, None] + shift[:, :, None]
+    a = _wide(alpha).reshape(1, -1, 1)
     h = xn + (1.0 / a) * torch.square(torch.sin(a * xn))
-    return h * mask[:, None, :].float()
+    return h * mask[:, None, :].to(h.dtype)
 
 
 def _conv(h, w, kernel, dilation):
@@ -98,7 +109,7 @@ def adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b, kernel,
                            dilation=1):
     """PyTorch ops equal to the JAX ``adain_snake_conv_reference``."""
     h = _activate(x, mask, scale, shift, alpha)
-    return _conv(h, w.float(), kernel, dilation) + b.float().reshape(1, -1, 1)
+    return _conv(h, _wide(w), kernel, dilation) + _wide(b).reshape(1, -1, 1)
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -261,6 +272,24 @@ def _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
     return y
 
 
+def _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
+          *extra):
+    """Launch ``fn`` and count it as ``name``; where autograd records, the
+    backward differentiates the plain version (``kernel_call``). The mask
+    stays outside the Function's inputs: it gets no gradient."""
+    def launch(x, scale, shift, alpha, w, b):
+        y = _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
+                    *extra)
+        count_launch(name)
+        return y
+
+    def plain(x, scale, shift, alpha, w, b):
+        return adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
+                                      kernel, dilation)
+
+    return kernel_call(launch, plain, x, scale, shift, alpha, w, b)
+
+
 def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
                      dilation=1):
     """Halo-tile kernel: mask(snake(x*scale+shift)) conv w + b ->
@@ -272,11 +301,9 @@ def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
     batch, _, length = x.shape
     sms = _sm_count(x.device.index or 0)
     tile_len = column_tile(batch, w.shape[2], length, sms)
-    y = _launch(_library().adain_snake_conv_f32, x, mask, scale, shift,
-                alpha, w, b, kernel, dilation, tile_len,
-                tiles_per_cta(batch, w.shape[2], length, sms, tile_len))
-    count_launch("adain_snake_conv")
-    return y
+    return _call("adain_snake_conv", _library().adain_snake_conv_f32, x,
+                 mask, scale, shift, alpha, w, b, kernel, dilation, tile_len,
+                 tiles_per_cta(batch, w.shape[2], length, sms, tile_len))
 
 
 def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
@@ -293,7 +320,6 @@ def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
     tile_len = column_tile(batch, w.shape[2], length, sms)
     per_chunk = carry_tiles_per_chunk(batch, c_in, w.shape[2], length,
                                       kernel, dilation, sms, tile_len)
-    y = _launch(_library().adain_snake_conv_carry_f32, x, mask, scale, shift,
-                alpha, w, b, kernel, dilation, tile_len, per_chunk)
-    count_launch("adain_snake_conv_carry")
-    return y
+    return _call("adain_snake_conv_carry",
+                 _library().adain_snake_conv_carry_f32, x, mask, scale, shift,
+                 alpha, w, b, kernel, dilation, tile_len, per_chunk)

@@ -19,7 +19,9 @@ frame bucket 512), that is 43.3 MB read and 9.8 MB written, about 16 us at
 the H100's 3.35 TB/s. Each wrapper launches the kernel for CUDA tensors (or
 raises) and counts the launch in ``launches`` (one counter for both
 entries: one launch per Generator pass); for CPU tensors it runs its plain
-version.
+version. On CUDA the launch goes through ``ops/kernel_grad.py::
+kernel_call``: where autograd records, the gradient of the head's x, or of
+mag and phase, comes from the plain version recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .kernel_grad import kernel_call
 from .stft import _bases, hann, istft
 
 N_FFT = 20
@@ -123,8 +126,19 @@ def _launch(entry, inputs, batch: int, frames: int) -> torch.Tensor:
                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"istft_oa kernel launch failed: cudaError {rc}")
-    count_launch()
     return out
+
+
+def _call(entry, plain, batch: int, frames: int,
+          *inputs: torch.Tensor) -> torch.Tensor:
+    """Launch ``entry`` on ``inputs`` and count it; where autograd records,
+    the backward differentiates ``plain`` (``kernel_call``)."""
+    def launch(*tensors):
+        out = _launch(entry, tensors, batch, frames)
+        count_launch()
+        return out
+
+    return kernel_call(launch, plain, *inputs)
 
 
 def istft_head(x: torch.Tensor, n_fft: int = N_FFT,
@@ -142,7 +156,8 @@ def istft_head(x: torch.Tensor, n_fft: int = N_FFT,
     batch, _, frames = x.shape
     if batch == 0 or frames == 0:
         raise ValueError(f"istft_head kernel: batch {batch}, frames {frames}")
-    return _launch(_library().istft_head_f32, (x,), batch, frames)
+    return _call(_library().istft_head_f32, istft_head_plain, batch, frames,
+                 x)
 
 
 def istft_oa(mag: torch.Tensor, phase: torch.Tensor, n_fft: int = N_FFT,
@@ -163,4 +178,5 @@ def istft_oa(mag: torch.Tensor, phase: torch.Tensor, n_fft: int = N_FFT,
     batch, frames, _ = mag.shape
     if batch == 0 or frames == 0:
         raise ValueError(f"istft_oa kernel: batch {batch}, frames {frames}")
-    return _launch(_library().istft_oa_f32, (mag, phase), batch, frames)
+    return _call(_library().istft_oa_f32, istft_oa_plain, batch, frames, mag,
+                 phase)

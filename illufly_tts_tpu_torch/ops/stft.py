@@ -51,12 +51,15 @@ def _bases(n_fft: int):
 def _table(kind: str, n_fft: int, dtype: torch.dtype,
            device: torch.device) -> torch.Tensor:
     """A basis or window as a tensor, uploaded once per device: a fresh
-    upload from pageable host memory would wait for the stream."""
+    upload from pageable host memory would wait for the stream. Made
+    outside inference mode, so a table first made while serving can enter
+    a graph that autograd records later (training in the same process)."""
     fwd_cos, fwd_sin, inv_cos, inv_sin = _bases(n_fft)
     arr = {"fwd_cos_t": fwd_cos.T, "fwd_sin_t": fwd_sin.T, "inv_cos": inv_cos,
            "inv_sin": inv_sin, "hann": hann(n_fft)}[kind]
-    return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
-                           device=device)
+    with torch.inference_mode(False):
+        return torch.as_tensor(np.ascontiguousarray(arr), dtype=dtype,
+                               device=device)
 
 
 def _t(kind: str, n_fft: int, like: torch.Tensor) -> torch.Tensor:

@@ -130,7 +130,8 @@ _BLOCKER = """
 import sys
 
 class _Block:
-    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "illufly_tts_tpu")
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "msgpack",
+               "illufly_tts_tpu")
 
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in self.BLOCKED:
@@ -152,7 +153,8 @@ def test_port_imports_no_jax():
     )
     assert len(modules) >= 15, modules
     for m in ("api.endpoints", "api.fastapi_compat", "mcp.server",
-              "client.mcp_client", "audio.flac", "__main__"):
+              "client.mcp_client", "audio.flac", "__main__", "model.convert",
+              "model.flax_msgpack", "training.loop", "training.voice_adapt"):
         assert f"illufly_tts_tpu_torch.{m}" in modules, m
     # the FastAPI shim imports fastapi at module top: a stub stands in
     body = FASTAPI_STUB + (
