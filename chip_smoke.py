@@ -78,7 +78,19 @@ From the root of a checkout. It
    run's), and 3 ``adapt_voice`` steps on ``rendered_batches`` (a finite
    style, a non-zero style gradient). Every teacher-forced forward must
    launch each kernel as one Generator pass does; the backward launches
-   none.
+   none;
+11. serves in bfloat16, ``KokoroConfig(dtype=torch.bfloat16)`` on the same
+   weights: the bf16 forms of the three kernels against their plain bf16
+   versions (``BF16_TOL`` of the output's peak, the share of bitwise-equal
+   outputs printed; the bf16 head bitwise the f32 head of ``x.float()``),
+   timed beside their bound, cuDNN's bf16 conv and the f32 forms; bench.py's
+   serving shape (B=32, 256 tokens, frame bucket 512) in pcm16 and mulaw8k
+   beside the f32 engine, with exact launches (each bf16 form as often as
+   the Generator passes give, no f32 form; none in the f32 engine); zh_1 in
+   the four formats, an exact stream bitwise equal to ``collect()`` and a
+   windowed stream (first-chunk ms); and the card's bf16 render of zh_1
+   against the CPU's: frame totals within ``FRAME_SLACK`` and mel-L1(card
+   bf16, CPU bf16) <= mel-L1(CPU bf16, CPU f32).
 
 It prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
 "device": {...}}``. Any failed check exits non-zero with no result line;
@@ -97,10 +109,11 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 (non
-# tensor-core) operations/s, dense TF32 tensor-core operations/s
+# tensor-core) operations/s, dense TF32 and bf16 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
+BF16_OPS_PER_S = 989e12
 
 ISTFT_TOL = 1e-4       # max-abs, as the JAX package holds its Pallas iSTFT
 # the head entry: max-abs over (1 + max|plain|), since magnitudes reach
@@ -126,6 +139,18 @@ RESUME_STEP4_TOL = 1e-4
 # output goes through an instance norm (analytically zero), and the noise
 # convs fed the spectrum of a silent harmonic source
 DEGENERATE = r"\.conv1(_\d)?\.bias$|\.noise_conv_\d\."
+
+# phase 11, bf16: each bf16 form against its plain bf16 version, max
+# |kernel - plain| over max |plain| (one bfloat16 ulp at the output's peak:
+# both round one float32 sum, summed in other orders); bf16 form -> its
+# float32 form
+BF16_TOL = 2.0 ** -7
+BF16_CONV = {"adain_snake_conv_bf16": "adain_snake_conv",
+             "adain_snake_conv_carry_bf16": "adain_snake_conv_carry"}
+# bench.py's serving shape (B=32, 256 tokens, frame bucket 512) and text
+BENCH = {"batch": 32, "tokens": 256, "frames": 512}
+BENCH_TEXT = ("ni↗xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst. " * 12)[:250]
+FRAME_SLACK = 2  # frames per item, the card's bf16 render vs the CPU's
 
 ZH = "ni→xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst."
 MIXED = "tʰjɛn→tʃʰi↘tʃən→pu↗tsʰwo↘. hello wɝld."
@@ -1546,6 +1571,357 @@ def time_recompute(torch, asc, oa, flush, conv_shapes, head_shapes, card):
             f" ms ({card})")
     return rows
 
+def bf16_inputs(torch, asc, batch, channels, length, kernel, seed,
+                zero_mask=False):
+    """``conv_inputs`` as the bf16 forms take them: x bfloat16, w the
+    K-major bfloat16 view the model holds (``asc.kmajor``)."""
+    x, mask, scale, shift, alpha, w, b = conv_inputs(
+        torch, batch, channels, length, kernel, seed, zero_mask)
+    return x.bfloat16(), mask, scale, shift, alpha, asc.kmajor(w), b
+
+
+def check_conv_bf16(torch, asc, name, cases):
+    """bf16 form ``name`` vs the plain bf16 version at each (batch, C, L, k,
+    d, zero_mask) -> (worst max|kernel - plain| / max|plain|, its max
+    |kernel - plain|, the least share of bitwise-equal outputs). An all-zero
+    mask must give the bias rounded to bfloat16."""
+    fn = getattr(asc, BF16_CONV[name])
+    worst, worst_err, least_equal = 0.0, 0.0, 1.0
+    for i, (batch, channels, length, k, d, zero) in enumerate(cases):
+        args = bf16_inputs(torch, asc, batch, channels, length, k, 50 + i,
+                           zero)
+        out = fn(*args, k, d)
+        torch.cuda.synchronize()
+        ref = asc.adain_snake_conv_plain(*args, k, d)
+        if out.dtype != torch.bfloat16 or out.shape != ref.shape:
+            fail(f"{name}: {out.dtype} {tuple(out.shape)} at {cases[i]}")
+        err = float((out.float() - ref.float()).abs().max())
+        peak = float(ref.float().abs().max())
+        equal = float((out.view(torch.int16) == ref.view(torch.int16))
+                      .float().mean())
+        if zero and not torch.equal(out, args[-1].bfloat16()[
+                None, :, None].expand_as(out)):
+            fail(f"{name}: an all-zero mask did not give the bias")
+        if not err <= BF16_TOL * peak:
+            fail(f"{name} disagrees with plain at {cases[i]}: {err} > "
+                 f"2^-7 * {peak}")
+        if err / max(peak, 1e-30) >= worst:
+            worst, worst_err = err / max(peak, 1e-30), err
+        least_equal = min(least_equal, equal)
+        del args, out, ref
+    log(f"  {name}: {len(cases)} shapes, max|kernel - plain| <= "
+        f"{worst:.3e} of max|plain| (gate 2^-7 = {BF16_TOL:.3e}), outputs "
+        f"bitwise equal: >= {least_equal:.2%}")
+    return worst, worst_err, least_equal
+
+
+def check_head_bf16(torch, oa, shapes):
+    """The bf16 head on a bfloat16 x against the f32 head on x.float() at
+    each (batch, frames, edges): bitwise equal (NaN included) -> max
+    |kernel - plain| over the finite samples."""
+    worst = 0.0
+    for i, (batch, frames, edges) in enumerate(shapes):
+        x = head_inputs(torch, batch, frames, seed=200 + i,
+                        edges=edges).bfloat16()
+        out = oa.istft_head(x)
+        f32 = oa.istft_head(x.float())
+        torch.cuda.synchronize()
+        if out.dtype != torch.float32 or not torch.equal(
+                out.view(torch.int32), f32.view(torch.int32)):
+            fail(f"istft_head_bf16 is not bitwise the f32 head of x.float() "
+                 f"at {(batch, frames)}")
+        ref = oa.istft_head_plain(x)
+        fin = ~torch.isnan(ref)
+        worst = max(worst, float((out[fin] - ref[fin]).abs().max()))
+    log(f"  istft_head_bf16: {len(shapes)} shapes bitwise equal to the f32 "
+        f"head of x.float(); max|kernel - plain| = {worst:.3e}")
+    return worst
+
+
+def time_conv_bf16(torch, F, asc, name, flush, shape, card, reps=20):
+    """bf16 form, plain bf16 version, cuDNN's bf16 conv alone on an
+    activated input, and the 3xTF32 form on the same values in f32, ms,
+    beside the bound: the larger of 2 B L C^2 k / 989e12 and its bytes (x
+    and y bfloat16, the f32 mask, w bfloat16) over HBM."""
+    batch, channels, length, k, d = shape
+    args = bf16_inputs(torch, asc, batch, channels, length, k, seed=99)
+    f32_args = tuple(t.float().contiguous() for t in args)
+    fn = getattr(asc, BF16_CONV[name])
+    h = torch.randn(args[0].shape, device="cuda").bfloat16()
+    w_t = args[5].permute(2, 1, 0).contiguous()  # [C_out, C_in, k]
+    b16 = args[6].bfloat16()
+    pad = (k - 1) * d // 2
+    calls = {
+        "ms": lambda: fn(*args, k, d),
+        "plain_ms": lambda: asc.adain_snake_conv_plain(*args, k, d),
+        "library_ms": lambda: F.conv1d(h, w_t, b16, padding=pad,
+                                       dilation=d),
+        "f32_form_ms": lambda: fn(*f32_args, k, d),
+    }
+    for call in calls.values():
+        call()
+    out = {key: cuda_ms(call, reps, flush) for key, call in calls.items()}
+    n_bytes = (2 * args[0].numel() * 2 + args[1].numel() * 4
+               + args[5].numel() * 2)
+    out["bound_ms"], out["bound_by"] = bound(
+        n_bytes, 2 * batch * length * channels * channels * k,
+        BF16_OPS_PER_S)
+    out["shape"] = list(shape)
+    log(f"{name} at B={batch}, C={channels}, L={length}, k={k}, d={d}: "
+        f"kernel {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, cuDNN "
+        f"bf16 conv alone {out['library_ms']:.4f} ms, 3xTF32 form "
+        f"{out['f32_form_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms "
+        f"({out['bound_by']}, {out['bound_ms'] / out['ms']:.0%} of it "
+        f"reached; {card})")
+    return out
+
+
+def time_head_bf16(torch, oa, flush, card):
+    """The bf16 head at [8, 22, 61440] beside its plain version, the f32
+    head on the same values in f32, and its byte bound (22 bfloat16 in and
+    5 f32 out a frame)."""
+    batch, frames = 8, 61440
+    x = head_inputs(torch, batch, frames, seed=99).bfloat16()
+    x32 = x.float()
+    calls = {"ms": lambda: oa.istft_head(x),
+             "plain_ms": lambda: oa.istft_head_plain(x),
+             "f32_form_ms": lambda: oa.istft_head(x32)}
+    for call in calls.values():
+        call()
+    out = {key: cuda_ms(call, 50, flush) for key, call in calls.items()}
+    out["bound_ms"], out["bound_by"] = bound(
+        batch * frames * (22 * 2 + 5 * 4), batch * frames * ISTFT_OPS_PER_FRAME)
+    out["shape"] = [batch, 22, frames]
+    log(f"istft_head_bf16 at {out['shape']}: kernel {out['ms']:.4f} ms, "
+        f"plain {out['plain_ms']:.4f} ms, f32 head {out['f32_form_ms']:.4f}"
+        f" ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}; {card})")
+    return out
+
+
+def bf16_counts():
+    """The bf16 forms' launch counts (the wrappers' own counters)."""
+    from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
+    from illufly_tts_tpu_torch.ops import istft_oa as oa
+
+    return {"istft_head_bf16": oa.launches_bf16, **asc.launches_bf16}
+
+
+def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
+               failures, conv_per_generator, reset_counts, check_wave):
+    """Phase 11: ``KokoroConfig(dtype=torch.bfloat16)`` on the card, on the
+    f32 engine's weights: the bf16 forms against their plain versions and
+    timed; bench.py's serving shape (B=32, 256 tokens, frame bucket 512)
+    in pcm16 and mulaw8k beside the f32 engine; zh_1 in the four formats,
+    streamed exact and windowed; the card's bf16 against the CPU's on zh_1.
+    -> (summary, kernel rows by name)."""
+    import dataclasses
+
+    from illufly_tts_tpu_torch.audio.mel import mel_l1
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.model.params import export_flax_params
+
+    out = {"card": card}
+    # -- the forms against their plain versions, and timed
+    log("phase 11: bf16 forms vs their plain bf16 versions:")
+    timed = [(8, 128, 61440, 11, 1, False), (8, 128, 61440, 11, 5, False),
+             (8, 256, 10240, 7, 3, False), (1, 256, 1920, 7, 3, False),
+             (1, 128, 11520, 11, 5, False), (3, 128, 1001, 7, 3, False),
+             (2, 256, 37, 11, 5, False), (2, 256, 640, 3, 1, True)]
+    rows = {name: dict(zip(("err_over_peak", "max_abs_err",
+                            "bitwise_share"),
+                           check_conv_bf16(torch, asc, name, timed)))
+            for name in BF16_CONV}
+    head_err = check_head_bf16(torch, oa, [
+        (8, 61440, False), (1, 11520, False), (3, 1001, False),
+        (1, 1, False), (2, 4096, True)])
+    for name, d in (("adain_snake_conv_bf16", 1),
+                    ("adain_snake_conv_carry_bf16", 5)):
+        rows[name].update(time_conv_bf16(torch, F, asc, name, flush,
+                                         (8, 128, 61440, 11, d), card))
+        rows[name]["bench_shape"] = time_conv_bf16(
+            torch, F, asc, name, flush, (32, 128, 61440, 11, d), card,
+            reps=10)
+    rows["istft_head_bf16"] = {"max_abs_err": head_err,
+                               **time_head_bf16(torch, oa, flush, card)}
+
+    # -- the engines, on the f32 engine's weights
+    tree = export_flax_params(synth.model)
+    cfg16 = dataclasses.replace(synth.config, dtype=torch.bfloat16)
+    t0 = time.perf_counter()
+    s16 = Synthesizer(cfg16, params=tree)
+    s16.register_random_voice("smoke_voice", seed=0)
+    log(f"Synthesizer(KokoroConfig(dtype=torch.bfloat16)) on {s16.device} "
+        f"in {time.perf_counter() - t0:.1f} s ({card})")
+    buckets = {"token_buckets": (BENCH["tokens"],),
+               "frame_buckets": (BENCH["frames"],)}
+    engines = {"bf16": Synthesizer(cfg16, params=tree, **buckets),
+               "f32": Synthesizer(synth.config, params=tree, **buckets)}
+    texts = [BENCH_TEXT] * BENCH["batch"]
+    voices = ["bench_voice"] * BENCH["batch"]
+    out["bench"] = {}
+    conv_shapes, head_shapes = record_shapes(layers, vocoder, asc, oa)
+    try:
+        for label, engine in engines.items():
+            engine.register_random_voice("bench_voice", seed=7)
+            for fmt in ("pcm16", "mulaw8k"):
+                engine.collect(engine.dispatch(texts, voices, fmt=fmt))
+                torch.cuda.synchronize()
+                reset_counts()
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    h = engine.dispatch(texts, voices, fmt=fmt)
+                    clips = engine.collect(h)
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                got = {"istft_oa": oa.launches, **asc.launches,
+                       **bf16_counts()}
+                per_frame = 200 if fmt == "mulaw8k" else 600
+                for i, clip in enumerate(clips):
+                    check_wave(f"bench {label}/{fmt}[{i}]", clip,
+                               int(h.fitted_totals[i]) * per_frame)
+                seconds = float(sum(h.fitted_totals[: h.n])) * 600 / 24000
+                run = {"wall_ms": walls, "median_ms": statistics.median(
+                    walls), "audio_s": seconds, "t_bucket": h.t_bucket,
+                    "f_bucket": h.f_bucket, "launches": got}
+                out["bench"][f"{label}/{fmt}"] = run
+                on = (("istft_head_bf16", *BF16_CONV) if label == "bf16"
+                      else ("istft_oa", *BF16_CONV.values()))
+                want = {name: 0 for name in got}
+                want.update({name: 3 * (1 if "istft" in name else
+                                        conv_per_generator) for name in on})
+                if got != want:
+                    failures.append(f"bench {label}/{fmt}: launches {got}, "
+                                    f"want {want}")
+                log(f"bench.py shape, {label} engine, {fmt}: B={h.n}, "
+                    f"T_bucket={h.t_bucket}, F_bucket={h.f_bucket}, "
+                    f"{seconds:.1f} s of audio, wall ms (warm, dispatch -> "
+                    f"collect) {', '.join(f'{w:.1f}' for w in walls)}; "
+                    f"launches over 3 renders {got} ({card})")
+        del engines
+        torch.cuda.empty_cache()
+        for fmt in ("pcm16", "mulaw8k"):
+            b, f = out["bench"][f"bf16/{fmt}"], out["bench"][f"f32/{fmt}"]
+            log(f"bench.py shape {fmt}: bf16 {b['median_ms']:.1f} ms, f32 "
+                f"{f['median_ms']:.1f} ms, ratio "
+                f"{b['median_ms'] / f['median_ms']:.3f} ({card})")
+
+        # -- zh_1 in the four formats, exact and windowed streams
+        reset_counts()
+        for fmt in FORMATS:
+            h = s16.dispatch([ZH], ["smoke_voice"], fmt=fmt)
+            check_wave(f"bf16 zh_1/{fmt}", s16.collect(h)[0],
+                       int(h.fitted_totals[0]) * (200 if fmt == "mulaw8k"
+                                                  else 600))
+        got = bf16_counts()
+        want = {name: len(FORMATS) * (1 if "istft" in name
+                                      else conv_per_generator)
+                for name in got}
+        if got != want or oa.launches or any(asc.launches.values()):
+            failures.append(f"bf16 zh_1 formats: launches {got}, want "
+                            f"{want} and no f32 launch")
+        torch.backends.cudnn.deterministic = True
+        whole = s16.collect(s16.dispatch([ZH], ["smoke_voice"], fmt="f32"))
+        stream = np.concatenate(list(s16.stream_decode(
+            s16.dispatch([ZH], ["smoke_voice"], fmt="f32"),
+            window_frames=STREAM_WINDOW)), axis=1)
+        exact_equal = stream[0, : whole[0].size].tobytes() == whole[0].tobytes()
+        torch.backends.cudnn.deterministic = False
+        if not exact_equal:
+            failures.append("bf16 exact stream differs from collect()")
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        h = s16.dispatch([ZH], ["smoke_voice"], fmt="f32")
+        gen = s16.stream_decode(h, STREAM_WINDOW, STREAM_HALO, exact=False)
+        chunks = [next(gen)]
+        first_ms = (time.perf_counter() - t0) * 1e3
+        chunks += list(gen)
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        got = bf16_counts()
+        want = {name: len(chunks) * (1 if "istft" in name
+                                     else conv_per_generator)
+                for name in got}
+        if got != want or oa.launches or any(asc.launches.values()):
+            failures.append(f"bf16 windowed stream: launches {got}, want "
+                            f"{want} and no f32 launch")
+        max_total = int(h.fitted_totals[0])
+        if sum(c.shape[1] for c in chunks) != max_total * 600 or not all(
+                np.isfinite(c).all() for c in chunks):
+            failures.append("bf16 windowed chunks: length or finiteness")
+        out["stream"] = {"first_chunk_ms": first_ms, "all_chunks_ms":
+                         stream_ms, "chunks": len(chunks), "launches": got,
+                         "exact_bitwise_equal_to_collect": exact_equal}
+        log(f"bf16 zh_1: four formats served; exact stream bitwise equal to "
+            f"collect(): {exact_equal}; windowed stream ({STREAM_WINDOW} + "
+            f"{STREAM_HALO} frames, F_bucket {h.f_bucket}): {len(chunks)} "
+            f"chunks, first after {first_ms:.1f} ms, all after "
+            f"{stream_ms:.1f} ms, launches {got} ({card})")
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+    log("bf16 forms vs plain at the shapes the bf16 engine gave them:")
+    for name, plain_name in BF16_CONV.items():
+        new = sorted(conv_shapes[plain_name] - {c[:5] for c in timed})
+        if new:
+            worst, err, share = check_conv_bf16(
+                torch, asc, name, [(*shape, False) for shape in new])
+            rows[name]["err_over_peak"] = max(rows[name]["err_over_peak"],
+                                              worst)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            rows[name]["bitwise_share"] = min(rows[name]["bitwise_share"],
+                                              share)
+    rows["istft_head_bf16"]["max_abs_err"] = max(
+        head_err, check_head_bf16(torch, oa, [(b, f, False)
+                                              for b, f in sorted(head_shapes)]))
+    for name, row in rows.items():
+        row["launches"] = out["bench"]["bf16/pcm16"]["launches"][name]
+        row["launches_stream"] = out["stream"]["launches"][name]
+
+    # -- the card's bf16 against the CPU's, on zh_1
+    t0 = time.perf_counter()
+    cpu16 = Synthesizer(cfg16, params=tree, device="cpu")
+    cpu32 = Synthesizer(synth.config, params=tree, device="cpu")
+    renders, totals = {}, {}
+    for label, engine in (("card_bf16", s16), ("cpu_bf16", cpu16),
+                          ("cpu_f32", cpu32)):
+        engine.register_random_voice("smoke_voice", seed=0)
+        h = engine.dispatch([ZH], ["smoke_voice"], fmt="f32")
+        renders[label] = engine.collect(h)[0]
+        totals[label] = [int(t) for t in h.fitted_totals[: h.n]]
+        shape = (h.n, h.t_bucket, h.f_bucket)
+    card_cpu = mel_l1(renders["card_bf16"], renders["cpu_bf16"])
+    bf16_f32 = mel_l1(renders["cpu_bf16"], renders["cpu_f32"])
+
+    def rms_scale(a, b):
+        n = min(a.size, b.size)
+        return float(np.sqrt(np.mean((a[:n] - b[:n]) ** 2))
+                     / (np.sqrt(np.mean(b[:n] ** 2)) + 1e-9))
+
+    out["card_vs_cpu"] = {
+        "shape": list(shape), "frame_totals": totals,
+        "mel_l1_card_bf16_cpu_bf16": card_cpu,
+        "mel_l1_cpu_bf16_cpu_f32": bf16_f32,
+        "rms_scale_card_bf16_cpu_bf16": rms_scale(renders["card_bf16"],
+                                                  renders["cpu_bf16"]),
+        "rms_scale_cpu_bf16_cpu_f32": rms_scale(renders["cpu_bf16"],
+                                                renders["cpu_f32"]),
+        "seconds": time.perf_counter() - t0}
+    log(f"bf16 card vs CPU (zh_1, B={shape[0]}, T_bucket={shape[1]}, "
+        f"F_bucket={shape[2]}): frame totals {totals}; mel-L1(card bf16, "
+        f"CPU bf16) {card_cpu:.4e} vs mel-L1(CPU bf16, CPU f32) "
+        f"{bf16_f32:.4e}; rms/scale "
+        f"{out['card_vs_cpu']['rms_scale_card_bf16_cpu_bf16']:.3e} vs "
+        f"{out['card_vs_cpu']['rms_scale_cpu_bf16_cpu_f32']:.3e}; "
+        f"{out['card_vs_cpu']['seconds']:.1f} s ({card})")
+    if any(abs(a - b) > FRAME_SLACK for a, b in zip(totals["card_bf16"],
+                                                    totals["cpu_bf16"])):
+        failures.append(f"bf16 frame totals card {totals['card_bf16']} vs "
+                        f"CPU {totals['cpu_bf16']}")
+    if not card_cpu <= bf16_f32:
+        failures.append(f"bf16 card vs CPU mel-L1 {card_cpu} > CPU bf16 vs "
+                        f"f32 {bf16_f32}")
+    del cpu16, cpu32, s16
+    return out, rows
+
 
 def main() -> None:
     import torch
@@ -1676,9 +2052,10 @@ def main() -> None:
         return ["smoke_voice"] * len(texts)
 
     def reset_counts():
-        oa.launches = 0
-        for name in asc.launches:
-            asc.launches[name] = 0
+        oa.launches = oa.launches_bf16 = 0
+        for table in (asc.launches, asc.launches_bf16):
+            for name in table:
+                table[name] = 0
 
     def check_counts(label, generator_runs):
         counts = {"istft_oa": oa.launches, **asc.launches}
@@ -1690,6 +2067,8 @@ def main() -> None:
             if n == 0 or n != want[name]:
                 failures.append(f"{label}: {name} launched {n} times, "
                                 f"want {want[name]}")
+        if any(bf16_counts().values()):  # the f32 path runs no bf16 form
+            failures.append(f"{label}: bf16 forms launched {bf16_counts()}")
         return counts
 
     def check_wave(label, wave, want):
@@ -1901,6 +2280,11 @@ def main() -> None:
         head_err = max(head_err, check_head(
             torch, oa, [(b, f, False) for b, f in new]))
 
+    # ---- 11. bf16 ---------------------------------------------------------------
+    bf16, bf16_rows = bf16_phase(
+        torch, np, F, synth, layers, vocoder, asc, oa, flush, card, failures,
+        conv_per_generator, reset_counts, check_wave)
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -1968,6 +2352,33 @@ def main() -> None:
                           "bound_f32_ms: f32 CUDA cores (/ 67e12)",
             "card": card,
         })
+    head16 = bf16_rows["istft_head_bf16"]
+    rows.append({
+        "name": "istft_head_bf16",
+        "route": "cuda",
+        "source": "illufly_tts_tpu_torch/csrc/istft_oa.cu",
+        "replaces": "illufly_tts_tpu/ops/pallas/istft_oa.py:88",
+        **head16,
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes it (as the f32 "
+                        "head); f32_form_ms: the f32 head on x.float()",
+        "bitwise_equal_to_f32_head": True,
+        "card": card,
+    })
+    for name, plain_name in BF16_CONV.items():
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "illufly_tts_tpu_torch/csrc/adain_snake_conv.cu",
+            "replaces": CONV_KERNELS[plain_name][0],
+            "role": CONV_KERNELS[plain_name][1] + ", bfloat16 model",
+            **bf16_rows[name],
+            "library_note": "F.conv1d in bfloat16 (cuDNN) alone on an "
+                            "already activated input, with the bias",
+            "bound_note": "bf16 tensor cores (2 B L C^2 k / 989e12) or "
+                          "bytes over HBM, the larger",
+            "card": card,
+        })
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"requests_wall_ms": timings,
                     "stream_first_chunk_ms": first_ms,
@@ -1976,6 +2387,7 @@ def main() -> None:
     log(json.dumps({"http": http}))
     log(json.dumps({"weights": weights}))
     log(json.dumps({"training": training}))
+    log(json.dumps({"bf16": bf16}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -86,10 +86,15 @@
 // PERF.md) and launches one-tile chunks, which carry nothing, where it
 // does not (k = 11 at C = 128).
 //
-// Plain C interface, loaded with ctypes: each entry point launches the
-// weight split and its conv kernel on the caller's stream and returns
-// cudaGetLastError().
+// bf16 forms (adain_snake_conv_bf16, adain_snake_conv_carry_bf16, after
+// the f32 kernels): the Pallas kernels' own bf16 semantics, one bf16 MMA per
+// tap in place of the three TF32 ones; their notes are with their code.
+//
+// Plain C interface, loaded with ctypes: each entry point launches its conv
+// kernel (the f32 ones after the weight split) on the caller's stream and
+// returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -634,6 +639,539 @@ int launch_carry(const Args& a, int batch, int tiles_per_chunk,
   return (int)cudaGetLastError();
 }
 
+// ---- bf16 forms ------------------------------------------------------------
+//
+// The Pallas kernels with x in bfloat16 (fused_conv.py:59-87 and :118-153,
+// carry_conv.py:137-175): x [B, C_in, L] and y bfloat16; mask, scale,
+// shift, alpha and bias f32; w bfloat16, held K-major as [k][C_out][C_in]
+// (each output channel's input channels contiguous; the model makes it
+// once per weight). The activation is computed in f32 as above and rounded
+// to bfloat16 (cvt.rn.bf16x2.f32: to nearest even, as torch's .bfloat16()),
+// one wgmma m64nNk16.f32.bf16.bf16 per (tap, stage of CKB = 16 input
+// channels) sums the products of h and w in f32, and the epilogue adds the
+// f32 bias and rounds to bfloat16. The sum order per output is fixed, so
+// runs are bitwise repeatable.
+//
+// Bound: operations. 2 B L C_in C_out k / 989e12 (the dense bf16 tensor-core
+// rate): 0.179 ms at B=8, C=128, L=61440, k=11, against 0.076 ms for its
+// bytes (x and y in bfloat16, the f32 mask, w).
+//
+// Design: the f32 kernels' warp specialization and carry, with one operand
+// where they hold hi and lo. A k16 step is two 16-byte halves of 8
+// channels, the K-major no-swizzle layout of the TF32 k8 step byte for
+// byte, so the descriptors, the tap shift (one 16-byte row per d) and the
+// accumulator layout are unchanged. There is no split pass: the producers
+// copy each stage's B from the held weights, one 16-byte cp.async per
+// (tap, half, output channel), zero-filled past C_in / C_out (C_in a
+// multiple of 8). A stage's operands are half the bytes of an f32 stage
+// for twice its channels, which buys a deeper pipeline than the f32
+// kernels': SB = 3 stage buffers, B copied one stage ahead of the
+// activation and the raw inputs RB - 1 = 3 stages ahead, where the f32
+// kernels' two buffers leave each stage's L2 and device-memory round trips
+// in line behind its activation; the carry buffer still fits beside them
+// at every shape of the main path, so the carry kernel walks its chunks
+// there. sin in the activation comes from the SFU (sin_sfu): h is rounded
+// to bfloat16 anyway.
+//
+// Raw x in bfloat16: cp.async moves whole 4-byte words, and a window's
+// first column need not start one. Each channel row's columns inside
+// [0, L) are copied as the aligned words covering them, placed so that
+// column l sits at raw position l - l_first + s_c (s_c, 0 or 1, the parity
+// of the row's flat index at l_first); a word past the row's end copies its
+// first half only (zero fill), so nothing past the tensor is read. The
+// activation reads only columns inside [0, L) and writes 0 elsewhere: the
+// raw row holds stale values outside its copied words.
+
+constexpr int CKB = 16;   // input channels per bf16 stage (one k16 step)
+constexpr int HWB = 200;  // raw x row: the window, its shift and a spilled half
+// a raw buffer in words: x [CKB][HWB] bfloat16, the mask window [HWX] and
+// scale, shift, alpha [3][CKB] f32
+constexpr int RAWB_WORDS = CKB * HWB / 2 + HWX + 3 * CKB;
+constexpr int SB = 3;     // operand stage buffers
+constexpr int RB = 4;     // raw buffers: raw inputs load RB - 1 stages ahead
+// named barriers of the bf16 forms: FULL_B + s and EMPTY_B + s for stage
+// buffer s, RAW_B among producers
+constexpr int FULL_B = 1, EMPTY_B = FULL_B + SB, RAW_B = EMPTY_B + SB;
+
+// A stage's operands in words: B for k taps, then A ([2 halves][window
+// rows][16 bytes], as an f32 stage's hi).
+__host__ __device__ constexpr int stage_words_bf16(int tl, int k) {
+  return k * B_TAP + 2 * a_half(tl);
+}
+
+// Dynamic shared memory: SB stages, RB raw buffers, then the carry
+// ([C_in / 2][2 pad] words, each two channels' bfloat16).
+__host__ __device__ constexpr int carry_offset_bf16(int tl, int k) {
+  return SB * stage_words_bf16(tl, k) + RB * RAWB_WORDS;
+}
+
+int smem_bytes_bf16(int tl, int k, int carry_words) {
+  return (carry_offset_bf16(tl, k) + carry_words) * 4;
+}
+
+struct ArgsB {
+  const __nv_bfloat16* x;
+  const float* mask;
+  const float* scale;
+  const float* shift;
+  const float* alpha;
+  const __nv_bfloat16* w;  // K-major [k][C_out][C_in]
+  const float* bias;
+  __nv_bfloat16* y;
+  int c_in, c_out, length, k, dilation, pad;
+};
+
+// D += A B on the tensor cores, one warpgroup: m64 nN k16, bfloat16 in, f32
+// accumulation, both operands K-major from shared memory.
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (N == 128) {
+    wgmma_bf16_n128(d, da, db);
+  } else {
+    wgmma_bf16_n64(d, da, db);
+  }
+}
+
+// Asynchronous copy of one 4-byte word, of which the first `bytes` are read
+// (4 or 2) and the rest zero-filled.
+__device__ __forceinline__ void copy_word(uint32_t* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes));
+}
+
+// Asynchronous 16-byte copy; with valid false the destination is filled
+// with zero and nothing is read.
+__device__ __forceinline__ void copy16(uint32_t* dst, const void* src,
+                                       bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+// Start copying stage (output channels co0.., input channels ci0..)'s B
+// from the K-major weights: per tap, [half][TN rows][8 channels]. Producer
+// p copies half p % 2 of output channel p / 2 for every tap, so two
+// neighbours take one channel's 32 contiguous bytes (each 32-byte sector
+// leaves L2 once) and a thread's addresses step by a fixed tap stride.
+__device__ __forceinline__ void start_weights_bf16(const ArgsB& a, int co0,
+                                                   int ci0, int p,
+                                                   uint32_t* b_op) {
+  static_assert(PRODUCERS == 2 * TN, "one producer per (half, row) a tap");
+  const int half = p % 2;
+  const int n = p / 2;
+  const bool ok = co0 + n < a.c_out && ci0 + 8 * half < a.c_in;
+  const __nv_bfloat16* src =
+      ok ? a.w + (int64_t)(co0 + n) * a.c_in + ci0 + 8 * half : a.w;
+  const int64_t tap = ok ? (int64_t)a.c_out * a.c_in : 0;
+  uint32_t* dst = b_op + half * B_HALF + n * 4;
+  for (int t = 0; t < a.k; ++t, src += tap, dst += B_TAP) copy16(dst, src, ok);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Start loading the raw inputs of input channels [ci0, ci0 + CKB) for
+// window rows [row_lo, width), row 0 at global column l_first: x (the
+// words covering each channel's columns inside [0, L), 16 producers a
+// channel), the mask and the channels' scale, shift and alpha.
+__device__ __forceinline__ void start_raw_bf16(const ArgsB& a, int b,
+                                               int ci0, int l_first,
+                                               int row_lo, int width, int p,
+                                               uint32_t* raw) {
+  float* m_s = reinterpret_cast<float*>(raw + CKB * HWB / 2);
+  float* p_s = m_s + HWX;
+  const int c = p / 16;
+  const int ci = ci0 + c;
+  const int lo = max(l_first + row_lo, 0);
+  const int hi = min(l_first + width, a.length);
+  if (ci < a.c_in && lo < hi) {
+    const int64_t base = ((int64_t)b * a.c_in + ci) * a.length;
+    const int64_t first = (base + lo) & ~(int64_t)1;  // flat, word-aligned
+    const int64_t end = base + hi;
+    const int s_c = (int)((base + l_first) & 1);
+    // raw position of flat element `first`: even, so its word is aligned
+    const int pos = (int)(first - base - l_first) + s_c;
+    uint32_t* row = raw + c * (HWB / 2) + pos / 2;
+    const int words = (int)((end - first + 1) / 2);
+    for (int i = p % 16; i < words; i += 16) {
+      const int64_t e = first + 2 * i;
+      copy_word(row + i, a.x + e, e + 1 < end ? 4 : 2);
+    }
+  }
+  for (int row = row_lo + p; row < width; row += PRODUCERS) {
+    const int l = l_first + row;
+    const bool ok = l >= 0 && l < a.length;
+    copy4(m_s + row, ok ? a.mask + (int64_t)b * a.length + l : a.mask, ok);
+  }
+  if (p < 3 * CKB) {
+    const int cp = p % CKB;
+    const int which = p / CKB;  // scale, shift, alpha
+    const bool ok = ci0 + cp < a.c_in;
+    const float* src = which == 2 ? a.alpha + ci0 + cp
+                                  : (which == 0 ? a.scale : a.shift) +
+                                        (int64_t)b * a.c_in + ci0 + cp;
+    copy4(p_s + which * CKB + cp, ok ? src : a.alpha, ok);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// sin(v) on the SFU after one Cody-Waite step to [-pi, pi] (2 pi split in
+// two floats, as the iSTFT head's reduce_2pi): ~4e-7 absolute error for
+// |v| < 1e6, far below the bfloat16 rounding of h; NaN stays NaN.
+__device__ __forceinline__ float sin_sfu(float v) {
+  const float n = rintf(v * 0.159154943f);
+  return __sinf(fmaf(-n, -1.74845553e-7f, fmaf(-n, 6.28318548f, v)));
+}
+
+__device__ __forceinline__ void commit_group() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's cp.async groups are pending.
+template <int N>
+__device__ __forceinline__ void wait_groups() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A rows [row_lo, width) from the raw inputs: h = mask * (z + sin^2(alpha
+// z) / alpha), z = x * scale + shift, in f32, rounded to bfloat16; zero
+// outside [0, L) and past C_in. Producer p = 64 r + 32 half + 4 j + cc
+// takes channels 8 half + 2 cc and + 1 (one packed word) and rows 8 r + j
+// + 32 i: a warp's stores cover 8 rows of 16 bytes, all 32 banks.
+__device__ __forceinline__ void activate_bf16(const ArgsB& a, int b, int ci0,
+                                              int l_first, int row_lo,
+                                              int width, int half_words,
+                                              int p, const uint32_t* raw,
+                                              uint32_t* a_op) {
+  const __nv_bfloat16* x_s = reinterpret_cast<const __nv_bfloat16*>(raw);
+  const float* m_s = reinterpret_cast<const float*>(raw + CKB * HWB / 2);
+  const float* p_s = m_s + HWX;
+  const int cc = p % 4;
+  const int half = (p / 32) % 2;
+  float sc[2], sh[2], al[2], inv[2];
+  bool valid[2];
+  const __nv_bfloat16* xr[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const int c = 8 * half + 2 * cc + u;
+    const int ci = ci0 + c;
+    valid[u] = ci < a.c_in;
+    sc[u] = p_s[c];
+    sh[u] = p_s[CKB + c];
+    al[u] = p_s[2 * CKB + c];
+    inv[u] = 1.0f / al[u];
+    const int64_t at = ((int64_t)b * a.c_in + ci) * a.length + l_first;
+    xr[u] = x_s + c * HWB + (int)(at & 1);
+  }
+  uint32_t* dst = a_op + half * half_words + cc;
+  for (int row = row_lo + 8 * (p / 64) + (p / 4) % 8; row < width;
+       row += 32) {
+    const int l = l_first + row;
+    const bool inside = l >= 0 && l < a.length;
+    float h[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      h[u] = 0.f;
+      if (valid[u] && inside) {
+        const float z = __bfloat162float(xr[u][row]) * sc[u] + sh[u];
+        const float s = sin_sfu(al[u] * z);
+        h[u] = (z + inv[u] * (s * s)) * m_s[row];
+      }
+    }
+    uint32_t packed;  // channel 2 cc in the low half, as memory orders them
+    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n"
+        : "=r"(packed)
+        : "f"(h[1]), "f"(h[0]));
+    dst[row * 4] = packed;
+  }
+}
+
+// Moves A rows between the window and the carry buffer ([C_in / 2][2 pad]
+// words of two channels): in, rows [0, 2 pad) from the carry; out, rows
+// [TL, TL + 2 pad) to it. Producer p takes the stage's channel pair p / 32.
+__device__ __forceinline__ void carry_rows_bf16(const ArgsB& a, int ci0,
+                                                int row0, bool in,
+                                                int half_words, int p,
+                                                uint32_t* a_op,
+                                                uint32_t* carry) {
+  const int halo = 2 * a.pad;
+  const int q = p / 32;
+  const int ci = ci0 + 2 * q;
+  uint32_t* c_row = carry + (ci / 2) * halo;
+  const int word = (q / 4) * half_words + row0 * 4 + q % 4;
+  for (int j = p % 32; j < halo; j += 32) {
+    if (in) {
+      a_op[word + 4 * j] = ci < a.c_in ? c_row[j] : 0u;
+    } else if (ci < a.c_in) {
+      c_row[j] = a_op[word + 4 * j];
+    }
+  }
+}
+
+// Tiles [tile0, tile_end) of one (output-channel tile, batch row), C_in in
+// stages of CKB channels through SB operand buffers (the f32 run() has two).
+// A producer iteration q activates stage q into buffer q % SB while it
+// copies stage q + 1's B into the next buffer and raw inputs RB - 1 stages
+// ahead, so neither the L2 round trip of B nor the device-memory one of
+// the raw inputs waits in line behind the activation; the consumers
+// multiply stage q - 1 meanwhile.
+template <int WM>
+__device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
+                                         int tile_end, uint32_t* carry) {
+  constexpr int TL = 64 * WM;
+  constexpr int N = 64 * WM;       // output channels per warpgroup
+  constexpr int R = N / 2;         // accumulators per thread
+  extern __shared__ __align__(128) uint32_t smem[];
+  const int co0 = blockIdx.y * TN;
+  const int b = blockIdx.z;
+  const int halo = 2 * a.pad;
+  const int half_words = a_half(TL);
+  const int stages = (a.c_in + CKB - 1) / CKB;  // per tile
+  const int n = (tile_end - tile0) * stages;
+  const int words = stage_words_bf16(TL, a.k);
+
+  if (threadIdx.x >= CONSUMERS) {  // ---- producers
+    const int p = threadIdx.x - CONSUMERS;
+    uint32_t* raw0 = smem + SB * words;
+    // each start commits one cp.async group, an empty one past the last
+    // stage, so the groups keep one pattern: pairs (raw j, B of stage
+    // j - RB + 2), the first RB - 2 with an empty group for B
+    auto start_raw = [&](int q) {
+      if (q >= n) return commit_group();
+      const int tile = tile0 + q / stages;
+      start_raw_bf16(a, b, (q % stages) * CKB, tile * TL - a.pad,
+                     tile == tile0 || carry == nullptr ? 0 : halo, TL + halo,
+                     p, raw0 + (q % RB) * RAWB_WORDS);
+    };
+    auto start_b = [&](int q) {
+      if (q >= n) return commit_group();
+      start_weights_bf16(a, co0, (q % stages) * CKB, p,
+                         smem + (q % SB) * words);
+    };
+    for (int j = 0; j < RB - 1; ++j) {
+      start_raw(j);
+      if (j < RB - 2) {
+        commit_group();
+      } else {
+        start_b(0);
+      }
+    }
+    for (int q = 0; q < n; ++q) {
+      const int s = q % SB;
+      const int tile = tile0 + q / stages;
+      const int ci0 = (q % stages) * CKB;
+      const int row_lo = tile == tile0 || carry == nullptr ? 0 : halo;
+      wait_groups<2 * RB - 3>();  // raw q landed (2 RB - 3 groups since)
+      bar_sync(RAW_B, PRODUCERS);  // and raw q - 1's buffer is free
+      start_raw(q + RB - 1);
+      // stage q + 1's B goes to buffer (q + 1) % SB once the MMAs are done
+      // with that buffer's stage, q + 1 - SB
+      if (q + 1 >= SB && q + 1 < n)
+        bar_sync(EMPTY_B + (q + 1) % SB, THREADS);
+      start_b(q + 1);
+      uint32_t* a_op = smem + s * words + a.k * B_TAP;
+      if (row_lo > 0)
+        carry_rows_bf16(a, ci0, 0, true, half_words, p, a_op, carry);
+      activate_bf16(a, b, ci0, tile * TL - a.pad, row_lo, TL + halo,
+                    half_words, p, raw0 + (q % RB) * RAWB_WORDS, a_op);
+      if (carry != nullptr && tile + 1 < tile_end) {
+        // rows [TL, TL + 2 pad) are the next tile's left halo
+        bar_sync(RAW_B, PRODUCERS);
+        carry_rows_bf16(a, ci0, TL, false, half_words, p, a_op, carry);
+      }
+      wait_groups<2>();  // stage q's B landed (this iteration's pair since)
+      // generic-proxy writes, visible to the tensor cores' async proxy
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      bar_arrive(FULL_B + s, THREADS);
+    }
+    wait_groups<0>();
+    return;
+  }
+
+  // ---- consumers
+  const int g = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+  const int row0 = WM == 2 ? 64 * g : 0;
+  const int n0 = WM == 2 ? 0 : 64 * g;
+  float acc[R];
+  for (int tile = tile0; tile < tile_end; ++tile) {
+#pragma unroll
+    for (int i = 0; i < R; ++i) acc[i] = 0.f;
+    for (int ci0 = 0; ci0 < a.c_in; ci0 += CKB) {
+      const int q = (tile - tile0) * stages + ci0 / CKB;
+      const int s = q % SB;
+      const uint32_t* b_op = smem + s * words;
+      const uint32_t* a_op = b_op + a.k * B_TAP;
+      // tap t: A starts t d rows (16 bytes each) on, B one tap on
+      uint64_t ad = smem_desc(a_op + row0 * 4, half_words * 4);
+      uint64_t bd = smem_desc(b_op + n0 * 4, B_HALF * 4);
+      bar_sync(FULL_B + s, THREADS);  // stage q's operands are in buffer s
+      fence_operands(acc);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      for (int t = 0; t < a.k; ++t) {
+        wgmma_bf16<N>(acc, ad, bd);
+        ad += a.dilation;
+        bd += B_TAP / 4;
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      if (ci0 > 0) {  // stage q - 1's MMAs are done: release its buffer
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        if (q - 1 + SB < n) bar_arrive(EMPTY_B + (q - 1) % SB, THREADS);
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    fence_operands(acc);
+    {  // the tile's last stage
+      const int q = (tile - tile0 + 1) * stages - 1;
+      if (q + SB < n) bar_arrive(EMPTY_B + q % SB, THREADS);
+    }
+    const int lane = threadIdx.x % 32;
+    const int col0 =
+        tile * TL + row0 + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
+    const int o0 = co0 + n0 + 2 * (lane % 4);
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int l = col0 + 8 * (e / 2);
+        const int o = o0 + 8 * j + e % 2;
+        if (o < a.c_out && l < a.length)
+          a.y[((int64_t)b * a.c_out + o) * a.length + l] =
+              __float2bfloat16_rn(acc[4 * j + e] + a.bias[o]);
+      }
+    }
+  }
+}
+
+template <int WM>
+__global__ void __launch_bounds__(THREADS, 1)
+adain_snake_conv_tile_bf16_kernel(const ArgsB a, int tiles_per_cta) {
+  constexpr int TL = 64 * WM;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int tile0 = blockIdx.x * tiles_per_cta;
+  run_bf16<WM>(a, tile0, min(n_tiles, tile0 + tiles_per_cta), nullptr);
+}
+
+template <int WM>
+__global__ void __launch_bounds__(THREADS, 1)
+adain_snake_conv_carry_bf16_kernel(const ArgsB a, int tiles_per_chunk) {
+  constexpr int TL = 64 * WM;
+  extern __shared__ __align__(128) uint32_t smem[];
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int tile0 = blockIdx.x * tiles_per_chunk;
+  const int tile_end = min(n_tiles, tile0 + tiles_per_chunk);
+  uint32_t* carry =
+      tiles_per_chunk > 1 ? smem + carry_offset_bf16(TL, a.k) : nullptr;
+  run_bf16<WM>(a, tile0, tile_end, carry);
+}
+
+template <int WM>
+int launch_tile_bf16(const ArgsB& a, int batch, int tiles_per_cta,
+                     cudaStream_t stream) {
+  constexpr int TL = 64 * WM;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int smem = prepare_smem(adain_snake_conv_tile_bf16_kernel<WM>,
+                                smem_bytes_bf16(TL, a.k, 0));
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid((n_tiles + tiles_per_cta - 1) / tiles_per_cta,
+                  (a.c_out + TN - 1) / TN, batch);
+  adain_snake_conv_tile_bf16_kernel<WM><<<grid, THREADS, smem, stream>>>(
+      a, tiles_per_cta);
+  return (int)cudaGetLastError();
+}
+
+template <int WM>
+int launch_carry_bf16(const ArgsB& a, int batch, int tiles_per_chunk,
+                      cudaStream_t stream) {
+  constexpr int TL = 64 * WM;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  const int chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
+  const int carry_words = tiles_per_chunk > 1 ? a.c_in * a.pad : 0;
+  const int smem = prepare_smem(adain_snake_conv_carry_bf16_kernel<WM>,
+                                smem_bytes_bf16(TL, a.k, carry_words));
+  if (smem == 0) return (int)cudaErrorInvalidValue;
+  const dim3 grid(chunks, (a.c_out + TN - 1) / TN, batch);
+  adain_snake_conv_carry_bf16_kernel<WM><<<grid, THREADS, smem, stream>>>(
+      a, tiles_per_chunk);
+  return (int)cudaGetLastError();
+}
+
+ArgsB make_args_bf16(const void* x, const float* mask, const float* scale,
+                     const float* shift, const float* alpha, const void* w,
+                     const float* bias, void* y, int c_in, int c_out,
+                     int length, int k, int dilation) {
+  return ArgsB{static_cast<const __nv_bfloat16*>(x),
+               mask,
+               scale,
+               shift,
+               alpha,
+               static_cast<const __nv_bfloat16*>(w),
+               bias,
+               static_cast<__nv_bfloat16*>(y),
+               c_in,
+               c_out,
+               length,
+               k,
+               dilation,
+               (k - 1) * dilation / 2};
+}
+
 }  // namespace
 
 extern "C" int adain_snake_conv_f32(const float* x, const float* mask,
@@ -677,11 +1215,57 @@ extern "C" int adain_snake_conv_carry_f32(
   }
 }
 
+// The bf16 forms: x, w (K-major [k][C_out][C_in]) and y bfloat16, the rest
+// f32; C_in a multiple of 8. No split scratch.
+extern "C" int adain_snake_conv_bf16(const void* x, const float* mask,
+                                     const float* scale, const float* shift,
+                                     const float* alpha, const void* w,
+                                     const float* bias, void* y, int batch,
+                                     int c_in, int c_out, int length, int k,
+                                     int dilation, int tile_len,
+                                     int tiles_per_cta, void* stream) {
+  if (!valid(batch, c_in, c_out, length, k, dilation) || c_in % 8 ||
+      tiles_per_cta <= 0)
+    return (int)cudaErrorInvalidValue;
+  const ArgsB a = make_args_bf16(x, mask, scale, shift, alpha, w, bias, y,
+                                 c_in, c_out, length, k, dilation);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tile_len) {
+    case 64: return launch_tile_bf16<1>(a, batch, tiles_per_cta, s);
+    case 128: return launch_tile_bf16<2>(a, batch, tiles_per_cta, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+extern "C" int adain_snake_conv_carry_bf16(
+    const void* x, const float* mask, const float* scale, const float* shift,
+    const float* alpha, const void* w, const float* bias, void* y, int batch,
+    int c_in, int c_out, int length, int k, int dilation, int tile_len,
+    int tiles_per_chunk, void* stream) {
+  if (!valid(batch, c_in, c_out, length, k, dilation) || c_in % 8 ||
+      tiles_per_chunk <= 0)
+    return (int)cudaErrorInvalidValue;
+  const ArgsB a = make_args_bf16(x, mask, scale, shift, alpha, w, bias, y,
+                                 c_in, c_out, length, k, dilation);
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (tile_len) {
+    case 64: return launch_carry_bf16<1>(a, batch, tiles_per_chunk, s);
+    case 128: return launch_carry_bf16<2>(a, batch, tiles_per_chunk, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 // Dynamic shared memory of a launch in bytes (0 when it does not fit):
 // the wrapper's chunk choice checks its own formula against this one.
 extern "C" int adain_snake_conv_smem_bytes(int tile_len, int k,
                                            int carry_words) {
   const int bytes = smem_bytes(tile_len, k, carry_words);
+  return bytes <= MAX_SMEM ? bytes : 0;
+}
+
+extern "C" int adain_snake_conv_smem_bytes_bf16(int tile_len, int k,
+                                                int carry_words) {
+  const int bytes = smem_bytes_bf16(tile_len, k, carry_words);
   return bytes <= MAX_SMEM ? bytes : 0;
 }
 

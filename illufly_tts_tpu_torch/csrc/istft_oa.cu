@@ -7,7 +7,11 @@
 //     as cuDNN leaves it; mag = exp(clip(x[:, :11], -12, 8)) and
 //     phase = pi * sin(x[:, 11:]) are computed on the fly (the Generator's
 //     path: nothing between conv_post and the audio reaches device memory);
-//   istft_oa_f32: (mag, phase) [B, F, 11] f32, the TPU kernel's interface.
+//   istft_oa_f32: (mag, phase) [B, F, 11] f32, the TPU kernel's interface;
+//   istft_head_bf16: the head from a bfloat16 x [B, 22, L] (a bfloat16
+//     model's conv_post output). The loader widens each value to f32 and
+//     everything after it is the f32 head's code, so the audio is bitwise
+//     istft_head_f32 of x.float(); it reads half the bytes.
 // Both compute, for frames f (F = L) -> audio [B, F * 5] f32:
 //   re = mag cos(phase), im = mag sin(phase)
 //   frame_f[n] = sum_k re[f, k] Cw[k, n] + im[f, k] Sw[k, n]   (n = 0..19)
@@ -20,7 +24,7 @@
 // writes one; its arithmetic (~40 FMAs and ~9 transcendental operations a
 // sample) is far below the card's operations-per-byte balance. For
 // [8, 22, 61440] (or [8, 61440, 11] x 2) that is 43.3 MB read + 9.8 MB
-// written, about 16 us at 3.35 TB/s.
+// written, about 16 us at 3.35 TB/s; from bfloat16, 21.6 MB read, ~9.4 us.
 //
 // Design (one thread per frame, T = 256 threads a block):
 // - A block takes one tile: T frames of one batch row, the T - 4 output
@@ -68,6 +72,7 @@
 // Plain C interface, loaded with ctypes: each entry point returns
 // cudaGetLastError() after the launch.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -92,9 +97,14 @@ struct Tables {
 };
 
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
 // The raw floats of frame g of row b (zeros outside 0 <= g < F).
-template <bool HEAD>
-__device__ __forceinline__ void load_frame(const float* __restrict__ a,
+template <bool HEAD, typename In>
+__device__ __forceinline__ void load_frame(const In* __restrict__ a,
                                            const float* __restrict__ p,
                                            int64_t b, int g, int frames,
                                            float raw[RAW]) {
@@ -104,14 +114,14 @@ __device__ __forceinline__ void load_frame(const float* __restrict__ a,
     return;
   }
   if (HEAD) {
-    const float* col = a + b * RAW * frames + g;
+    const In* col = a + b * RAW * frames + g;
 #pragma unroll
-    for (int c = 0; c < RAW; ++c) raw[c] = col[(int64_t)c * frames];
+    for (int c = 0; c < RAW; ++c) raw[c] = widen(col[(int64_t)c * frames]);
   } else {
     const int64_t at = (b * frames + g) * K;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      raw[k] = a[at + k];
+      raw[k] = widen(a[at + k]);
       raw[K + k] = p[at + k];
     }
   }
@@ -147,9 +157,9 @@ __device__ __forceinline__ void polar(const float raw[RAW], bool inside,
   }
 }
 
-template <bool HEAD>
+template <bool HEAD, typename In>
 __global__ void __launch_bounds__(T, 1024 / T)
-istft_oa_kernel(const float* __restrict__ a, const float* __restrict__ p,
+istft_oa_kernel(const In* __restrict__ a, const float* __restrict__ p,
                 float* __restrict__ out, int frames, int tiles_per_row,
                 const Tables t) {
   __shared__ float s_park[T * PARK];
@@ -163,7 +173,7 @@ istft_oa_kernel(const float* __restrict__ a, const float* __restrict__ p,
   float re[K], im[K];
   {
     float raw[RAW];
-    load_frame<HEAD>(a, p, b, g, frames, raw);
+    load_frame<HEAD, In>(a, p, b, g, frames, raw);
     polar<HEAD>(raw, g >= 0 && g < frames, re, im);
   }
 
@@ -226,8 +236,8 @@ istft_oa_kernel(const float* __restrict__ a, const float* __restrict__ p,
   for (int i = done + lf; i < valid; i += T) dst[i] = s_out[i];
 }
 
-template <bool HEAD>
-int launch(const float* a, const float* p, float* out, int batch,
+template <bool HEAD, typename In>
+int launch(const In* a, const float* p, float* out, int batch,
            int frames, const float* tables, void* stream) {
   if (batch <= 0 || frames <= 0) return (int)cudaErrorInvalidValue;
   const int tiles_per_row = (frames + OUT_FRAMES - 1) / OUT_FRAMES;
@@ -235,8 +245,9 @@ int launch(const float* a, const float* p, float* out, int batch,
   if (tiles > 0x7fffffff) return (int)cudaErrorInvalidValue;
   Tables t;
   memcpy(&t, tables, sizeof(Tables));
-  istft_oa_kernel<HEAD><<<(unsigned)tiles, T, 0, (cudaStream_t)stream>>>(
-      a, p, out, frames, tiles_per_row, t);
+  istft_oa_kernel<HEAD, In>
+      <<<(unsigned)tiles, T, 0, (cudaStream_t)stream>>>(a, p, out, frames,
+                                                        tiles_per_row, t);
   return (int)cudaGetLastError();
 }
 
@@ -245,13 +256,21 @@ int launch(const float* a, const float* p, float* out, int batch,
 // tables: host pointer to 460 floats laid out as struct Tables.
 extern "C" int istft_head_f32(const float* x, float* out, int batch,
                               int frames, const float* tables, void* stream) {
-  return launch<true>(x, nullptr, out, batch, frames, tables, stream);
+  return launch<true, float>(x, nullptr, out, batch, frames, tables, stream);
+}
+
+extern "C" int istft_head_bf16(const __nv_bfloat16* x, float* out, int batch,
+                               int frames, const float* tables,
+                               void* stream) {
+  return launch<true, __nv_bfloat16>(x, nullptr, out, batch, frames, tables,
+                                     stream);
 }
 
 extern "C" int istft_oa_f32(const float* mag, const float* phase, float* out,
                             int batch, int frames, const float* tables,
                             void* stream) {
-  return launch<false>(mag, phase, out, batch, frames, tables, stream);
+  return launch<false, float>(mag, phase, out, batch, frames, tables,
+                              stream);
 }
 
 extern "C" int istft_oa_table_floats() { return (int)(sizeof(Tables) / 4); }

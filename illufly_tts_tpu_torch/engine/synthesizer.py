@@ -18,13 +18,19 @@ on. ``stream_decode`` streams one utterance batch chunk by chunk: exactly
 (``decode_prepare`` once, then the Generator per window).
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a CUDA
-device and without that argument it raises. Parameters are float32 and
-the model computes in float32 (set ``torch.backends.cuda.matmul.allow_tf32``
-and ``torch.backends.cudnn.allow_tf32`` to False to keep the card's
-matrix products and convolutions out of TF32).
+device and without that argument it raises. Parameters are float32
+(``self.model``, what ``save_params`` writes and ``load_params`` fills).
+The model computes in ``config.dtype``: float32 on ``self.model`` itself
+(set ``torch.backends.cuda.matmul.allow_tf32`` and
+``torch.backends.cudnn.allow_tf32`` to False to keep the card's matrix
+products and convolutions out of TF32), or bfloat16, as the JAX
+``KokoroConfig(dtype=jnp.bfloat16)``, on ``self.net``: a bfloat16 copy
+made from ``self.model`` at start and after every load. Audio comes out
+float32 either way, and the formats are made from it as in float32.
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
 import threading
@@ -33,7 +39,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..model.config import KokoroConfig
+from ..model.config import KokoroConfig, check_dtype
 from ..audio.telephony import (
     RATIO,
     design_decimation_fir,
@@ -145,16 +151,17 @@ class Synthesizer:
         enables the offline HF-cache voice search of ``load_voice``."""
         self.device = resolve_device(device)
         self.config = config or KokoroConfig()
-        if self.config.dtype != torch.float32:
-            raise NotImplementedError("the port computes in float32 only")
+        check_dtype(self.config.dtype)
         with torch.device("meta"):
-            model = KokoroModel(self.config)
+            model = KokoroModel(dataclasses.replace(self.config,
+                                                    dtype=torch.float32))
         model = model.to_empty(device="cpu")
         if params is None:
             logger.info("initializing random model parameters (seed %d)", seed)
             params = random_flax_params(model, seed)
         load_flax_params(model, params)
         self.model = model.to(self.device).eval().requires_grad_(False)
+        self.net = self._compute_model()
         self.voices_dir = voices_dir
         self.repo_id = repo_id
         # pick() assumes ascending order
@@ -167,8 +174,20 @@ class Synthesizer:
         self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
         self._lock = threading.Lock()
 
+    def _compute_model(self) -> KokoroModel:
+        """The model that computes: ``self.model`` in float32; in bfloat16 a
+        ``KokoroModel(config)`` filled from it (each parameter rounded to
+        nearest even, but the float32 islands ``KokoroModel`` keeps)."""
+        if self.config.dtype == torch.float32:
+            return self.model
+        with torch.device("meta"):
+            net = KokoroModel(self.config)
+        net = net.to_empty(device=self.device)
+        net.load_state_dict(self.model.state_dict())
+        return net.eval().requires_grad_(False)
+
     def save_params(self, path: str) -> None:
-        """Write the weights as flax msgpack: the file the JAX
+        """Write the float32 weights as flax msgpack: the file the JAX
         ``Synthesizer.save_params`` writes, which its ``load_params``
         reads."""
         flax_msgpack.save(path, export_flax_params(self.model))
@@ -177,13 +196,16 @@ class Synthesizer:
         """Load model weights onto ``self.device``: flax msgpack
         (.msgpack/.bin, e.g. from the JAX ``save_params``) or a torch
         Kokoro checkpoint (.pt/.pth) through the converter — the reference
-        user's migration path (their HF checkpoint works directly)."""
+        user's migration path (their HF checkpoint works directly). The
+        float32 parameters take the file; a bfloat16 engine then makes its
+        compute copy anew."""
         if path.endswith((".pt", ".pth")):
             tree = load_torch_checkpoint(path,
                                          export_flax_params(self.model))
         else:
             tree = flax_msgpack.load(path)
         load_flax_params(self.model, tree)
+        self.net = self._compute_model()
 
     # --- voices ---------------------------------------------------------------
 
@@ -332,7 +354,7 @@ class Synthesizer:
         return fmt
 
     def _stage_a(self, ids, mask, ref_s, speed):
-        duration, d = self.model.encode_durations(ids, mask, ref_s, speed)
+        duration, d = self.net.encode_durations(ids, mask, ref_s, speed)
         pred_dur = KokoroModel.quantize_durations(duration, mask)
         return d, pred_dur, pred_dur.sum(dim=-1)
 
@@ -340,7 +362,7 @@ class Synthesizer:
         """-> (audio [B, F * 600] in ``fmt``'s type, or [B, F * 200] uint8
         for mulaw8k; fmask [B, F])."""
         fitted = _fit_durations(pred_dur, frames)
-        audio, fmask = self.model.decode_frames(
+        audio, fmask = self.net.decode_frames(
             ids, mask, d, fitted, ref_s, frames, pcm16=(fmt == "pcm16"),
             pitch=pitch,
         )
@@ -583,7 +605,7 @@ class Synthesizer:
                 f"window_frames {window_frames} must divide the frame "
                 f"bucket {f_bucket}"
             )
-        model = self.model
+        model = self.net
         with torch.inference_mode():
             prep = model.decode_prepare(
                 handle.ids, handle.mask, handle.d,

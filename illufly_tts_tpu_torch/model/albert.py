@@ -4,6 +4,8 @@
 Factorized embedding (vocab -> E -> hidden) + ONE transformer layer applied
 ``num_layers`` times, an additive -1e9 mask, tanh-approximate GELU, and
 LayerNorm eps 1e-6 (flax's default; torch's is 1e-5). Layout [B, T, C].
+In bfloat16, as flax's ``dtype=bf16``: the softmax and the LayerNorms run
+in float32 (their parameters stay float32), the rest in bfloat16.
 """
 from __future__ import annotations
 
@@ -13,9 +15,16 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.adain_snake_conv import _wide
 from .config import AlbertConfig
 
 LN_EPS = 1e-6  # flax nn.LayerNorm default
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """``ln(x)`` in float32, rounded to x's dtype (flax's LayerNorm with a
+    bfloat16 dtype computes in float32)."""
+    return ln(_wide(x)).to(x.dtype)
 
 
 class AlbertLayer(nn.Module):
@@ -39,9 +48,9 @@ class AlbertLayer(nn.Module):
         logits = (q @ k.transpose(-1, -2)) * (1.0 / math.sqrt(head_dim))
         probs = torch.softmax((logits + attn_bias).float(), dim=-1)
         ctx = (probs.to(x.dtype) @ v).transpose(1, 2).reshape(x.shape)
-        x = self.ln_attn(x + self.attn_out(ctx))
+        x = layer_norm(self.ln_attn, x + self.attn_out(ctx))
         h = nn.functional.gelu(self.ffn_in(x), approximate="tanh")
-        return self.ln_ffn(x + self.ffn_out(h))
+        return layer_norm(self.ln_ffn, x + self.ffn_out(h))
 
 
 class Albert(nn.Module):
@@ -61,7 +70,7 @@ class Albert(nn.Module):
         if mask is None:
             mask = torch.ones((batch, steps), device=input_ids.device)
         emb = self.tok_emb(input_ids) + self.pos_emb[None, :steps, :]
-        x = self.emb_proj(self.ln_emb(emb))
+        x = self.emb_proj(layer_norm(self.ln_emb, emb))
         attn_bias = torch.where(
             mask[:, None, None, :] > 0, 0.0, -1e9).to(x.dtype)
         for _ in range(self.num_layers):  # shared parameters (ALBERT)

@@ -2,7 +2,8 @@
 """Model configuration (Kokoro-82M-class StyleTTS2 stack), PyTorch port.
 
 Counterpart of ``illufly_tts_tpu/model/config.py``: the same dimensions and
-defaults, with a ``torch.dtype`` for the compute type.
+defaults, with a ``torch.dtype`` for the compute type: float32 (the default)
+or bfloat16, the two the JAX package uses (``check_dtype``).
 
 The JAX config's ``use_pallas_istft`` switch has no counterpart here: the
 port's Generator always calls the iSTFT wrapper (``ops/istft_oa.py``), which
@@ -16,6 +17,18 @@ import dataclasses
 from typing import Sequence
 
 import torch
+
+
+# compute dtypes the port takes: those of the JAX package
+DTYPES = (torch.float32, torch.bfloat16)
+
+
+def check_dtype(dtype: torch.dtype) -> None:
+    """Raise NotImplementedError for a compute dtype the port lacks."""
+    if dtype not in DTYPES:
+        raise NotImplementedError(
+            f"compute dtype {dtype}: the port computes in float32 or "
+            "bfloat16")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +66,8 @@ class KokoroConfig:
     sample_rate: int = 24000
     albert: AlbertConfig = AlbertConfig()
     istftnet: IstftNetConfig = IstftNetConfig()
-    # compute dtype; parameters are created in it
+    # compute dtype (float32 or bfloat16); parameters stay float32, and a
+    # bfloat16 model computes on a bfloat16 copy (``model/kokoro.py``)
     dtype: torch.dtype = torch.float32
 
     @property

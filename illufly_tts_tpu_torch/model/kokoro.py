@@ -13,6 +13,16 @@ Public tensors keep the JAX layouts ([B, T, C], [B, F]) so the two
 packages compare like with like; the one exception is the decoder trunk's
 output that ``decode_prepare`` hands to ``decode_window``, which stays in
 the decoder's channels-first layout [B, C, 2F].
+
+``config.dtype`` is the compute dtype. A bfloat16 model holds its
+parameters in bfloat16 but for the float32 islands the JAX package keeps
+(``to_compute_dtype``): the LayerNorms, the harmonic source, and the fused
+convs' alphas and biases. It is the compute copy of a float32 model: the
+engine keeps the float32 parameters and fills this copy from them after
+every load (``load_state_dict`` rounds to nearest even). Inputs stay as the
+engine makes them (float32 voices, masks and speeds); the style halves are
+cast to the compute dtype here, as the JAX model does; durations come out
+float32 (divided by the float32 speed), audio float32.
 """
 from __future__ import annotations
 
@@ -24,21 +34,24 @@ from torch import nn
 
 from ..ops.align import expand_by_duration, frame_mask
 from .albert import Albert
-from .config import KokoroConfig
+from .config import KokoroConfig, check_dtype
+from .layers import AdaSnakeResBlock
 from .predictor import ProsodyPredictor
 from .text_encoder import TextEncoder
-from .vocoder import Decoder
+from .vocoder import Decoder, SourceModule
 
 
 class KokoroModel(nn.Module):
     def __init__(self, config: KokoroConfig):
         super().__init__()
+        check_dtype(config.dtype)
         cfg = self.config = config
         self.bert = Albert(cfg.albert)
         self.bert_encoder = nn.Linear(cfg.albert.hidden_size, cfg.hidden_dim)
         self.predictor = ProsodyPredictor(cfg)
         self.text_encoder = TextEncoder(cfg)
         self.decoder = Decoder(cfg)
+        to_compute_dtype(self, cfg.dtype)
 
     # ---- stage A: token-length shapes only ---------------------------------
 
@@ -50,7 +63,8 @@ class KokoroModel(nn.Module):
         speed: torch.Tensor,        # [B] float
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """-> (duration [B, T] float frames, d [B, T, hidden + style])."""
-        style = ref_s[:, self.config.style_split:]       # prosody half
+        cfg = self.config
+        style = ref_s[:, cfg.style_split:].to(cfg.dtype)  # prosody half
         d_en = self.bert_encoder(self.bert(input_ids, mask))
         duration, d = self.predictor.encode_durations(d_en, style, mask)
         return duration / speed.clamp(min=1e-3)[:, None], d
@@ -100,8 +114,8 @@ class KokoroModel(nn.Module):
         fmask [B, F], dec_style [B, S]). ``pitch`` [B] scales F0
         (1.0 = neutral)."""
         cfg = self.config
-        style = ref_s[:, cfg.style_split:]
-        dec_style = ref_s[:, : cfg.style_split]
+        style = ref_s[:, cfg.style_split:].to(cfg.dtype)
+        dec_style = ref_s[:, : cfg.style_split].to(cfg.dtype)
         en = expand_by_duration(d, pred_dur, num_frames)        # [B, F, H+S]
         fmask = frame_mask(pred_dur, num_frames)                # [B, F]
         f0, n_energy = self.predictor.f0n_train(en, style, fmask)
@@ -164,7 +178,7 @@ class KokoroModel(nn.Module):
         approximation that converges as windows grow. Phase (``cum_rad``)
         and conv context (the halo) are exact."""
         cfg = self.config
-        dec_style = ref_s[:, : cfg.style_split]
+        dec_style = ref_s[:, : cfg.style_split].to(cfg.dtype)
         span = window + 2 * halo
         # no left padding (pad frames would bias-propagate through the
         # convs; clamping lets the first windows see the true start); the
@@ -192,6 +206,23 @@ class KokoroModel(nn.Module):
             audio = torch.round(torch.clamp(audio, -1.0, 1.0) * 32767.0)
             audio = audio.to(torch.int16)
         return audio
+
+
+def to_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``module`` (the model or a part of it) cast in place to the compute
+    dtype, but for the parameters a bfloat16 model keeps in float32: the
+    LayerNorms' (flax normalizes in float32), the harmonic source's (JAX
+    runs it in float32), and the fused convs' alphas and biases (the Pallas
+    kernels take them so)."""
+    if dtype == torch.float32:
+        return module
+    module.to(dtype)
+    for mod in module.modules():
+        if isinstance(mod, (nn.LayerNorm, SourceModule)):
+            mod.float()
+        elif isinstance(mod, AdaSnakeResBlock):
+            mod.keep_f32()
+    return module
 
 
 def peak_normalize(audio: torch.Tensor) -> torch.Tensor:

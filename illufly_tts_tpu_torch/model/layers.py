@@ -10,6 +10,14 @@ masks everywhere in the model.
 
 Parameter names follow the flax module names, so ``model/params.py`` maps
 a flax tree onto these modules by layout alone.
+
+bfloat16: the layers compute in the dtype of their inputs and weights (a
+bfloat16 model holds bfloat16 weights, ``model/kokoro.py``). Where the JAX
+package's bfloat16 differs from plain bfloat16 ops, or where rounding
+after every op would lose what a float32 step keeps, a bfloat16 input is
+computed in float32 and rounded once (``_wide``): the norms' moments and
+affine, and the fused convs' activation and sums, as the Pallas kernels
+compute them.
 """
 from __future__ import annotations
 
@@ -20,10 +28,12 @@ import torch
 from torch import nn
 
 from ..ops.adain_snake_conv import (
+    _wide,
     adain_snake_conv,
     adain_snake_conv_carry,
     fold_adain,
     instance_moments,
+    kmajor,
 )
 
 
@@ -32,7 +42,9 @@ def _reverse_index(mask: torch.Tensor) -> torch.Tensor:
     valid prefix and leaves the padded tail in place (an involution)."""
     steps = mask.shape[1]
     t = torch.arange(steps, device=mask.device)
-    length = mask.sum(dim=1, keepdim=True).to(torch.long)
+    # summed in float32: a bfloat16 sum rounds lengths above 256
+    length = mask.sum(dim=1, keepdim=True, dtype=torch.float32).to(
+        torch.long)
     return torch.where(t[None, :] < length, length - 1 - t[None, :],
                        t[None, :].expand(mask.shape[0], steps))
 
@@ -76,39 +88,43 @@ class LSTM(nn.Module):
 
 
 class AdaIN1d(nn.Module):
-    """Style-conditioned instance norm over time. x [B, C, T], s [B, S]."""
+    """Style-conditioned instance norm over time. x [B, C, T], s [B, S];
+    a bfloat16 x is normalized in float32 and rounded once."""
 
     def __init__(self, style_dim: int, channels: int):
         super().__init__()
         self.fc = nn.Linear(style_dim, 2 * channels)
 
     def forward(self, x, s, mask: Optional[torch.Tensor] = None):
-        gamma, beta = self.fc(s)[:, :, None].chunk(2, dim=1)
+        gamma, beta = _wide(self.fc(s))[:, :, None].chunk(2, dim=1)
+        xf = _wide(x)
         if mask is not None:
-            m = mask[:, None, :].to(x.dtype)
+            m = mask[:, None, :].to(xf.dtype)
             count = m.sum(dim=-1, keepdim=True).clamp(min=1.0)
-            mean = (x * m).sum(dim=-1, keepdim=True) / count
-            var = ((x - mean) ** 2 * m).sum(dim=-1, keepdim=True) / count
+            mean = (xf * m).sum(dim=-1, keepdim=True) / count
+            var = ((xf - mean) ** 2 * m).sum(dim=-1, keepdim=True) / count
         else:
-            mean = x.mean(dim=-1, keepdim=True)
-            var = x.var(dim=-1, keepdim=True, unbiased=False)
-        x_norm = (x - mean) * torch.rsqrt(var + 1e-5)
-        return (1.0 + gamma) * x_norm + beta
+            mean = xf.mean(dim=-1, keepdim=True)
+            var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        x_norm = (xf - mean) * torch.rsqrt(var + 1e-5)
+        return ((1.0 + gamma) * x_norm + beta).to(x.dtype)
 
 
 class AdaLayerNorm(nn.Module):
-    """Style-conditioned layer norm over channels. x [B, T, C], s [B, S]."""
+    """Style-conditioned layer norm over channels. x [B, T, C], s [B, S];
+    a bfloat16 x is normalized in float32 and rounded once."""
 
     def __init__(self, style_dim: int, channels: int):
         super().__init__()
         self.fc = nn.Linear(style_dim, 2 * channels)
 
     def forward(self, x, s):
-        gamma, beta = self.fc(s)[:, None, :].chunk(2, dim=-1)
-        mean = x.mean(dim=-1, keepdim=True)
-        var = x.var(dim=-1, keepdim=True, unbiased=False)
-        x_norm = (x - mean) * torch.rsqrt(var + 1e-5)
-        return (1.0 + gamma) * x_norm + beta
+        gamma, beta = _wide(self.fc(s))[:, None, :].chunk(2, dim=-1)
+        xf = _wide(x)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.var(dim=-1, keepdim=True, unbiased=False)
+        x_norm = (xf - mean) * torch.rsqrt(var + 1e-5)
+        return ((1.0 + gamma) * x_norm + beta).to(x.dtype)
 
 
 class Conv1d(nn.Conv1d):
@@ -208,7 +224,12 @@ class AdaSnakeResBlock(nn.Module):
     the call applies before its conv. ``conv1_j`` (dilation d_j) goes to
     the walking-carry kernel, ``conv2_j`` (dilation 1) to the halo-tile
     kernel. As in ``AdaIN1d``, the moments of conv1's output are taken over
-    the unmasked conv output with masked weights."""
+    the unmasked conv output with masked weights.
+
+    bfloat16 (the Pallas kernels' bf16 form): x and the conv outputs are
+    bfloat16; the moments, the folded scale/shift, the alphas and the conv
+    biases float32 (``keep_f32``); the conv weights bfloat16, held in the
+    kernels' K-major layout (``kmajor``), made once per weight."""
 
     def __init__(self, channels: int, kernel: int, dilations: Sequence[int],
                  style_dim: int):
@@ -224,23 +245,51 @@ class AdaSnakeResBlock(nn.Module):
                             Conv1d(channels, channels, kernel, dilation=d))
             self.add_module(f"adain2_{j}", AdaIN1d(style_dim, channels))
             self.add_module(f"conv2_{j}", Conv1d(channels, channels, kernel))
+        # conv -> (weight version, its bfloat16 K-major [k, C_in, C_out])
+        self._kmajor = {}
+
+    def keep_f32(self) -> None:
+        """Put the alphas and the conv biases back in float32 after the
+        block was cast to bfloat16: the fused convs take them so."""
+        for j in range(len(self.dilations)):
+            for n in (1, 2):
+                for p in (getattr(self, f"alpha{n}_{j}"),
+                          getattr(self, f"conv{n}_{j}").bias):
+                    p.data = p.data.float()
+
+    def _weight(self, conv: Conv1d) -> torch.Tensor:
+        """conv's weight as the fused call takes it, [k, C_in, C_out]: a
+        contiguous copy per call in float32 (as ever); in bfloat16 the
+        K-major view ``kmajor`` the kernels read, made again only when the
+        weight changed (a load)."""
+        w = conv.weight
+        if w.dtype != torch.bfloat16:
+            return w.permute(2, 1, 0).contiguous()
+        key = (w.data_ptr(), w._version)
+        held = self._kmajor.get(conv)
+        if held is None or held[0] != key:
+            with torch.inference_mode(False), torch.no_grad():
+                held = (key, kmajor(w.permute(2, 1, 0)))
+            self._kmajor[conv] = held
+        return held[1]
 
     def forward(self, x, s, mask: Optional[torch.Tensor] = None):
         if mask is None:
             mask = torch.ones(x.shape[0], x.shape[2], dtype=x.dtype,
                               device=x.device)
+        kernel_mask = mask.float().contiguous()  # the fused convs' mask
         mask = mask.to(x.dtype).contiguous()
 
         def step(fused, h, j, n):
             adain = getattr(self, f"adain{n}_{j}")
             conv = getattr(self, f"conv{n}_{j}")
-            gamma, beta = adain.fc(s).chunk(2, dim=1)
-            scale, shift = fold_adain(*instance_moments(h, mask), gamma,
-                                      beta)
-            return fused(h, mask, scale, shift,
+            gamma, beta = _wide(adain.fc(s)).chunk(2, dim=1)
+            scale, shift = fold_adain(*instance_moments(h, kernel_mask),
+                                      gamma, beta)
+            return fused(h, kernel_mask, scale, shift,
                          getattr(self, f"alpha{n}_{j}").reshape(-1),
-                         conv.weight.permute(2, 1, 0).contiguous(),
-                         conv.bias, conv.kernel_size[0], conv.dilation[0])
+                         self._weight(conv), conv.bias, conv.kernel_size[0],
+                         conv.dilation[0])
 
         for j in range(len(self.dilations)):
             h = step(adain_snake_conv_carry, x, j, 1)

@@ -6,7 +6,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .albert import LN_EPS
+from .albert import LN_EPS, layer_norm
 from .config import KokoroConfig
 from .layers import LSTM, Conv1d, leaky_relu
 
@@ -24,11 +24,12 @@ class TextEncoder(nn.Module):
         self.lstm = LSTM(h, h // 2)
 
     def forward(self, input_ids: torch.Tensor, mask: torch.Tensor):
-        m = mask[:, None, :].to(torch.float32)                # [B, 1, T]
         x = self.embed(input_ids).transpose(1, 2)             # [B, H, T]
+        m = mask[:, None, :].to(x.dtype)                      # [B, 1, T]
         for i in range(self.n_layer):
             x = getattr(self, f"conv_{i}")(x * m)
-            x = getattr(self, f"ln_{i}")(x.transpose(1, 2)).transpose(1, 2)
+            x = layer_norm(getattr(self, f"ln_{i}"),
+                           x.transpose(1, 2)).transpose(1, 2)
             x = leaky_relu(x) * m
         x = self.lstm(x.transpose(1, 2), mask)                # [B, T, H]
         return x * m.transpose(1, 2)

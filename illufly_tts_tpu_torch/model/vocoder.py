@@ -7,6 +7,12 @@ The Generator always ends in ``ops/istft_oa.py::istft_head`` — one CUDA
 kernel from conv_post's raw output to audio on the card, its plain version
 on the CPU — which is the counterpart of the JAX ``use_pallas_istft=True``
 setting (its exp/clip and pi * sin head included).
+
+In bfloat16, as the JAX Generator: the harmonic source runs in float32,
+its ``merge`` Dense included (``SourceModule`` stays float32), and its
+output and the harmonic spectrum are rounded to bfloat16; conv_post's
+bfloat16 output goes to the head, which computes in float32, so audio is
+float32 in either dtype.
 """
 from __future__ import annotations
 
@@ -113,11 +119,12 @@ class Generator(nn.Module):
 
         # harmonic source at the sample rate
         f0_up = f0.repeat_interleave(self.up_total * hop, dim=1)  # [B, L]
-        har = self.source(f0_up, generator, rad_offset)
+        har = self.source(f0_up, generator, rad_offset).to(x.dtype)
         # pad so the harmonic frame count == x length * up_total
         har = F.pad(har[:, None, :], (0, n_fft - hop), mode="reflect")[:, 0]
         mag_h, ph_h = stft_magphase(har.float(), n_fft, hop)
-        har_spec = torch.cat([mag_h, ph_h], dim=-1).transpose(1, 2)
+        har_spec = torch.cat([mag_h, ph_h], dim=-1).transpose(1, 2).to(
+            x.dtype)
 
         cur_mask = mask
         for i, u in enumerate(self.upsample_rates):
@@ -135,10 +142,9 @@ class Generator(nn.Module):
             x = acc / self.num_kernels
 
         # conv_post's raw [B, n_fft + 2, L'] goes straight into the head
-        # kernel (exp/clip, pi * sin and the iSTFT in one launch); the
-        # output is already F * hop
-        return istft_head(self.conv_post(leaky_relu(x, 0.01)).float(), n_fft,
-                          hop)
+        # kernel (exp/clip, pi * sin and the iSTFT in one launch, float32
+        # audio from float32 or bfloat16); the output is already F * hop
+        return istft_head(self.conv_post(leaky_relu(x, 0.01)), n_fft, hop)
 
 
 class Decoder(nn.Module):

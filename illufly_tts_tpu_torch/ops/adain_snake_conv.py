@@ -23,6 +23,17 @@ scale/shift ``[B, C_in]``, alpha ``[C_in]``, w ``[k, C_in, C_out]``, b
 ``[C_out]``. ``column_tile`` picks each launch's column tile from its
 shape.
 
+bfloat16 (the Pallas kernels' bf16 form, ``fused_conv.py:59-87``): x,
+w and the output are bfloat16; mask, scale, shift, alpha and b float32.
+The activation runs in float32 and is rounded to bfloat16, the products of
+the bfloat16 h and w sum in float32 with the bias, and the output is
+rounded to bfloat16. A bfloat16 x on CUDA launches the kernels' bf16 forms
+(one bf16 ``wgmma`` per tap and 16-channel stage, counted as
+``adain_snake_conv_bf16`` and ``adain_snake_conv_carry_bf16`` in
+``launches_bf16``); they read w as a K-major view (``kmajor``), which the
+model makes once per weight. ``adain_snake_conv_plain`` computes the same
+arithmetic on any device.
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts the
 launch in ``launches``; for CPU tensors it runs ``adain_snake_conv_plain``.
 On CUDA the launch goes through ``ops/kernel_grad.py::kernel_call``: where
@@ -60,19 +71,24 @@ MAX_SMEM = 232448      # bytes of shared memory one CTA may take
 # not count), bumped under a lock: the scheduler's worker threads launch
 # concurrently
 launches = {"adain_snake_conv": 0, "adain_snake_conv_carry": 0}
+launches_bf16 = {"adain_snake_conv_bf16": 0, "adain_snake_conv_carry_bf16": 0}
 _launches_lock = threading.Lock()
 
 
 def count_launch(name: str) -> None:
-    """Add one launch of kernel ``name`` to ``launches``."""
+    """Add one launch of kernel ``name`` to ``launches`` (or, for a bf16
+    form, to ``launches_bf16``)."""
     with _launches_lock:
-        launches[name] += 1
+        table = launches_bf16 if name in launches_bf16 else launches
+        table[name] += 1
 
 
 def instance_moments(x: torch.Tensor, mask: torch.Tensor,
                      eps: float = 1e-5) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-(batch, channel) masked mean and 1/sqrt(var + eps) over time.
-    x [B, C, L] (channels-first), mask [B, L] -> two [B, C]."""
+    x [B, C, L] (channels-first), mask [B, L] -> two [B, C]; float32 for a
+    bfloat16 x."""
+    x = _wide(x)
     m = mask[:, None, :].to(x.dtype)
     count = m.sum(dim=-1).clamp(min=1.0)
     mean = (x * m).sum(dim=-1) / count
@@ -107,9 +123,23 @@ def _conv(h, w, kernel, dilation):
 
 def adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b, kernel,
                            dilation=1):
-    """PyTorch ops equal to the JAX ``adain_snake_conv_reference``."""
+    """PyTorch ops equal to the JAX ``adain_snake_conv_reference``. For a
+    bfloat16 x, its bf16 arithmetic: h (float32) and w rounded to
+    bfloat16, their products (exact in float32) summed in float32 with the
+    float32 bias, the output rounded to bfloat16."""
     h = _activate(x, mask, scale, shift, alpha)
+    if x.dtype == torch.bfloat16:
+        y = _conv(h.bfloat16().float(), w.bfloat16().float(), kernel,
+                  dilation)
+        return (y + b.float().reshape(1, -1, 1)).bfloat16()
     return _conv(h, _wide(w), kernel, dilation) + _wide(b).reshape(1, -1, 1)
+
+
+def kmajor(w: torch.Tensor) -> torch.Tensor:
+    """w [k, C_in, C_out] in bfloat16 as a view of a contiguous
+    [k, C_out, C_in] tensor: each output channel's input channels
+    contiguous, the K-major rows the bf16 kernels copy to their stages."""
+    return w.bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -138,12 +168,21 @@ def adain_snake_conv_3xtf32_plain(x, mask, scale, shift, alpha, w, b, kernel,
     return y + b.float().reshape(1, -1, 1)
 
 
-def smem_bytes(tile_len: int, kernel: int, carry_words: int) -> int:
-    """Dynamic shared memory of a launch (the source's ``smem_bytes``): two
-    stage buffers (B as hi and lo for k taps, [k][2][128][4] words each, and
-    A as hi and lo, [2][tile_len + 2 MAX_PAD][4]), two raw-input buffers (8
-    x 200 + 200 + 32 words) and the carry."""
-    stage = 2 * kernel * 8 * COUT_TILE + 4 * (tile_len + 2 * MAX_PAD) * 4
+def smem_bytes(tile_len: int, kernel: int, carry_words: int,
+               bf16: bool = False) -> int:
+    """Dynamic shared memory of a launch in bytes (the source's
+    ``smem_bytes`` and ``smem_bytes_bf16``): stage buffers, raw-input
+    buffers and the carry, counted in 4-byte words. f32: two stages of B as
+    hi and lo for k taps ([k][2][128][4] words each) and A as hi and lo
+    ([2][tile_len + 2 MAX_PAD][4]), two raw buffers of x [8][200], mask
+    [200], 3 x 8 parameters. bf16: three stages of B [k][2][128][4] words
+    and A [2][tile_len + 2 MAX_PAD][4] (16-byte rows of 8 channels), four
+    raw buffers of x [16][200] bfloat16, mask [200], 3 x 16 parameters."""
+    a_rows = 2 * (tile_len + 2 * MAX_PAD) * 4
+    if bf16:
+        stage = kernel * 8 * COUT_TILE + a_rows
+        return 4 * (3 * stage + 4 * (16 * 100 + 200 + 48) + carry_words)
+    stage = 2 * kernel * 8 * COUT_TILE + 2 * a_rows
     return 4 * (2 * stage + 2 * (8 * 200 + 200 + 32) + carry_words)
 
 
@@ -158,14 +197,16 @@ def tiles_per_cta(batch: int, c_out: int, length: int, sms: int,
 
 def carry_tiles_per_chunk(batch: int, c_in: int, c_out: int, length: int,
                           kernel: int, dilation: int, sms: int,
-                          tile_len: int) -> int:
+                          tile_len: int, bf16: bool = False) -> int:
     """Tiles each carry CTA walks: ``tiles_per_cta`` where the carry buffer
-    (hi and lo of 2 pad columns of every input channel) fits beside the
-    stage buffers; one tile (no carry) where it does not. On an H100
-    walking measured 4-7% faster than one-tile chunks at k <= 7
-    (chip_smoke.py's ``chunks``; PERF.md)."""
-    carry = 2 * c_in * (kernel - 1) * dilation
-    if smem_bytes(tile_len, kernel, carry) > MAX_SMEM:
+    (2 pad columns of every input channel: hi and lo words in f32, one
+    bfloat16 in bf16) fits beside the stage buffers; one tile (no carry)
+    where it does not. On an H100 walking measured 4-7% faster than
+    one-tile chunks at k <= 7 in f32 (chip_smoke.py's ``chunks``;
+    PERF.md); the bf16 form's smaller stages let it walk at k = 11 too."""
+    pad2 = (kernel - 1) * dilation
+    carry = c_in * pad2 // 2 if bf16 else 2 * c_in * pad2
+    if smem_bytes(tile_len, kernel, carry, bf16) > MAX_SMEM:
         return 1
     return tiles_per_cta(batch, c_out, length, sms, tile_len)
 
@@ -191,8 +232,15 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.adain_snake_conv_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.adain_snake_conv_smem_bytes.restype = ctypes.c_int
+    # the bf16 forms: the same without the split-weight scratch
+    for fn in (lib.adain_snake_conv_bf16, lib.adain_snake_conv_carry_bf16):
+        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    for fn in (lib.adain_snake_conv_smem_bytes,
+               lib.adain_snake_conv_smem_bytes_bf16):
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
     lib.adain_snake_conv_split_words.argtypes = [ctypes.c_int] * 3
     lib.adain_snake_conv_split_words.restype = ctypes.c_int64
     lib.adain_snake_conv_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -203,7 +251,9 @@ def _library():
         raise RuntimeError(f"adain_snake_conv: kernel geometry "
                            f"{tuple(geometry)} differs from the wrapper's")
     for case in ((128, 11, 0), (128, 7, 4608), (64, 3, 1280)):
-        if lib.adain_snake_conv_smem_bytes(*case) != smem_bytes(*case):
+        if (lib.adain_snake_conv_smem_bytes(*case) != smem_bytes(*case)
+                or lib.adain_snake_conv_smem_bytes_bf16(*case)
+                != smem_bytes(*case, bf16=True)):
             raise RuntimeError("adain_snake_conv: shared-memory sizes differ "
                                "from the wrapper's")
     return lib
@@ -239,9 +289,12 @@ def _check(name, x, mask, scale, shift, alpha, w, b, kernel, dilation):
         return True
     if not (x.is_cuda and all(t.device == x.device for t in tensors)):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{name} kernel takes float32")
-    if not all(t.is_contiguous() for t in tensors):
+    if x.dtype == torch.bfloat16:
+        _check_bf16(name, tensors)
+    elif any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(f"{name} kernel takes float32, or the bf16 form's "
+                        "types (x and w bfloat16)")
+    elif not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} kernel takes contiguous inputs")
     if kernel > MAX_KERNEL or (kernel - 1) * dilation // 2 > MAX_PAD:
         raise ValueError(f"{name} kernel: k={kernel}, d={dilation}; it "
@@ -251,22 +304,41 @@ def _check(name, x, mask, scale, shift, alpha, w, b, kernel, dilation):
     return False
 
 
+def _check_bf16(name, tensors):
+    """What the bf16 forms take: x and w bfloat16, the rest float32; w a
+    K-major view (``kmajor``) 16-byte aligned; C_in a multiple of 8."""
+    x, mask, scale, shift, alpha, w, b = tensors
+    if w.dtype != torch.bfloat16 or any(
+            t.dtype != torch.float32 for t in (mask, scale, shift, alpha, b)):
+        raise TypeError(f"{name} bf16 kernel takes x and w in bfloat16 and "
+                        "mask, scale, shift, alpha and b in float32")
+    if not (all(t.is_contiguous() for t in tensors if t is not w)
+            and w.transpose(1, 2).is_contiguous()):
+        raise ValueError(f"{name} bf16 kernel takes contiguous inputs and w "
+                         "as kmajor(w)")
+    if x.shape[1] % 8 or x.data_ptr() % 4 or w.data_ptr() % 16:
+        raise ValueError(f"{name} bf16 kernel takes C_in a multiple of 8 "
+                         f"(got {x.shape[1]}), x 4-byte and w 16-byte "
+                         "aligned")
+
+
 def _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
             *extra):
     batch, c_in, length = x.shape
     c_out = w.shape[2]
-    y = torch.empty((batch, c_out, length), dtype=torch.float32,
-                    device=x.device)
-    # the weights split as hi and lo, which the launch fills for its kernel
-    lib = _library()
-    w_split = torch.empty(
-        lib.adain_snake_conv_split_words(c_in, c_out, kernel),
-        dtype=torch.int32, device=x.device)
+    y = torch.empty((batch, c_out, length), dtype=x.dtype, device=x.device)
+    scratch = []
+    if x.dtype != torch.bfloat16:
+        # the weights split as hi and lo, which the launch fills for its
+        # kernel (the bf16 forms read w as it is held)
+        scratch.append(torch.empty(
+            _library().adain_snake_conv_split_words(c_in, c_out, kernel),
+            dtype=torch.int32, device=x.device))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = fn(x.data_ptr(), mask.data_ptr(), scale.data_ptr(),
             shift.data_ptr(), alpha.data_ptr(), w.data_ptr(), b.data_ptr(),
-            y.data_ptr(), w_split.data_ptr(), batch, c_in, c_out, length,
-            kernel, dilation, *extra, stream)
+            y.data_ptr(), *(t.data_ptr() for t in scratch), batch, c_in,
+            c_out, length, kernel, dilation, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
     return y
@@ -293,7 +365,7 @@ def _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
 def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
                      dilation=1):
     """Halo-tile kernel: mask(snake(x*scale+shift)) conv w + b ->
-    [B, C_out, L] f32."""
+    [B, C_out, L] in x's dtype (f32, or the bf16 form for bfloat16 x)."""
     if _check("adain_snake_conv", x, mask, scale, shift, alpha, w, b,
               kernel, dilation):
         return adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
@@ -301,8 +373,11 @@ def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
     batch, _, length = x.shape
     sms = _sm_count(x.device.index or 0)
     tile_len = column_tile(batch, w.shape[2], length, sms)
-    return _call("adain_snake_conv", _library().adain_snake_conv_f32, x,
-                 mask, scale, shift, alpha, w, b, kernel, dilation, tile_len,
+    name, fn = "adain_snake_conv", _library().adain_snake_conv_f32
+    if x.dtype == torch.bfloat16:
+        name, fn = "adain_snake_conv_bf16", _library().adain_snake_conv_bf16
+    return _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel,
+                 dilation, tile_len,
                  tiles_per_cta(batch, w.shape[2], length, sms, tile_len))
 
 
@@ -318,8 +393,13 @@ def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
     batch, c_in, length = x.shape
     sms = _sm_count(x.device.index or 0)
     tile_len = column_tile(batch, w.shape[2], length, sms)
+    bf16 = x.dtype == torch.bfloat16
     per_chunk = carry_tiles_per_chunk(batch, c_in, w.shape[2], length,
-                                      kernel, dilation, sms, tile_len)
-    return _call("adain_snake_conv_carry",
-                 _library().adain_snake_conv_carry_f32, x, mask, scale, shift,
-                 alpha, w, b, kernel, dilation, tile_len, per_chunk)
+                                      kernel, dilation, sms, tile_len, bf16)
+    name, fn = ("adain_snake_conv_carry",
+                _library().adain_snake_conv_carry_f32)
+    if bf16:
+        name, fn = ("adain_snake_conv_carry_bf16",
+                    _library().adain_snake_conv_carry_bf16)
+    return _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel,
+                 dilation, tile_len, per_chunk)

@@ -13,6 +13,11 @@ samples (n_fft=20, hop=5). Two entries share one kernel source
   transposed tensor reaches device memory.
 - ``istft_oa(mag, phase)``: the TPU kernel's own interface.
 
+``istft_head`` also takes a bfloat16 x (a bfloat16 model's conv_post
+output): its kernel entry ``istft_head_bf16`` loads bfloat16 and computes
+in float32, so the audio is bitwise that of ``istft_head(x.float())``; the
+plain version upcasts. Its launches count in ``launches_bf16``.
+
 The kernel is memory-bound: it must read its input once and write the audio
 once. For the main path's largest timed shape, ``[8, 22, 61440]`` (B=8 at
 frame bucket 512), that is 43.3 MB read and 9.8 MB written, about 16 us at
@@ -43,14 +48,19 @@ K = N_FFT // 2 + 1
 # kernel launches since the last reset (plain-version calls do not count),
 # bumped under a lock: the scheduler's worker threads launch concurrently
 launches = 0
+launches_bf16 = 0  # istft_head_bf16
 _launches_lock = threading.Lock()
 
 
-def count_launch() -> None:
-    """Add one launch to ``launches``."""
-    global launches
+def count_launch(bf16: bool = False) -> None:
+    """Add one launch to ``launches`` (``launches_bf16`` for the bf16
+    head)."""
+    global launches, launches_bf16
     with _launches_lock:
-        launches += 1
+        if bf16:
+            launches_bf16 += 1
+        else:
+            launches += 1
 
 
 def istft_oa_plain(mag: torch.Tensor, phase: torch.Tensor,
@@ -63,7 +73,9 @@ def istft_head_plain(x: torch.Tensor, n_fft: int = N_FFT,
                      hop: int = HOP) -> torch.Tensor:
     """conv_post output [B, n_fft + 2, L] -> audio [B, L * hop]: the
     Generator's eager head (clamp/exp, pi * sin, channels last) and
-    ``istft_oa_plain``."""
+    ``istft_oa_plain``; a bfloat16 x is upcast first (float32 audio)."""
+    if x.dtype == torch.bfloat16:
+        x = x.float()
     k = n_fft // 2 + 1
     mag = torch.exp(torch.clamp(x[:, :k], -12.0, 8.0))
     phase = math.pi * torch.sin(x[:, k:])
@@ -97,9 +109,10 @@ def _library():
 
     lib = load("istft_oa")
     ptr, num = ctypes.c_void_p, ctypes.c_int
-    lib.istft_head_f32.argtypes = [ptr, ptr, num, num, ptr, ptr]
+    for head in (lib.istft_head_f32, lib.istft_head_bf16):
+        head.argtypes = [ptr, ptr, num, num, ptr, ptr]
+        head.restype = ctypes.c_int
     lib.istft_oa_f32.argtypes = [ptr, ptr, ptr, num, num, ptr, ptr]
-    lib.istft_head_f32.restype = ctypes.c_int
     lib.istft_oa_f32.restype = ctypes.c_int
     lib.istft_oa_table_floats.restype = ctypes.c_int
     if lib.istft_oa_table_floats() != _tables().size:
@@ -107,12 +120,14 @@ def _library():
     return lib
 
 
-def _check(fn: str, *tensors: torch.Tensor) -> None:
+def _check(fn: str, *tensors: torch.Tensor,
+           dtypes=(torch.float32,)) -> None:
     dev = tensors[0].device
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError(f"{fn}: inputs must be on one CUDA device")
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError(f"{fn} kernel takes float32")
+    if any(t.dtype not in dtypes for t in tensors):
+        raise TypeError(f"{fn} kernel takes "
+                        + " or ".join(str(d) for d in dtypes))
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{fn} kernel takes contiguous inputs")
 
@@ -135,7 +150,7 @@ def _call(entry, plain, batch: int, frames: int,
     the backward differentiates ``plain`` (``kernel_call``)."""
     def launch(*tensors):
         out = _launch(entry, tensors, batch, frames)
-        count_launch()
+        count_launch(tensors[0].dtype == torch.bfloat16)
         return out
 
     return kernel_call(launch, plain, *inputs)
@@ -143,7 +158,8 @@ def _call(entry, plain, batch: int, frames: int,
 
 def istft_head(x: torch.Tensor, n_fft: int = N_FFT,
                hop: int = HOP) -> torch.Tensor:
-    """conv_post output x [B, n_fft + 2, L] f32 -> audio [B, L * hop] f32."""
+    """conv_post output x [B, n_fft + 2, L] f32 or bf16 -> audio
+    [B, L * hop] f32."""
     if (n_fft, hop) != (N_FFT, HOP):
         raise ValueError(f"istft_head: (n_fft, hop)=({n_fft}, {hop}); the "
                          f"kernel is built for ({N_FFT}, {HOP})")
@@ -152,12 +168,13 @@ def istft_head(x: torch.Tensor, n_fft: int = N_FFT,
                          f"[B, {2 * K}, L]")
     if x.device.type == "cpu":
         return istft_head_plain(x, n_fft, hop)
-    _check("istft_head", x)
+    _check("istft_head", x, dtypes=(torch.float32, torch.bfloat16))
     batch, _, frames = x.shape
     if batch == 0 or frames == 0:
         raise ValueError(f"istft_head kernel: batch {batch}, frames {frames}")
-    return _call(_library().istft_head_f32, istft_head_plain, batch, frames,
-                 x)
+    entry = (_library().istft_head_bf16 if x.dtype == torch.bfloat16
+             else _library().istft_head_f32)
+    return _call(entry, istft_head_plain, batch, frames, x)
 
 
 def istft_oa(mag: torch.Tensor, phase: torch.Tensor, n_fft: int = N_FFT,

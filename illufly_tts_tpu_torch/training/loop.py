@@ -86,6 +86,15 @@ def synthetic_batches(model: KokoroModel, teacher: KokoroModel,
         yield TrainBatch(ids_t, mask_t, ref_t, dur_t, audio)
 
 
+def refuse_low_precision(model: KokoroModel, what: str) -> None:
+    """Raise for a model that computes in another dtype than float32."""
+    if model.config.dtype != torch.float32:
+        raise NotImplementedError(
+            f"{what}: a {model.config.dtype} model does not train; bf16 "
+            "training and its backward kernels are not ported (ROADMAP "
+            "queue 1, item 5): train the float32 model")
+
+
 def train(
     model: KokoroModel,
     steps: int,
@@ -122,6 +131,7 @@ def train(
         raise NotImplementedError(
             "train(mesh=...): data parallelism is not ported; the port "
             "trains on one device")
+    refuse_low_precision(model, "train")
     dev = model_device(model)
     # the distillation teacher is the INITIAL model, frozen: copied before
     # any checkpoint restore so resume continues the original objective

@@ -21,7 +21,12 @@ import numpy as np
 import torch
 
 from ..model.kokoro import KokoroModel
-from .loop import model_device, random_token_batch, render
+from .loop import (
+    model_device,
+    random_token_batch,
+    refuse_low_precision,
+    render,
+)
 from .step import TrainBatch, clip_by_global_norm, make_loss_fn
 
 logger = logging.getLogger(__name__)
@@ -49,6 +54,7 @@ def adapt_voice(
     is skipped (no update of the style or Adam's moments); the style
     returned is the one with the lowest loss seen, the style that loss was
     evaluated at."""
+    refuse_low_precision(model, "adapt_voice")
     style_dim = 2 * model.config.style_dim
     dev = model_device(model)
     if init is not None:
