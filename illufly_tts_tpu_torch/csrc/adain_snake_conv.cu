@@ -88,7 +88,9 @@
 //
 // bf16 forms (adain_snake_conv_bf16, adain_snake_conv_carry_bf16, after
 // the f32 kernels): the Pallas kernels' own bf16 semantics, one bf16 MMA per
-// tap in place of the three TF32 ones; their notes are with their code.
+// tap in place of the three TF32 ones, in a design of their own (the GEMM's
+// M and N swapped, weights by the copy engine); their notes are with their
+// code.
 //
 // Plain C interface, loaded with ctypes: each entry point launches its conv
 // kernel (the f32 ones after the weight split) on the caller's stream and
@@ -643,66 +645,116 @@ int launch_carry(const Args& a, int batch, int tiles_per_chunk,
 //
 // The Pallas kernels with x in bfloat16 (fused_conv.py:59-87 and :118-153,
 // carry_conv.py:137-175): x [B, C_in, L] and y bfloat16; mask, scale,
-// shift, alpha and bias f32; w bfloat16, held K-major as [k][C_out][C_in]
-// (each output channel's input channels contiguous; the model makes it
-// once per weight). The activation is computed in f32 as above and rounded
-// to bfloat16 (cvt.rn.bf16x2.f32: to nearest even, as torch's .bfloat16()),
-// one wgmma m64nNk16.f32.bf16.bf16 per (tap, stage of CKB = 16 input
-// channels) sums the products of h and w in f32, and the epilogue adds the
-// f32 bias and rounds to bfloat16. The sum order per output is fixed, so
-// runs are bitwise repeatable.
+// shift, alpha and bias f32; w bfloat16, held stage-packed (below; the
+// model packs it once per weight). The activation is computed in f32 as
+// above and rounded to bfloat16 (cvt.rn.bf16x2.f32: to nearest even, as
+// torch's .bfloat16()), one wgmma m64nNk16.f32.bf16.bf16 per (tap, stage of
+// CKB = 16 input channels) sums the products of h and w in f32, and the
+// epilogue adds the f32 bias and rounds to bfloat16. The sum order per
+// output is fixed (stage, then tap) and nothing is atomic, so runs are
+// bitwise repeatable.
 //
 // Bound: operations. 2 B L C_in C_out k / 989e12 (the dense bf16 tensor-core
 // rate): 0.179 ms at B=8, C=128, L=61440, k=11, against 0.076 ms for its
 // bytes (x and y in bfloat16, the f32 mask, w).
 //
-// Design: the f32 kernels' warp specialization and carry, with one operand
-// where they hold hi and lo. A k16 step is two 16-byte halves of 8
-// channels, the K-major no-swizzle layout of the TF32 k8 step byte for
-// byte, so the descriptors, the tap shift (one 16-byte row per d) and the
-// accumulator layout are unchanged. There is no split pass: the producers
-// copy each stage's B from the held weights, one 16-byte cp.async per
-// (tap, half, output channel), zero-filled past C_in / C_out (C_in a
-// multiple of 8). A stage's operands are half the bytes of an f32 stage
-// for twice its channels, which buys a deeper pipeline than the f32
-// kernels': SB = 3 stage buffers, B copied one stage ahead of the
-// activation and the raw inputs RB - 1 = 3 stages ahead, where the f32
-// kernels' two buffers leave each stage's L2 and device-memory round trips
-// in line behind its activation; the carry buffer still fits beside them
-// at every shape of the main path, so the carry kernel walks its chunks
-// there. sin in the activation comes from the SFU (sin_sfu): h is rounded
-// to bfloat16 anyway.
+// The GEMM, with M and N swapped against the f32 kernels: A = the weights
+// (M = 128 output channels, 64 for each of two consumer warpgroups), B =
+// the activated window (N = TL columns, up to 256: one m64n256k16 per tap
+// and stage), K = (tap t, input channel c). A stage's weights (45 KB at
+// k = 11) thus feed TL = 256 columns, twice the f32 kernels' longest tile,
+// which halves the weights every CTA re-reads from L2 (every CTA streams
+// the layer's whole weights once per column tile). Both operands are
+// K-major without swizzle: 16-byte rows of 8 channels, rows contiguous (8-row
+// core matrices 128 bytes apart), the two 8-channel halves of the k16 step
+// LBO apart. Tap t's B starts t d rows (16 bytes each) into the window: a
+// step of the descriptor's start address.
 //
-// Raw x in bfloat16: cp.async moves whole 4-byte words, and a window's
-// first column need not start one. Each channel row's columns inside
-// [0, L) are copied as the aligned words covering them, placed so that
-// column l sits at raw position l - l_first + s_c (s_c, 0 or 1, the parity
-// of the row's flat index at l_first); a word past the row's end copies its
-// first half only (zero fill), so nothing past the tensor is read. The
-// activation reads only columns inside [0, L) and writes 0 elsewhere: the
-// raw row holds stale values outside its copied words.
+// Stage-packed weights: the wrapper holds w as [C_out / 128][C_in / 16][k]
+// [2 halves][128 rows][8 channels] bfloat16, zero-padded past C_in and C_out
+// (ops/adain_snake_conv.py::pack_weights), so one stage's A for one
+// output-channel tile is one contiguous span of k * 4 KB in exactly the
+// layout wgmma reads. One producer thread moves it with k bulk copies
+// (cp.async.bulk, the copy engine), completed on the stage's full mbarrier
+// by its transaction count: no thread copies weights word by word.
+//
+// Warp specialization (384 threads, one CTA per SM): one producer warpgroup
+// (128 threads) and two consumer warpgroups. Consumers hold TL / 2 f32
+// sums a thread (128 at TL = 256: ptxas reports 154 registers a thread and
+// no spills for the 256-column kernels, within the 168 that 384 threads
+// leave; a second producer warpgroup does not compile: at 512 threads
+// ptxas holds every thread to the launch bound's 128 registers, whatever
+// setmaxnreg gives the consumers later) and only issue the MMAs, keeping one
+// stage in flight; each warp releases a stage buffer on its empty mbarrier
+// once its MMAs on it are done. The producers fill SB = 3 stage buffers:
+// the weights one stage ahead (bulk copies), the raw inputs RB - 1 = 2
+// stages ahead (16-byte cp.async into RB raw buffers), and the activation
+// of the stage itself (scale, shift, alpha, SFU sine, mask, rounded to
+// bfloat16), then arrive on the stage's full mbarrier. A producer thread
+// activates 4 rows at once for one pair of channels (activate_bf16: one
+// warp per scheduler hides no latency otherwise). The epilogue adds the
+// bias and stores whole tiles in 16-byte stores after a transpose within
+// each quad (store_tile_bf16), ragged tiles column by column.
+//
+// Raw inputs in 16-byte chunks: a window's first column need not start a
+// chunk. Each channel row's columns inside [0, L) are copied as the
+// aligned chunks covering them, placed so that column l sits at raw
+// position l - l_first + s_c (s_c, 0 to 7, the row's flat index at l_first
+// modulo 8; the f32 mask likewise modulo 4); a last chunk reads only up to
+// the row's end (zero fill), so nothing past the tensor is read. The
+// activation reads only columns inside [0, L) and writes 0 elsewhere,
+// without touching the raw value there (stale; never multiplied by 0).
+//
+// Walking carry: as the f32 kernels, one bfloat16 per (input channel, halo
+// column) in shared memory after the raw buffers; it fits beside the stages
+// at every shape with k <= 11 and d <= 5, so the carry kernel walks chunks
+// of tiles at C = 256 too.
 
-constexpr int CKB = 16;   // input channels per bf16 stage (one k16 step)
-constexpr int HWB = 200;  // raw x row: the window, its shift and a spilled half
-// a raw buffer in words: x [CKB][HWB] bfloat16, the mask window [HWX] and
-// scale, shift, alpha [3][CKB] f32
-constexpr int RAWB_WORDS = CKB * HWB / 2 + HWX + 3 * CKB;
-constexpr int SB = 3;     // operand stage buffers
-constexpr int RB = 4;     // raw buffers: raw inputs load RB - 1 stages ahead
-// named barriers of the bf16 forms: FULL_B + s and EMPTY_B + s for stage
-// buffer s, RAW_B among producers
-constexpr int FULL_B = 1, EMPTY_B = FULL_B + SB, RAW_B = EMPTY_B + SB;
+constexpr int CKB = 16;           // input channels per bf16 stage (one k16 step)
+constexpr int TLB_MAX = 256;      // longest bf16 column tile (wgmma n256)
+constexpr int PRODUCERS_B = 128;  // one warpgroup: weights, raw inputs, activation
+constexpr int CONSUMERS_B = 256;  // two warpgroups: 64 output channels each
+constexpr int THREADS_B = PRODUCERS_B + CONSUMERS_B;
+constexpr int SB = 3;             // operand stage buffers
+constexpr int RB = 3;             // raw buffers: raw inputs load RB - 1 stages ahead
+constexpr int W_TAP_WORDS = 2 * TN * 4;  // a tap of a stage's weights, 4 KB
+constexpr int BAR_WORDS = 32;     // the mbarriers, ahead of the stage buffers
+constexpr int RAW_B = 1;          // named barrier among the producers
 
-// A stage's operands in words: B for k taps, then A ([2 halves][window
-// rows][16 bytes], as an f32 stage's hi).
-__host__ __device__ constexpr int stage_words_bf16(int tl, int k) {
-  return k * B_TAP + 2 * a_half(tl);
+// Rows of a stage's window: the tile and both halos at the largest pad,
+// rounded so that the two k halves sit 16 banks apart (4 rows_b = 16 mod 32
+// words).
+__host__ __device__ constexpr int rows_b(int tl) { return tl + 2 * PADMAX + 4; }
+
+// A raw x row in bfloat16: the window, its shift to 16-byte alignment (up
+// to 7) and a last chunk's spill (up to 7), rounded to whole 16-byte chunks
+// with rows 12 banks apart (raw_row_bf16 / 2 = 12 mod 32 words), so that a
+// warp's reads of 4 channels by 8 rows hit distinct banks.
+__host__ __device__ constexpr int raw_row_bf16(int tl) {
+  return tl + 2 * PADMAX + 24;
 }
 
-// Dynamic shared memory: SB stages, RB raw buffers, then the carry
-// ([C_in / 2][2 pad] words, each two channels' bfloat16).
+// The raw mask window in f32: the window, its shift (up to 3) and a last
+// chunk's spill (up to 3), in whole 16-byte chunks.
+__host__ __device__ constexpr int raw_mask_bf16(int tl) {
+  return tl + 2 * PADMAX + 8;
+}
+
+// A stage in words: the weights [k][2][TN][4], then the window [2][rows][4].
+__host__ __device__ constexpr int stage_words_bf16(int tl, int k) {
+  return k * W_TAP_WORDS + 8 * rows_b(tl);
+}
+
+// A raw buffer in words: x [CKB][raw_row] bfloat16, the mask window
+// [raw_mask] and scale, shift, alpha [3][CKB] f32; 16-byte aligned parts.
+__host__ __device__ constexpr int raw_words_bf16(int tl) {
+  return CKB * raw_row_bf16(tl) / 2 + raw_mask_bf16(tl) + 3 * CKB;
+}
+
+// Dynamic shared memory: the mbarriers, SB stages, RB raw buffers, then the
+// carry ([ceil(C_in / 2)][2 pad] words, each two channels' bfloat16).
 __host__ __device__ constexpr int carry_offset_bf16(int tl, int k) {
-  return SB * stage_words_bf16(tl, k) + RB * RAWB_WORDS;
+  return BAR_WORDS + SB * stage_words_bf16(tl, k) + RB * raw_words_bf16(tl);
 }
 
 int smem_bytes_bf16(int tl, int k, int carry_words) {
@@ -715,14 +767,72 @@ struct ArgsB {
   const float* scale;
   const float* shift;
   const float* alpha;
-  const __nv_bfloat16* w;  // K-major [k][C_out][C_in]
+  const __nv_bfloat16* w;  // stage-packed [C_out/128][C_in/16][k][2][128][8]
   const float* bias;
   __nv_bfloat16* y;
-  int c_in, c_out, length, k, dilation, pad;
+  int c_in, c_out, length, k, dilation, pad, stages;
 };
 
 // D += A B on the tensor cores, one warpgroup: m64 nN k16, bfloat16 in, f32
 // accumulation, both operands K-major from shared memory.
+__device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t da,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, "
+      "%104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
 __device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], uint64_t da,
                                                 uint64_t db) {
   asm volatile(
@@ -782,102 +892,75 @@ __device__ __forceinline__ void wgmma_bf16_n64(float (&d)[32], uint64_t da,
 template <int N>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da,
                                            uint64_t db) {
-  if constexpr (N == 128) {
+  if constexpr (N == 256) {
+    wgmma_bf16_n256(d, da, db);
+  } else if constexpr (N == 128) {
     wgmma_bf16_n128(d, da, db);
   } else {
     wgmma_bf16_n64(d, da, db);
   }
 }
 
-// Asynchronous copy of one 4-byte word, of which the first `bytes` are read
-// (4 or 2) and the rest zero-filled.
-__device__ __forceinline__ void copy_word(uint32_t* dst, const void* src,
-                                          int bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// mbarriers: full[s] completes when the producers' activation of stage
+// buffer s has arrived (PRODUCERS_B arrivals) and its weights have landed
+// (the bulk copies' transaction bytes); empty[s] when every consumer warp is
+// done with its MMAs on buffer s (CONSUMERS_B / 32 arrivals).
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile(
+      "{\n.reg .b64 state;\nmbarrier.arrive.shared::cta.b64 state, [%0];\n}\n"
+      ::"r"(smem_u32(bar))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.expect_tx.relaxed.cta.shared::cta.b64 [%0], %1;\n"
+               ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the phase of parity `parity` of the mbarrier has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The copy engine: `bytes` (a multiple of 16) from global memory to shared
+// memory, counted against the mbarrier's transaction bytes.
+__device__ __forceinline__ void bulk_copy(uint32_t* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Asynchronous copy of one 16-byte chunk, of which the first `bytes` are
+// read and the rest zero-filled.
+__device__ __forceinline__ void copy_chunk(void* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
                "l"(src), "r"(bytes));
-}
-
-// Asynchronous 16-byte copy; with valid false the destination is filled
-// with zero and nothing is read.
-__device__ __forceinline__ void copy16(uint32_t* dst, const void* src,
-                                       bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-
-// Start copying stage (output channels co0.., input channels ci0..)'s B
-// from the K-major weights: per tap, [half][TN rows][8 channels]. Producer
-// p copies half p % 2 of output channel p / 2 for every tap, so two
-// neighbours take one channel's 32 contiguous bytes (each 32-byte sector
-// leaves L2 once) and a thread's addresses step by a fixed tap stride.
-__device__ __forceinline__ void start_weights_bf16(const ArgsB& a, int co0,
-                                                   int ci0, int p,
-                                                   uint32_t* b_op) {
-  static_assert(PRODUCERS == 2 * TN, "one producer per (half, row) a tap");
-  const int half = p % 2;
-  const int n = p / 2;
-  const bool ok = co0 + n < a.c_out && ci0 + 8 * half < a.c_in;
-  const __nv_bfloat16* src =
-      ok ? a.w + (int64_t)(co0 + n) * a.c_in + ci0 + 8 * half : a.w;
-  const int64_t tap = ok ? (int64_t)a.c_out * a.c_in : 0;
-  uint32_t* dst = b_op + half * B_HALF + n * 4;
-  for (int t = 0; t < a.k; ++t, src += tap, dst += B_TAP) copy16(dst, src, ok);
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Start loading the raw inputs of input channels [ci0, ci0 + CKB) for
-// window rows [row_lo, width), row 0 at global column l_first: x (the
-// words covering each channel's columns inside [0, L), 16 producers a
-// channel), the mask and the channels' scale, shift and alpha.
-__device__ __forceinline__ void start_raw_bf16(const ArgsB& a, int b,
-                                               int ci0, int l_first,
-                                               int row_lo, int width, int p,
-                                               uint32_t* raw) {
-  float* m_s = reinterpret_cast<float*>(raw + CKB * HWB / 2);
-  float* p_s = m_s + HWX;
-  const int c = p / 16;
-  const int ci = ci0 + c;
-  const int lo = max(l_first + row_lo, 0);
-  const int hi = min(l_first + width, a.length);
-  if (ci < a.c_in && lo < hi) {
-    const int64_t base = ((int64_t)b * a.c_in + ci) * a.length;
-    const int64_t first = (base + lo) & ~(int64_t)1;  // flat, word-aligned
-    const int64_t end = base + hi;
-    const int s_c = (int)((base + l_first) & 1);
-    // raw position of flat element `first`: even, so its word is aligned
-    const int pos = (int)(first - base - l_first) + s_c;
-    uint32_t* row = raw + c * (HWB / 2) + pos / 2;
-    const int words = (int)((end - first + 1) / 2);
-    for (int i = p % 16; i < words; i += 16) {
-      const int64_t e = first + 2 * i;
-      copy_word(row + i, a.x + e, e + 1 < end ? 4 : 2);
-    }
-  }
-  for (int row = row_lo + p; row < width; row += PRODUCERS) {
-    const int l = l_first + row;
-    const bool ok = l >= 0 && l < a.length;
-    copy4(m_s + row, ok ? a.mask + (int64_t)b * a.length + l : a.mask, ok);
-  }
-  if (p < 3 * CKB) {
-    const int cp = p % CKB;
-    const int which = p / CKB;  // scale, shift, alpha
-    const bool ok = ci0 + cp < a.c_in;
-    const float* src = which == 2 ? a.alpha + ci0 + cp
-                                  : (which == 0 ? a.scale : a.shift) +
-                                        (int64_t)b * a.c_in + ci0 + cp;
-    copy4(p_s + which * CKB + cp, ok ? src : a.alpha, ok);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// sin(v) on the SFU after one Cody-Waite step to [-pi, pi] (2 pi split in
-// two floats, as the iSTFT head's reduce_2pi): ~4e-7 absolute error for
-// |v| < 1e6, far below the bfloat16 rounding of h; NaN stays NaN.
-__device__ __forceinline__ float sin_sfu(float v) {
-  const float n = rintf(v * 0.159154943f);
-  return __sinf(fmaf(-n, -1.74845553e-7f, fmaf(-n, 6.28318548f, v)));
 }
 
 __device__ __forceinline__ void commit_group() {
@@ -890,27 +973,123 @@ __device__ __forceinline__ void wait_groups() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// A rows [row_lo, width) from the raw inputs: h = mask * (z + sin^2(alpha
-// z) / alpha), z = x * scale + shift, in f32, rounded to bfloat16; zero
-// outside [0, L) and past C_in. Producer p = 64 r + 32 half + 4 j + cc
-// takes channels 8 half + 2 cc and + 1 (one packed word) and rows 8 r + j
-// + 32 i: a warp's stores cover 8 rows of 16 bytes, all 32 banks.
+// Start copying stage `st`'s weights for output-channel tile `co_tile` into
+// the stage buffer at `dst` (one thread): k taps of 4 KB by the copy engine,
+// onto `bar`'s transaction count.
+__device__ __forceinline__ void start_weights_bf16(const ArgsB& a,
+                                                   int co_tile, int st,
+                                                   uint32_t* dst,
+                                                   uint64_t* bar) {
+  constexpr int TAP_BYTES = W_TAP_WORDS * 4;
+  const char* src = reinterpret_cast<const char*>(a.w) +
+                    ((int64_t)co_tile * a.stages + st) * a.k * TAP_BYTES;
+  mbar_expect_tx(bar, a.k * TAP_BYTES);
+  for (int t = 0; t < a.k; ++t)
+    bulk_copy(dst + t * W_TAP_WORDS, src + t * TAP_BYTES, TAP_BYTES, bar);
+}
+
+// Start loading the raw inputs of input channels [ci0, ci0 + CKB) for
+// window rows [row_lo, width), row 0 at global column l_first, in 16-byte
+// chunks: x (the chunks covering each channel's columns inside [0, L), 8
+// producers a channel), the mask (likewise) and the channels' scale, shift
+// and alpha. A row's first column need not start a chunk: column l goes to
+// raw position l - l_first + s, s the row's flat index at l_first modulo 8
+// (modulo 4 for the f32 mask), so chunks land 16-byte aligned; a last
+// chunk reads only up to the row's end and zero-fills the rest.
+template <int TL>
+__device__ __forceinline__ void start_raw_bf16(const ArgsB& a, int b,
+                                               int ci0, int l_first,
+                                               int row_lo, int width, int p,
+                                               uint32_t* raw) {
+  constexpr int HX = raw_row_bf16(TL);
+  constexpr int PER_CHANNEL = PRODUCERS_B / CKB;
+  float* m_s = reinterpret_cast<float*>(raw + CKB * HX / 2);
+  float* p_s = m_s + raw_mask_bf16(TL);
+  const int lo = max(l_first + row_lo, 0);
+  const int hi = min(l_first + width, a.length);
+  if (lo < hi) {
+    const int c = p / PER_CHANNEL;
+    const int ci = ci0 + c;
+    if (ci < a.c_in) {
+      const int64_t base = ((int64_t)b * a.c_in + ci) * a.length;
+      const int64_t first = (base + lo) & ~(int64_t)7;  // flat, aligned
+      const int64_t end = base + hi;
+      // raw position of flat element `first`: a multiple of 8
+      const int pos = (int)(first - base - l_first) +
+                      (int)((base + l_first) & 7);
+      __nv_bfloat16* row =
+          reinterpret_cast<__nv_bfloat16*>(raw) + c * HX + pos;
+      const int chunks = (int)((end - first + 7) / 8);
+      for (int i = p % PER_CHANNEL; i < chunks; i += PER_CHANNEL) {
+        const int64_t e = first + 8 * i;
+        copy_chunk(row + 8 * i, a.x + e,
+                   2 * (int)(end - e < 8 ? end - e : 8));
+      }
+    }
+    const int64_t base = (int64_t)b * a.length;
+    const int64_t first = (base + lo) & ~(int64_t)3;
+    const int64_t end = base + hi;
+    const int pos = (int)(first - base - l_first) +
+                    (int)((base + l_first) & 3);
+    const int chunks = (int)((end - first + 3) / 4);
+    for (int i = p; i < chunks; i += PRODUCERS_B) {
+      const int64_t e = first + 4 * i;
+      copy_chunk(m_s + pos + 4 * i, a.mask + e,
+                 4 * (int)(end - e < 4 ? end - e : 4));
+    }
+  }
+  if (p < 3 * CKB) {
+    const int cp = p % CKB;
+    const int which = p / CKB;  // scale, shift, alpha
+    const bool ok = ci0 + cp < a.c_in;
+    const float* src = which == 2 ? a.alpha + ci0 + cp
+                                  : (which == 0 ? a.scale : a.shift) +
+                                        (int64_t)b * a.c_in + ci0 + cp;
+    copy4(p_s + which * CKB + cp, ok ? src : a.alpha, ok);
+  }
+  commit_group();
+}
+
+// sin(v) on the SFU after one Cody-Waite step to [-pi, pi] (2 pi split in
+// two floats, as the iSTFT head's reduce_2pi): ~4e-7 absolute error for
+// |v| < 1e6, far below the bfloat16 rounding of h; NaN stays NaN.
+__device__ __forceinline__ float sin_sfu(float v) {
+  const float n = rintf(v * 0.159154943f);
+  return __sinf(fmaf(-n, -1.74845553e-7f, fmaf(-n, 6.28318548f, v)));
+}
+
+// Window rows [row_lo, width) from the raw inputs: h = mask * (z +
+// sin^2(alpha z) / alpha), z = x * scale + shift, in f32, rounded to
+// bfloat16; zero outside [0, L) and past C_in. Warp w takes the half w % 2
+// (8 channels) and rows 8 (w / 2) + 16 i + lane / 4; lane % 4 picks one
+// channel pair (one packed word of the 16-byte row). A row's mask is read
+// once for both channels; a warp's x reads hit distinct banks and its
+// stores cover 8 whole rows. With one producer warp per scheduler nothing
+// hides a row's latency (shared loads, the SFU), so a thread works R rows
+// at once: loads first, then R independent chains. Outside [0, L) the raw
+// value is stale: h is selected to 0, never multiplied by the mask there.
+template <int TL>
 __device__ __forceinline__ void activate_bf16(const ArgsB& a, int b, int ci0,
                                               int l_first, int row_lo,
-                                              int width, int half_words,
-                                              int p, const uint32_t* raw,
-                                              uint32_t* a_op) {
+                                              int width, int p,
+                                              const uint32_t* raw,
+                                              uint32_t* win) {
+  constexpr int HW = rows_b(TL);
+  constexpr int HX = raw_row_bf16(TL);
+  constexpr int HM = raw_mask_bf16(TL);
+  constexpr int R = 4;
   const __nv_bfloat16* x_s = reinterpret_cast<const __nv_bfloat16*>(raw);
-  const float* m_s = reinterpret_cast<const float*>(raw + CKB * HWB / 2);
-  const float* p_s = m_s + HWX;
-  const int cc = p % 4;
-  const int half = (p / 32) % 2;
+  const float* m_s = reinterpret_cast<const float*>(raw + CKB * HX / 2);
+  const float* p_s = m_s + HM;
+  const int warp = p / 32;
+  const int lane = p % 32;
+  const int pair = 4 * (warp % 2) + lane % 4;
   float sc[2], sh[2], al[2], inv[2];
   bool valid[2];
   const __nv_bfloat16* xr[2];
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
-    const int c = 8 * half + 2 * cc + u;
+    const int c = 2 * pair + u;
     const int ci = ci0 + c;
     valid[u] = ci < a.c_in;
     sc[u] = p_s[c];
@@ -918,236 +1097,310 @@ __device__ __forceinline__ void activate_bf16(const ArgsB& a, int b, int ci0,
     al[u] = p_s[2 * CKB + c];
     inv[u] = 1.0f / al[u];
     const int64_t at = ((int64_t)b * a.c_in + ci) * a.length + l_first;
-    xr[u] = x_s + c * HWB + (int)(at & 1);
+    xr[u] = x_s + c * HX + (int)(at & 7);
   }
-  uint32_t* dst = a_op + half * half_words + cc;
-  for (int row = row_lo + 8 * (p / 64) + (p / 4) % 8; row < width;
-       row += 32) {
-    const int l = l_first + row;
-    const bool inside = l >= 0 && l < a.length;
-    float h[2];
+  const float* mr = m_s + (int)(((int64_t)b * a.length + l_first) & 3);
+  uint32_t* dst = win + (warp % 2) * (4 * HW) + lane % 4;
+  // columns [lo, hi) of the window lie inside [0, L)
+  const int lo = max(row_lo, -l_first);
+  const int hi = min(width, a.length - l_first);
+  for (int row0 = row_lo + 8 * (warp / 2) + lane / 4; row0 < width;
+       row0 += 16 * R) {
+    float xv[R][2], mv[R];
 #pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      h[u] = 0.f;
-      if (valid[u] && inside) {
-        const float z = __bfloat162float(xr[u][row]) * sc[u] + sh[u];
-        const float s = sin_sfu(al[u] * z);
-        h[u] = (z + inv[u] * (s * s)) * m_s[row];
-      }
+    for (int r = 0; r < R; ++r) {
+      const int row = min(row0 + 16 * r, HM - 4);  // in the buffers
+#pragma unroll
+      for (int u = 0; u < 2; ++u) xv[r][u] = __bfloat162float(xr[u][row]);
+      mv[r] = mr[row];
     }
-    uint32_t packed;  // channel 2 cc in the low half, as memory orders them
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n"
-        : "=r"(packed)
-        : "f"(h[1]), "f"(h[0]));
-    dst[row * 4] = packed;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = row0 + 16 * r;
+      float h[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float z = xv[r][u] * sc[u] + sh[u];
+        const float s = sin_sfu(al[u] * z);
+        h[u] = valid[u] && row >= lo && row < hi
+                   ? (z + inv[u] * (s * s)) * mv[r]
+                   : 0.f;
+      }
+      uint32_t packed;  // channel 2 pair in the low half, as memory orders
+      asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n"
+          : "=r"(packed)
+          : "f"(h[1]), "f"(h[0]));
+      if (row < width) dst[row * 4] = packed;
+    }
   }
 }
 
-// Moves A rows between the window and the carry buffer ([C_in / 2][2 pad]
-// words of two channels): in, rows [0, 2 pad) from the carry; out, rows
-// [TL, TL + 2 pad) to it. Producer p takes the stage's channel pair p / 32.
+// Moves window rows between the window and the carry buffer
+// ([ceil(C_in / 2)][2 pad] words of two channels): in, rows [0, 2 pad) from
+// the carry; out, rows [TL, TL + 2 pad) to it. Producer p takes the stage's
+// channel pair p / 16 and every 16th row.
+template <int TL>
 __device__ __forceinline__ void carry_rows_bf16(const ArgsB& a, int ci0,
-                                                int row0, bool in,
-                                                int half_words, int p,
-                                                uint32_t* a_op,
+                                                int row0, bool in, int p,
+                                                uint32_t* win,
                                                 uint32_t* carry) {
+  constexpr int HW = rows_b(TL);
   const int halo = 2 * a.pad;
-  const int q = p / 32;
-  const int ci = ci0 + 2 * q;
+  const int pair = p / 16;
+  const int ci = ci0 + 2 * pair;
   uint32_t* c_row = carry + (ci / 2) * halo;
-  const int word = (q / 4) * half_words + row0 * 4 + q % 4;
-  for (int j = p % 32; j < halo; j += 32) {
+  const int word = (pair / 4) * (4 * HW) + row0 * 4 + pair % 4;
+  for (int j = p % 16; j < halo; j += 16) {
     if (in) {
-      a_op[word + 4 * j] = ci < a.c_in ? c_row[j] : 0u;
+      win[word + 4 * j] = ci < a.c_in ? c_row[j] : 0u;
     } else if (ci < a.c_in) {
-      c_row[j] = a_op[word + 4 * j];
+      c_row[j] = win[word + 4 * j];
+    }
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t packed;  // lo in the low half, as memory orders them
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(packed) : "f"(hi), "f"(lo));
+  return packed;
+}
+
+// The epilogue of a whole tile with L a multiple of 8: y = acc + bias in
+// bfloat16, in 16-byte stores. For each group of 4 column blocks (j = 4 m
+// .. 4 m + 3, 8 columns each), the 4 lanes of a quad (one output channel)
+// each hold one packed word of every block; a transpose within the quad
+// (three shuffles) gives lane q the whole block 4 m + q, so a warp's store
+// covers 64 contiguous bytes of each of its 8 rows, whole 32-byte sectors,
+// where word stores would write half sectors with 4 times the instructions.
+template <int TL>
+__device__ __forceinline__ void store_tile_bf16(const ArgsB& a,
+                                                const float (&acc)[TL / 2],
+                                                int b, int o0, int l0,
+                                                int q) {
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int o = o0 + 8 * e;
+    const float bias = o < a.c_out ? a.bias[o] : 0.f;
+    __nv_bfloat16* y_row =
+        a.y + ((int64_t)b * a.c_out + min(o, a.c_out - 1)) * a.length + l0;
+#pragma unroll
+    for (int m = 0; m < TL / 32; ++m) {
+      uint32_t v[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        v[i] = pack_bf16x2(acc[4 * (4 * m + i) + 2 * e] + bias,
+                           acc[4 * (4 * m + i) + 2 * e + 1] + bias);
+      // out[i]: lane i's word of block 4 m + q; selects, not a runtime
+      // index, keep everything in registers
+      uint32_t out[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) out[i] = i == q ? v[i] : 0u;
+#pragma unroll
+      for (int r = 1; r < 4; ++r) {
+        const int partner = q ^ r;
+        uint32_t send = v[0];
+#pragma unroll
+        for (int i = 1; i < 4; ++i) send = i == partner ? v[i] : send;
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, send, r);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) out[i] = i == partner ? got : out[i];
+      }
+      if (o < a.c_out)
+        *reinterpret_cast<uint4*>(y_row + 8 * (4 * m + q)) =
+            make_uint4(out[0], out[1], out[2], out[3]);
     }
   }
 }
 
 // Tiles [tile0, tile_end) of one (output-channel tile, batch row), C_in in
-// stages of CKB channels through SB operand buffers (the f32 run() has two).
-// A producer iteration q activates stage q into buffer q % SB while it
-// copies stage q + 1's B into the next buffer and raw inputs RB - 1 stages
-// ahead, so neither the L2 round trip of B nor the device-memory one of
-// the raw inputs waits in line behind the activation; the consumers
-// multiply stage q - 1 meanwhile.
-template <int WM>
+// stages of CKB channels through SB stage buffers. Producer iteration q
+// activates stage q into buffer q % SB while the copy engine brings stage
+// q + 1's weights into the next buffer and cp.async the raw inputs RB - 1
+// stages ahead; the consumers multiply stage q - 1 meanwhile. Consumer
+// warpgroup g takes output channels 64 g of the tile's 128, all TL columns.
+// With ``carry`` every tile after the first takes its left 2 pad rows from
+// the carry buffer.
+template <int TL>
 __device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
                                          int tile_end, uint32_t* carry) {
-  constexpr int TL = 64 * WM;
-  constexpr int N = 64 * WM;       // output channels per warpgroup
-  constexpr int R = N / 2;         // accumulators per thread
+  constexpr int HW = rows_b(TL);
   extern __shared__ __align__(128) uint32_t smem[];
-  const int co0 = blockIdx.y * TN;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + SB;
+  uint32_t* stage0 = smem + BAR_WORDS;
+  const int co_tile = blockIdx.y;
   const int b = blockIdx.z;
   const int halo = 2 * a.pad;
-  const int half_words = a_half(TL);
-  const int stages = (a.c_in + CKB - 1) / CKB;  // per tile
+  const int stages = a.stages;  // per tile
   const int n = (tile_end - tile0) * stages;
   const int words = stage_words_bf16(TL, a.k);
 
-  if (threadIdx.x >= CONSUMERS) {  // ---- producers
-    const int p = threadIdx.x - CONSUMERS;
-    uint32_t* raw0 = smem + SB * words;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full[s], PRODUCERS_B);
+      mbar_init(&empty[s], CONSUMERS_B / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS_B) {  // ---- producers
+    const int p = threadIdx.x - CONSUMERS_B;
+    uint32_t* raw0 = stage0 + SB * words;
     // each start commits one cp.async group, an empty one past the last
-    // stage, so the groups keep one pattern: pairs (raw j, B of stage
-    // j - RB + 2), the first RB - 2 with an empty group for B
+    // stage, so every wait is a constant
     auto start_raw = [&](int q) {
       if (q >= n) return commit_group();
       const int tile = tile0 + q / stages;
-      start_raw_bf16(a, b, (q % stages) * CKB, tile * TL - a.pad,
-                     tile == tile0 || carry == nullptr ? 0 : halo, TL + halo,
-                     p, raw0 + (q % RB) * RAWB_WORDS);
+      start_raw_bf16<TL>(a, b, (q % stages) * CKB, tile * TL - a.pad,
+                         tile == tile0 || carry == nullptr ? 0 : halo,
+                         TL + halo, p, raw0 + (q % RB) * raw_words_bf16(TL));
     };
-    auto start_b = [&](int q) {
-      if (q >= n) return commit_group();
-      start_weights_bf16(a, co0, (q % stages) * CKB, p,
-                         smem + (q % SB) * words);
+    auto start_weights = [&](int q) {
+      if (p == 0)
+        start_weights_bf16(a, co_tile, q % stages, stage0 + (q % SB) * words,
+                           &full[q % SB]);
     };
-    for (int j = 0; j < RB - 1; ++j) {
-      start_raw(j);
-      if (j < RB - 2) {
-        commit_group();
-      } else {
-        start_b(0);
-      }
-    }
+    for (int j = 0; j < RB - 1; ++j) start_raw(j);
+    start_weights(0);
     for (int q = 0; q < n; ++q) {
       const int s = q % SB;
       const int tile = tile0 + q / stages;
       const int ci0 = (q % stages) * CKB;
       const int row_lo = tile == tile0 || carry == nullptr ? 0 : halo;
-      wait_groups<2 * RB - 3>();  // raw q landed (2 RB - 3 groups since)
-      bar_sync(RAW_B, PRODUCERS);  // and raw q - 1's buffer is free
+      wait_groups<RB - 2>();  // raw q landed (RB - 2 groups since)
+      bar_sync(RAW_B, PRODUCERS_B);  // and raw q - 1's buffer is free
       start_raw(q + RB - 1);
-      // stage q + 1's B goes to buffer (q + 1) % SB once the MMAs are done
-      // with that buffer's stage, q + 1 - SB
-      if (q + 1 >= SB && q + 1 < n)
-        bar_sync(EMPTY_B + (q + 1) % SB, THREADS);
-      start_b(q + 1);
-      uint32_t* a_op = smem + s * words + a.k * B_TAP;
-      if (row_lo > 0)
-        carry_rows_bf16(a, ci0, 0, true, half_words, p, a_op, carry);
-      activate_bf16(a, b, ci0, tile * TL - a.pad, row_lo, TL + halo,
-                    half_words, p, raw0 + (q % RB) * RAWB_WORDS, a_op);
+      if (q + 1 < n) {
+        // stage q + 1 goes to buffer (q + 1) % SB once every consumer warp
+        // is done with that buffer's stage, q + 1 - SB
+        if (q + 1 >= SB) mbar_wait(&empty[(q + 1) % SB], ((q + 1) / SB - 1) & 1);
+        start_weights(q + 1);
+      }
+      uint32_t* win = stage0 + s * words + a.k * W_TAP_WORDS;
+      if (row_lo > 0) carry_rows_bf16<TL>(a, ci0, 0, true, p, win, carry);
+      activate_bf16<TL>(a, b, ci0, tile * TL - a.pad, row_lo, TL + halo, p,
+                        raw0 + (q % RB) * raw_words_bf16(TL), win);
       if (carry != nullptr && tile + 1 < tile_end) {
         // rows [TL, TL + 2 pad) are the next tile's left halo
-        bar_sync(RAW_B, PRODUCERS);
-        carry_rows_bf16(a, ci0, TL, false, half_words, p, a_op, carry);
+        bar_sync(RAW_B, PRODUCERS_B);
+        carry_rows_bf16<TL>(a, ci0, TL, false, p, win, carry);
       }
-      wait_groups<2>();  // stage q's B landed (this iteration's pair since)
       // generic-proxy writes, visible to the tensor cores' async proxy
       asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      bar_arrive(FULL_B + s, THREADS);
+      mbar_arrive(&full[s]);
     }
     wait_groups<0>();
     return;
   }
 
-  // ---- consumers
+  // ---- consumers: the warpgroup index as a warp-uniform value keeps the
+  // descriptors in uniform registers
   const int g = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
-  const int row0 = WM == 2 ? 64 * g : 0;
-  const int n0 = WM == 2 ? 0 : 64 * g;
-  float acc[R];
+  const int lane = threadIdx.x % 32;
+  float acc[TL / 2];
+  int q = 0;
   for (int tile = tile0; tile < tile_end; ++tile) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) acc[i] = 0.f;
-    for (int ci0 = 0; ci0 < a.c_in; ci0 += CKB) {
-      const int q = (tile - tile0) * stages + ci0 / CKB;
+    for (int i = 0; i < TL / 2; ++i) acc[i] = 0.f;
+    for (int st = 0; st < stages; ++st, ++q) {
       const int s = q % SB;
-      const uint32_t* b_op = smem + s * words;
-      const uint32_t* a_op = b_op + a.k * B_TAP;
-      // tap t: A starts t d rows (16 bytes each) on, B one tap on
-      uint64_t ad = smem_desc(a_op + row0 * 4, half_words * 4);
-      uint64_t bd = smem_desc(b_op + n0 * 4, B_HALF * 4);
-      bar_sync(FULL_B + s, THREADS);  // stage q's operands are in buffer s
+      const uint32_t* w_op = stage0 + s * words;
+      // tap t: A one tap (4 KB) on, B t d rows (16 bytes each) on; the
+      // descriptors' address field counts 16 bytes
+      uint64_t ad = smem_desc(w_op + 64 * g * 4, TN * 16);
+      uint64_t bd = smem_desc(w_op + a.k * W_TAP_WORDS, HW * 16);
+      mbar_wait(&full[s], (q / SB) & 1);  // stage q is in buffer s
       fence_operands(acc);
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
       for (int t = 0; t < a.k; ++t) {
-        wgmma_bf16<N>(acc, ad, bd);
-        ad += a.dilation;
-        bd += B_TAP / 4;
+        wgmma_bf16<TL>(acc, ad, bd);
+        ad += W_TAP_WORDS / 4;
+        bd += a.dilation;
       }
       asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-      if (ci0 > 0) {  // stage q - 1's MMAs are done: release its buffer
+      if (st > 0) {  // stage q - 1's MMAs are done: release its buffer
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
-        if (q - 1 + SB < n) bar_arrive(EMPTY_B + (q - 1) % SB, THREADS);
+        if (lane == 0) mbar_arrive(&empty[(q - 1) % SB]);
       }
     }
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_operands(acc);
-    {  // the tile's last stage
-      const int q = (tile - tile0 + 1) * stages - 1;
-      if (q + SB < n) bar_arrive(EMPTY_B + q % SB, THREADS);
-    }
-    const int lane = threadIdx.x % 32;
-    const int col0 =
-        tile * TL + row0 + 16 * ((threadIdx.x % 128) / 32) + lane / 4;
-    const int o0 = co0 + n0 + 2 * (lane % 4);
+    if (lane == 0) mbar_arrive(&empty[(q - 1) % SB]);  // the tile's last stage
+    // accumulator layout of m64nN: warp w of the warpgroup holds rows
+    // (output channels) 16 w + lane / 4 (+ 8 for e >= 2), columns 8 j +
+    // 2 (lane % 4) + e % 2
+    const int o0 = co_tile * TN + 64 * g + 16 * ((threadIdx.x % 128) / 32) +
+                   lane / 4;
+    if (a.length % 8 == 0 && (tile + 1) * TL <= a.length) {
+      store_tile_bf16<TL>(a, acc, b, o0, tile * TL, lane % 4);
+    } else {  // a ragged tile: column by column
+      const int l0 = tile * TL + 2 * (lane % 4);
 #pragma unroll
-    for (int j = 0; j < N / 8; ++j) {
+      for (int e = 0; e < 2; ++e) {
+        const int o = o0 + 8 * e;
+        if (o >= a.c_out) continue;
+        const float bias = a.bias[o];
+        __nv_bfloat16* y_row = a.y + ((int64_t)b * a.c_out + o) * a.length;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int l = col0 + 8 * (e / 2);
-        const int o = o0 + 8 * j + e % 2;
-        if (o < a.c_out && l < a.length)
-          a.y[((int64_t)b * a.c_out + o) * a.length + l] =
-              __float2bfloat16_rn(acc[4 * j + e] + a.bias[o]);
+        for (int j = 0; j < TL / 8; ++j) {
+          const int l = l0 + 8 * j;
+          if (l < a.length)
+            y_row[l] = __float2bfloat16_rn(acc[4 * j + 2 * e] + bias);
+          if (l + 1 < a.length)
+            y_row[l + 1] = __float2bfloat16_rn(acc[4 * j + 2 * e + 1] + bias);
+        }
       }
     }
   }
 }
 
-template <int WM>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int TL>
+__global__ void __launch_bounds__(THREADS_B, 1)
 adain_snake_conv_tile_bf16_kernel(const ArgsB a, int tiles_per_cta) {
-  constexpr int TL = 64 * WM;
   const int n_tiles = (a.length + TL - 1) / TL;
   const int tile0 = blockIdx.x * tiles_per_cta;
-  run_bf16<WM>(a, tile0, min(n_tiles, tile0 + tiles_per_cta), nullptr);
+  run_bf16<TL>(a, tile0, min(n_tiles, tile0 + tiles_per_cta), nullptr);
 }
 
-template <int WM>
-__global__ void __launch_bounds__(THREADS, 1)
+template <int TL>
+__global__ void __launch_bounds__(THREADS_B, 1)
 adain_snake_conv_carry_bf16_kernel(const ArgsB a, int tiles_per_chunk) {
-  constexpr int TL = 64 * WM;
   extern __shared__ __align__(128) uint32_t smem[];
   const int n_tiles = (a.length + TL - 1) / TL;
   const int tile0 = blockIdx.x * tiles_per_chunk;
   const int tile_end = min(n_tiles, tile0 + tiles_per_chunk);
   uint32_t* carry =
       tiles_per_chunk > 1 ? smem + carry_offset_bf16(TL, a.k) : nullptr;
-  run_bf16<WM>(a, tile0, tile_end, carry);
+  run_bf16<TL>(a, tile0, tile_end, carry);
 }
 
-template <int WM>
+template <int TL>
 int launch_tile_bf16(const ArgsB& a, int batch, int tiles_per_cta,
                      cudaStream_t stream) {
-  constexpr int TL = 64 * WM;
   const int n_tiles = (a.length + TL - 1) / TL;
-  const int smem = prepare_smem(adain_snake_conv_tile_bf16_kernel<WM>,
+  const int smem = prepare_smem(adain_snake_conv_tile_bf16_kernel<TL>,
                                 smem_bytes_bf16(TL, a.k, 0));
   if (smem == 0) return (int)cudaErrorInvalidValue;
   const dim3 grid((n_tiles + tiles_per_cta - 1) / tiles_per_cta,
                   (a.c_out + TN - 1) / TN, batch);
-  adain_snake_conv_tile_bf16_kernel<WM><<<grid, THREADS, smem, stream>>>(
+  adain_snake_conv_tile_bf16_kernel<TL><<<grid, THREADS_B, smem, stream>>>(
       a, tiles_per_cta);
   return (int)cudaGetLastError();
 }
 
-template <int WM>
+template <int TL>
 int launch_carry_bf16(const ArgsB& a, int batch, int tiles_per_chunk,
                       cudaStream_t stream) {
-  constexpr int TL = 64 * WM;
   const int n_tiles = (a.length + TL - 1) / TL;
   const int chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
-  const int carry_words = tiles_per_chunk > 1 ? a.c_in * a.pad : 0;
-  const int smem = prepare_smem(adain_snake_conv_carry_bf16_kernel<WM>,
+  const int carry_words =
+      tiles_per_chunk > 1 ? (a.c_in + 1) / 2 * 2 * a.pad : 0;
+  const int smem = prepare_smem(adain_snake_conv_carry_bf16_kernel<TL>,
                                 smem_bytes_bf16(TL, a.k, carry_words));
   if (smem == 0) return (int)cudaErrorInvalidValue;
   const dim3 grid(chunks, (a.c_out + TN - 1) / TN, batch);
-  adain_snake_conv_carry_bf16_kernel<WM><<<grid, THREADS, smem, stream>>>(
+  adain_snake_conv_carry_bf16_kernel<TL><<<grid, THREADS_B, smem, stream>>>(
       a, tiles_per_chunk);
   return (int)cudaGetLastError();
 }
@@ -1169,7 +1422,8 @@ ArgsB make_args_bf16(const void* x, const float* mask, const float* scale,
                length,
                k,
                dilation,
-               (k - 1) * dilation / 2};
+               (k - 1) * dilation / 2,
+               (c_in + CKB - 1) / CKB};
 }
 
 }  // namespace
@@ -1215,8 +1469,8 @@ extern "C" int adain_snake_conv_carry_f32(
   }
 }
 
-// The bf16 forms: x, w (K-major [k][C_out][C_in]) and y bfloat16, the rest
-// f32; C_in a multiple of 8. No split scratch.
+// The bf16 forms: x and y bfloat16, w stage-packed bfloat16 ([C_out / 128]
+// [C_in / 16][k][2][128][8], 16-byte aligned), the rest f32. No scratch.
 extern "C" int adain_snake_conv_bf16(const void* x, const float* mask,
                                      const float* scale, const float* shift,
                                      const float* alpha, const void* w,
@@ -1224,15 +1478,15 @@ extern "C" int adain_snake_conv_bf16(const void* x, const float* mask,
                                      int c_in, int c_out, int length, int k,
                                      int dilation, int tile_len,
                                      int tiles_per_cta, void* stream) {
-  if (!valid(batch, c_in, c_out, length, k, dilation) || c_in % 8 ||
-      tiles_per_cta <= 0)
+  if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_cta <= 0)
     return (int)cudaErrorInvalidValue;
   const ArgsB a = make_args_bf16(x, mask, scale, shift, alpha, w, bias, y,
                                  c_in, c_out, length, k, dilation);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tile_len) {
-    case 64: return launch_tile_bf16<1>(a, batch, tiles_per_cta, s);
-    case 128: return launch_tile_bf16<2>(a, batch, tiles_per_cta, s);
+    case 64: return launch_tile_bf16<64>(a, batch, tiles_per_cta, s);
+    case 128: return launch_tile_bf16<128>(a, batch, tiles_per_cta, s);
+    case 256: return launch_tile_bf16<256>(a, batch, tiles_per_cta, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1242,15 +1496,15 @@ extern "C" int adain_snake_conv_carry_bf16(
     const float* alpha, const void* w, const float* bias, void* y, int batch,
     int c_in, int c_out, int length, int k, int dilation, int tile_len,
     int tiles_per_chunk, void* stream) {
-  if (!valid(batch, c_in, c_out, length, k, dilation) || c_in % 8 ||
-      tiles_per_chunk <= 0)
+  if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_chunk <= 0)
     return (int)cudaErrorInvalidValue;
   const ArgsB a = make_args_bf16(x, mask, scale, shift, alpha, w, bias, y,
                                  c_in, c_out, length, k, dilation);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tile_len) {
-    case 64: return launch_carry_bf16<1>(a, batch, tiles_per_chunk, s);
-    case 128: return launch_carry_bf16<2>(a, batch, tiles_per_chunk, s);
+    case 64: return launch_carry_bf16<64>(a, batch, tiles_per_chunk, s);
+    case 128: return launch_carry_bf16<128>(a, batch, tiles_per_chunk, s);
+    case 256: return launch_carry_bf16<256>(a, batch, tiles_per_chunk, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1281,4 +1535,12 @@ extern "C" void adain_snake_conv_geometry(int* out) {
   out[1] = TN;
   out[2] = KMAX;
   out[3] = PADMAX;
+}
+
+// The bf16 forms': {largest column tile, input channels per stage, bytes of
+// one tap of a stage's packed weights}.
+extern "C" void adain_snake_conv_geometry_bf16(int* out) {
+  out[0] = TLB_MAX;
+  out[1] = CKB;
+  out[2] = W_TAP_WORDS * 4;
 }

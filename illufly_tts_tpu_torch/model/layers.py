@@ -33,7 +33,7 @@ from ..ops.adain_snake_conv import (
     adain_snake_conv_carry,
     fold_adain,
     instance_moments,
-    kmajor,
+    pack_weights,
 )
 
 
@@ -228,8 +228,9 @@ class AdaSnakeResBlock(nn.Module):
 
     bfloat16 (the Pallas kernels' bf16 form): x and the conv outputs are
     bfloat16; the moments, the folded scale/shift, the alphas and the conv
-    biases float32 (``keep_f32``); the conv weights bfloat16, held in the
-    kernels' K-major layout (``kmajor``), made once per weight."""
+    biases float32 (``keep_f32``); the conv weights bfloat16, held
+    stage-packed as the kernels read them (``pack_weights``), made once per
+    weight."""
 
     def __init__(self, channels: int, kernel: int, dilations: Sequence[int],
                  style_dim: int):
@@ -245,8 +246,8 @@ class AdaSnakeResBlock(nn.Module):
                             Conv1d(channels, channels, kernel, dilation=d))
             self.add_module(f"adain2_{j}", AdaIN1d(style_dim, channels))
             self.add_module(f"conv2_{j}", Conv1d(channels, channels, kernel))
-        # conv -> (weight version, its bfloat16 K-major [k, C_in, C_out])
-        self._kmajor = {}
+        # conv -> (weight version, its stage-packed bfloat16 weights)
+        self._packed = {}
 
     def keep_f32(self) -> None:
         """Put the alphas and the conv biases back in float32 after the
@@ -260,17 +261,17 @@ class AdaSnakeResBlock(nn.Module):
     def _weight(self, conv: Conv1d) -> torch.Tensor:
         """conv's weight as the fused call takes it, [k, C_in, C_out]: a
         contiguous copy per call in float32 (as ever); in bfloat16 the
-        K-major view ``kmajor`` the kernels read, made again only when the
-        weight changed (a load)."""
+        stage-packed weights ``pack_weights`` the kernels read, made again
+        only when the weight changed (a load)."""
         w = conv.weight
         if w.dtype != torch.bfloat16:
             return w.permute(2, 1, 0).contiguous()
         key = (w.data_ptr(), w._version)
-        held = self._kmajor.get(conv)
+        held = self._packed.get(conv)
         if held is None or held[0] != key:
             with torch.inference_mode(False), torch.no_grad():
-                held = (key, kmajor(w.permute(2, 1, 0)))
-            self._kmajor[conv] = held
+                held = (key, pack_weights(w.permute(2, 1, 0)))
+            self._packed[conv] = held
         return held[1]
 
     def forward(self, x, s, mask: Optional[torch.Tensor] = None):

@@ -28,11 +28,14 @@ w and the output are bfloat16; mask, scale, shift, alpha and b float32.
 The activation runs in float32 and is rounded to bfloat16, the products of
 the bfloat16 h and w sum in float32 with the bias, and the output is
 rounded to bfloat16. A bfloat16 x on CUDA launches the kernels' bf16 forms
-(one bf16 ``wgmma`` per tap and 16-channel stage, counted as
+(one bf16 ``wgmma`` per tap and 16-channel stage, with the weights as the
+GEMM's A and up to 256 columns as its B; counted as
 ``adain_snake_conv_bf16`` and ``adain_snake_conv_carry_bf16`` in
-``launches_bf16``); they read w as a K-major view (``kmajor``), which the
-model makes once per weight. ``adain_snake_conv_plain`` computes the same
-arithmetic on any device.
+``launches_bf16``); they take w stage-packed (``pack_weights``: each
+stage's weights for one 128-channel output tile one contiguous span in the
+layout the tensor cores read, which the kernels' copy engine moves in bulk),
+which the model makes once per weight. ``adain_snake_conv_plain`` computes
+the same arithmetic on any device, with w as it comes or packed.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts the
 launch in ``launches``; for CPU tensors it runs ``adain_snake_conv_plain``.
@@ -66,6 +69,15 @@ MAX_PAD = 32
 # cost more per column. One CTA runs per SM.
 TILE_COST = {128: 1.0, 64: 0.66}
 MAX_SMEM = 232448      # bytes of shared memory one CTA may take
+# the bf16 forms' geometry; must equal the source's (checked at load)
+TILE_LENS_BF16 = (256, 128, 64)  # output columns per CTA (wgmma n256/128/64)
+CIN_STAGE = 16         # input channels per stage (one k16 step)
+W_TAP_BYTES = 2 * COUT_TILE * 8 * 2  # a tap of a stage's packed weights
+# a bf16 CTA's time by column tile, relative to the 256-column tile, one
+# tile a CTA (chip_smoke.py's ``tile_lens_bf16``; PERF.md): a stage's
+# weights cost the same whatever the tile, so short tiles cost more per
+# column
+TILE_COST_BF16 = {256: 1.0, 128: 0.70, 64: 0.58}
 
 # kernel launches since the last reset, by kernel (plain-version calls do
 # not count), bumped under a lock: the scheduler's worker threads launch
@@ -127,6 +139,7 @@ def adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b, kernel,
     bfloat16 x, its bf16 arithmetic: h (float32) and w rounded to
     bfloat16, their products (exact in float32) summed in float32 with the
     float32 bias, the output rounded to bfloat16."""
+    w = _held(w, x.shape[1], b.shape[0])
     h = _activate(x, mask, scale, shift, alpha)
     if x.dtype == torch.bfloat16:
         y = _conv(h.bfloat16().float(), w.bfloat16().float(), kernel,
@@ -135,11 +148,39 @@ def adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b, kernel,
     return _conv(h, _wide(w), kernel, dilation) + _wide(b).reshape(1, -1, 1)
 
 
-def kmajor(w: torch.Tensor) -> torch.Tensor:
-    """w [k, C_in, C_out] in bfloat16 as a view of a contiguous
-    [k, C_out, C_in] tensor: each output channel's input channels
-    contiguous, the K-major rows the bf16 kernels copy to their stages."""
-    return w.bfloat16().transpose(1, 2).contiguous().transpose(1, 2)
+def packed_shape(kernel: int, c_in: int, c_out: int) -> Tuple[int, ...]:
+    """Shape of ``pack_weights``' output for w [k, C_in, C_out]."""
+    return (-(-c_out // COUT_TILE), -(-c_in // CIN_STAGE), kernel, 2,
+            COUT_TILE, 8)
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """w [k, C_in, C_out] as the bf16 kernels hold it: bfloat16
+    ``[C_out / 128][C_in / 16][k][2][128][8]``, zero-padded past C_in and
+    C_out. Element ``[o_tile, stage, t, half, row, j]`` is ``w[t, 16 stage +
+    8 half + j, 128 o_tile + row]``: one stage's weights for one output
+    tile are one contiguous span of k * 4 KB, each tap ``[2 halves][128
+    rows][8 channels]``, the K-major 16-byte rows the tensor cores read."""
+    kernel, c_in, c_out = w.shape
+    tiles, stages = packed_shape(kernel, c_in, c_out)[:2]
+    padded = w.new_zeros((kernel, stages * CIN_STAGE, tiles * COUT_TILE),
+                         dtype=torch.bfloat16)
+    padded[:, :c_in, :c_out] = w
+    return padded.reshape(kernel, stages, 2, 8, tiles, COUT_TILE).permute(
+        4, 1, 0, 2, 5, 3).contiguous()
+
+
+def unpack_weights(packed: torch.Tensor, c_in: int,
+                   c_out: int) -> torch.Tensor:
+    """``pack_weights``' inverse: w [k, C_in, C_out] bfloat16."""
+    tiles, stages, kernel = packed.shape[:3]
+    return packed.permute(2, 1, 3, 5, 0, 4).reshape(
+        kernel, stages * CIN_STAGE, tiles * COUT_TILE)[:, :c_in, :c_out]
+
+
+def _held(w: torch.Tensor, c_in: int, c_out: int) -> torch.Tensor:
+    """w [k, C_in, C_out] from w as it comes or stage-packed."""
+    return unpack_weights(w, c_in, c_out) if w.dim() == 6 else w
 
 
 def tf32_round(t: torch.Tensor) -> torch.Tensor:
@@ -175,13 +216,18 @@ def smem_bytes(tile_len: int, kernel: int, carry_words: int,
     buffers and the carry, counted in 4-byte words. f32: two stages of B as
     hi and lo for k taps ([k][2][128][4] words each) and A as hi and lo
     ([2][tile_len + 2 MAX_PAD][4]), two raw buffers of x [8][200], mask
-    [200], 3 x 8 parameters. bf16: three stages of B [k][2][128][4] words
-    and A [2][tile_len + 2 MAX_PAD][4] (16-byte rows of 8 channels), four
-    raw buffers of x [16][200] bfloat16, mask [200], 3 x 16 parameters."""
-    a_rows = 2 * (tile_len + 2 * MAX_PAD) * 4
+    [200], 3 x 8 parameters. bf16: 32 words of mbarriers, three stages of
+    the weights [k][2][128][4] words and the window [2][rows][4] (16-byte
+    rows of 8 channels; rows = tile_len + 2 MAX_PAD + 4), three raw buffers
+    of x [16][tile_len + 2 MAX_PAD + 24] bfloat16, mask [tile_len + 2
+    MAX_PAD + 8], 3 x 16 parameters."""
     if bf16:
-        stage = kernel * 8 * COUT_TILE + a_rows
-        return 4 * (3 * stage + 4 * (16 * 100 + 200 + 48) + carry_words)
+        rows = tile_len + 2 * MAX_PAD + 4
+        stage = kernel * W_TAP_BYTES // 4 + 8 * rows
+        raw = (CIN_STAGE * (tile_len + 2 * MAX_PAD + 24) // 2
+               + tile_len + 2 * MAX_PAD + 8 + 3 * CIN_STAGE)
+        return 4 * (32 + 3 * stage + 3 * raw + carry_words)
+    a_rows = 2 * (tile_len + 2 * MAX_PAD) * 4
     stage = 2 * kernel * 8 * COUT_TILE + 2 * a_rows
     return 4 * (2 * stage + 2 * (8 * 200 + 200 + 32) + carry_words)
 
@@ -200,25 +246,31 @@ def carry_tiles_per_chunk(batch: int, c_in: int, c_out: int, length: int,
                           tile_len: int, bf16: bool = False) -> int:
     """Tiles each carry CTA walks: ``tiles_per_cta`` where the carry buffer
     (2 pad columns of every input channel: hi and lo words in f32, one
-    bfloat16 in bf16) fits beside the stage buffers; one tile (no carry)
-    where it does not. On an H100 walking measured 4-7% faster than
-    one-tile chunks at k <= 7 in f32 (chip_smoke.py's ``chunks``;
-    PERF.md); the bf16 form's smaller stages let it walk at k = 11 too."""
+    bfloat16 in bf16, channels in pairs) fits beside the stage buffers; one
+    tile (no carry) where it does not. On an H100 walking measured 4-7%
+    faster than one-tile chunks at k <= 7 in f32 (chip_smoke.py's
+    ``chunks``; PERF.md); the bf16 form's smaller stages let it walk at
+    every k <= 11, d <= 5."""
     pad2 = (kernel - 1) * dilation
-    carry = c_in * pad2 // 2 if bf16 else 2 * c_in * pad2
+    carry = (c_in + 1) // 2 * pad2 if bf16 else 2 * c_in * pad2
     if smem_bytes(tile_len, kernel, carry, bf16) > MAX_SMEM:
         return 1
     return tiles_per_cta(batch, c_out, length, sms, tile_len)
 
 
-def column_tile(batch: int, c_out: int, length: int, sms: int) -> int:
+def column_tile(batch: int, c_out: int, length: int, sms: int,
+                bf16: bool = False) -> int:
     """Output columns per CTA: the tile whose busiest SM finishes first,
-    ``ceil(CTAs / sms) * TILE_COST``; among equals the longest. Large
-    shapes take 128 columns; a B=1 stage-0 stream window (15 tiles of 128
-    at C=256) takes 64, which spreads over twice the SMs."""
+    ``ceil(CTAs / sms) * TILE_COST`` (``TILE_COST_BF16`` for the bf16
+    forms); among equals the longest. f32: large shapes take 128 columns; a
+    B=1 stage-0 stream window (15 tiles of 128 at C=256) takes 64, which
+    spreads over twice the SMs. bf16: large shapes take 256, the B=1 stream
+    windows 128 (stage 1) and 64 (stage 0)."""
+    lens, cost = ((TILE_LENS_BF16, TILE_COST_BF16) if bf16
+                  else (TILE_LENS, TILE_COST))
     per_column = batch * -(-c_out // COUT_TILE)
-    return min(TILE_LENS, key=lambda tl: (
-        -(-per_column * -(-length // tl) // sms) * TILE_COST[tl], -tl))
+    return min(lens, key=lambda tl: (
+        -(-per_column * -(-length // tl) // sms) * cost[tl], -tl))
 
 
 @lru_cache(maxsize=None)
@@ -232,7 +284,7 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    # the bf16 forms: the same without the split-weight scratch
+    # the bf16 forms: the same without the split-weight scratch, w packed
     for fn in (lib.adain_snake_conv_bf16, lib.adain_snake_conv_carry_bf16):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
@@ -243,19 +295,28 @@ def _library():
         fn.restype = ctypes.c_int
     lib.adain_snake_conv_split_words.argtypes = [ctypes.c_int] * 3
     lib.adain_snake_conv_split_words.restype = ctypes.c_int64
-    lib.adain_snake_conv_geometry.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.adain_snake_conv_geometry.restype = None
+    for fn in (lib.adain_snake_conv_geometry,
+               lib.adain_snake_conv_geometry_bf16):
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = None
     geometry = (ctypes.c_int * 4)()
     lib.adain_snake_conv_geometry(geometry)
-    if tuple(geometry) != (TILE_LENS[0], COUT_TILE, MAX_KERNEL, MAX_PAD):
+    bf16 = (ctypes.c_int * 3)()
+    lib.adain_snake_conv_geometry_bf16(bf16)
+    if (tuple(geometry) != (TILE_LENS[0], COUT_TILE, MAX_KERNEL, MAX_PAD)
+            or tuple(bf16) != (TILE_LENS_BF16[0], CIN_STAGE, W_TAP_BYTES)):
         raise RuntimeError(f"adain_snake_conv: kernel geometry "
-                           f"{tuple(geometry)} differs from the wrapper's")
+                           f"{tuple(geometry)}, {tuple(bf16)} differs from "
+                           "the wrapper's")
     for case in ((128, 11, 0), (128, 7, 4608), (64, 3, 1280)):
-        if (lib.adain_snake_conv_smem_bytes(*case) != smem_bytes(*case)
-                or lib.adain_snake_conv_smem_bytes_bf16(*case)
-                != smem_bytes(*case, bf16=True)):
+        if lib.adain_snake_conv_smem_bytes(*case) != smem_bytes(*case):
             raise RuntimeError("adain_snake_conv: shared-memory sizes differ "
                                "from the wrapper's")
+    for case in ((256, 11, 0), (256, 11, 6400), (128, 7, 3072), (64, 3, 256)):
+        if (lib.adain_snake_conv_smem_bytes_bf16(*case)
+                != smem_bytes(*case, bf16=True)):
+            raise RuntimeError("adain_snake_conv: bf16 shared-memory sizes "
+                               "differ from the wrapper's")
     return lib
 
 
@@ -271,10 +332,14 @@ def _check(name, x, mask, scale, shift, alpha, w, b, kernel, dilation):
         raise ValueError(f"{name}: x must be [B, C_in, L], got "
                          f"{tuple(x.shape)}")
     batch, c_in, length = x.shape
-    if w.dim() != 3 or w.shape[:2] != (kernel, c_in):
+    c_out = _c_out(w, b)
+    if w.dim() == 6:
+        if tuple(w.shape) != packed_shape(kernel, c_in, c_out):
+            raise ValueError(f"{name}: packed w {tuple(w.shape)} != "
+                             f"{packed_shape(kernel, c_in, c_out)}")
+    elif w.dim() != 3 or w.shape[:2] != (kernel, c_in):
         raise ValueError(f"{name}: w {tuple(w.shape)} must be [k={kernel}, "
-                         f"C_in={c_in}, C_out]")
-    c_out = w.shape[2]
+                         f"C_in={c_in}, C_out], or pack_weights' output")
     want = {"mask": (batch, length), "scale": (batch, c_in),
             "shift": (batch, c_in), "alpha": (c_in,), "b": (c_out,)}
     for key, t in zip(want, (mask, scale, shift, alpha, b)):
@@ -291,7 +356,7 @@ def _check(name, x, mask, scale, shift, alpha, w, b, kernel, dilation):
         raise ValueError(f"{name}: all inputs must be on one CUDA device")
     if x.dtype == torch.bfloat16:
         _check_bf16(name, tensors)
-    elif any(t.dtype != torch.float32 for t in tensors):
+    elif w.dim() == 6 or any(t.dtype != torch.float32 for t in tensors):
         raise TypeError(f"{name} kernel takes float32, or the bf16 form's "
                         "types (x and w bfloat16)")
     elif not all(t.is_contiguous() for t in tensors):
@@ -304,28 +369,33 @@ def _check(name, x, mask, scale, shift, alpha, w, b, kernel, dilation):
     return False
 
 
+def _c_out(w, b):
+    """Output channels: w's last dimension, or b's for packed weights."""
+    return b.shape[0] if w.dim() == 6 else w.shape[2]
+
+
 def _check_bf16(name, tensors):
-    """What the bf16 forms take: x and w bfloat16, the rest float32; w a
-    K-major view (``kmajor``) 16-byte aligned; C_in a multiple of 8."""
+    """What the bf16 forms take: x and w bfloat16, the rest float32; w
+    stage-packed (``pack_weights``); x, w and the mask 16-byte aligned (the
+    kernels copy them in 16-byte chunks)."""
     x, mask, scale, shift, alpha, w, b = tensors
     if w.dtype != torch.bfloat16 or any(
             t.dtype != torch.float32 for t in (mask, scale, shift, alpha, b)):
         raise TypeError(f"{name} bf16 kernel takes x and w in bfloat16 and "
                         "mask, scale, shift, alpha and b in float32")
-    if not (all(t.is_contiguous() for t in tensors if t is not w)
-            and w.transpose(1, 2).is_contiguous()):
-        raise ValueError(f"{name} bf16 kernel takes contiguous inputs and w "
-                         "as kmajor(w)")
-    if x.shape[1] % 8 or x.data_ptr() % 4 or w.data_ptr() % 16:
-        raise ValueError(f"{name} bf16 kernel takes C_in a multiple of 8 "
-                         f"(got {x.shape[1]}), x 4-byte and w 16-byte "
-                         "aligned")
+    if w.dim() != 6:
+        raise ValueError(f"{name} bf16 kernel takes w as pack_weights(w)")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} bf16 kernel takes contiguous inputs")
+    if x.data_ptr() % 16 or w.data_ptr() % 16 or mask.data_ptr() % 16:
+        raise ValueError(f"{name} bf16 kernel takes x, w and the mask "
+                         "16-byte aligned")
 
 
 def _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
             *extra):
     batch, c_in, length = x.shape
-    c_out = w.shape[2]
+    c_out = _c_out(w, b)
     y = torch.empty((batch, c_out, length), dtype=x.dtype, device=x.device)
     scratch = []
     if x.dtype != torch.bfloat16:
@@ -371,14 +441,16 @@ def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
         return adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
                                       kernel, dilation)
     batch, _, length = x.shape
+    c_out = _c_out(w, b)
     sms = _sm_count(x.device.index or 0)
-    tile_len = column_tile(batch, w.shape[2], length, sms)
+    bf16 = x.dtype == torch.bfloat16
+    tile_len = column_tile(batch, c_out, length, sms, bf16)
     name, fn = "adain_snake_conv", _library().adain_snake_conv_f32
-    if x.dtype == torch.bfloat16:
+    if bf16:
         name, fn = "adain_snake_conv_bf16", _library().adain_snake_conv_bf16
     return _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel,
                  dilation, tile_len,
-                 tiles_per_cta(batch, w.shape[2], length, sms, tile_len))
+                 tiles_per_cta(batch, c_out, length, sms, tile_len))
 
 
 def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
@@ -391,11 +463,12 @@ def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
         return adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
                                       kernel, dilation)
     batch, c_in, length = x.shape
+    c_out = _c_out(w, b)
     sms = _sm_count(x.device.index or 0)
-    tile_len = column_tile(batch, w.shape[2], length, sms)
     bf16 = x.dtype == torch.bfloat16
-    per_chunk = carry_tiles_per_chunk(batch, c_in, w.shape[2], length,
-                                      kernel, dilation, sms, tile_len, bf16)
+    tile_len = column_tile(batch, c_out, length, sms, bf16)
+    per_chunk = carry_tiles_per_chunk(batch, c_in, c_out, length, kernel,
+                                      dilation, sms, tile_len, bf16)
     name, fn = ("adain_snake_conv_carry",
                 _library().adain_snake_conv_carry_f32)
     if bf16:

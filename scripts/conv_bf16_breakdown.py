@@ -1,19 +1,20 @@
 # -*- coding: utf-8 -*-
-"""Where the time of the bf16 halo-tile conv kernel goes, on a CUDA card.
+"""Where the time of the bf16 conv kernels goes, on a CUDA card.
 
     python3 scripts/conv_bf16_breakdown.py [--out breakdown.json]
 
 Builds variants of ``illufly_tts_tpu_torch/csrc/adain_snake_conv.cu`` with
 parts of the bf16 form switched off (a copy of the source with ``#ifdef``
 hooks put in by text substitution, compiled into ``build/breakdown/``):
-the MMAs (``NO_MMA``), the producers' weight copies (``NO_W``), their raw
-input loads (``NO_RAW``) and their activation (``NO_ACT``). Each variant is
-timed with CUDA events after an L2 flush at B=8, C=128, L=61440, k=11,
-d=1 (the Generator's last stage at frame bucket 512), beside the kernel as
-it is. A variant with a part off computes garbage; only its time means
-anything. A substitution that no longer matches the source raises.
-Prints one JSON line (and writes it to ``--out``) with each variant's ms
-and the card's name and power limit.
+the MMAs (``NO_MMA``), the producers' weight copies by the copy engine
+(``NO_W``), their raw input loads (``NO_RAW``), their activation
+(``NO_ACT``) and the consumers' epilogue stores (``NO_EPI``). Each variant
+of both forms, the halo tile at d=1 and the walking carry at d=5, is timed
+with CUDA events after an L2 flush at B=8, C=128, L=61440, k=11 (the
+Generator's last stage at frame bucket 512), beside the kernel as it is. A variant with a part off computes garbage;
+only its time means anything. A substitution that no longer matches the
+source raises. Prints one JSON line (and writes it to ``--out``) with each
+variant's ms by form and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -30,24 +31,33 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(HERE, "illufly_tts_tpu_torch", "csrc",
                       "adain_snake_conv.cu")
 OUT_DIR = os.path.join(HERE, "build", "breakdown")
-SHAPE = (8, 128, 61440, 11, 1)  # B, C, L, k, d
+SHAPE = (8, 128, 61440, 11)  # B, C, L, k
+FORMS = {"adain_snake_conv_bf16": 1, "adain_snake_conv_carry_bf16": 5}  # d
 
 # (text in the source, the same text with a hook) for each part
 HOOKS = (
-    ("        wgmma_bf16<N>(acc, ad, bd);\n",
-     "#ifndef NO_MMA\n        wgmma_bf16<N>(acc, ad, bd);\n#endif\n"),
-    ("  for (int t = 0; t < a.k; ++t, src += tap, dst += B_TAP) "
-     "copy16(dst, src, ok);\n",
-     "#ifndef NO_W\n  for (int t = 0; t < a.k; ++t, src += tap, dst += B_TAP) "
-     "copy16(dst, src, ok);\n#endif\n"),
-    ("  float* p_s = m_s + HWX;\n  const int c = p / 16;\n",
-     "  float* p_s = m_s + HWX;\n#ifdef NO_RAW\n"
-     "  asm volatile(\"cp.async.commit_group;\\n\" ::);\n  return;\n#endif\n"
-     "  const int c = p / 16;\n"),
+    ("        wgmma_bf16<TL>(acc, ad, bd);\n",
+     "#ifndef NO_MMA\n        wgmma_bf16<TL>(acc, ad, bd);\n#endif\n"),
+    ("  mbar_expect_tx(bar, a.k * TAP_BYTES);\n"
+     "  for (int t = 0; t < a.k; ++t)\n"
+     "    bulk_copy(dst + t * W_TAP_WORDS, src + t * TAP_BYTES, TAP_BYTES, "
+     "bar);\n",
+     "#ifndef NO_W\n  mbar_expect_tx(bar, a.k * TAP_BYTES);\n"
+     "  for (int t = 0; t < a.k; ++t)\n"
+     "    bulk_copy(dst + t * W_TAP_WORDS, src + t * TAP_BYTES, TAP_BYTES, "
+     "bar);\n#endif\n"),
+    ("  constexpr int PER_CHANNEL = PRODUCERS_B / CKB;\n",
+     "  constexpr int PER_CHANNEL = PRODUCERS_B / CKB;\n#ifdef NO_RAW\n"
+     "  commit_group();\n  return;\n#endif\n"),
     ("  const __nv_bfloat16* x_s = "
      "reinterpret_cast<const __nv_bfloat16*>(raw);\n",
      "#ifdef NO_ACT\n  return;\n#endif\n  const __nv_bfloat16* x_s = "
      "reinterpret_cast<const __nv_bfloat16*>(raw);\n"),
+    ("    const int o0 = co_tile * TN + 64 * g + 16 * ((threadIdx.x % 128) / "
+     "32) +\n",
+     "#ifdef NO_EPI\n    continue;\n#endif\n"
+     "    const int o0 = co_tile * TN + 64 * g + 16 * ((threadIdx.x % 128) / "
+     "32) +\n"),
 )
 VARIANTS = {
     "kernel": (),
@@ -58,6 +68,8 @@ VARIANTS = {
     "producers: activation + raw": ("NO_MMA", "NO_W"),
     "MMAs alone": ("NO_W", "NO_RAW", "NO_ACT"),
     "neither (barriers, epilogue)": ("NO_MMA", "NO_W", "NO_RAW", "NO_ACT"),
+    "barriers alone (no epilogue stores)": ("NO_MMA", "NO_W", "NO_RAW",
+                                            "NO_ACT", "NO_EPI"),
 }
 
 
@@ -92,10 +104,11 @@ def build() -> dict:
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
         libs[name] = ctypes.CDLL(lib)
-        fn = libs[name].adain_snake_conv_bf16
-        fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        for form in FORMS:
+            fn = getattr(libs[name], form)
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
     return libs
 
 
@@ -111,7 +124,7 @@ def main() -> None:
     from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
 
     libs = build()
-    batch, channels, length, k, d = SHAPE
+    batch, channels, length, k = SHAPE
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape):
@@ -121,12 +134,17 @@ def main() -> None:
               torch.ones(batch, length, device="cuda"),
               1.0 + 0.1 * randn(batch, channels), 0.1 * randn(batch, channels),
               randn(channels).abs() + 0.5,
-              asc.kmajor(randn(k, channels, channels)
-                         / math.sqrt(channels * k)),
+              asc.pack_weights(randn(k, channels, channels)
+                               / math.sqrt(channels * k)),
               0.1 * randn(channels))
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    tile_len = asc.column_tile(batch, channels, length, sms)
-    per_cta = asc.tiles_per_cta(batch, channels, length, sms, tile_len)
+    tile_len = asc.column_tile(batch, channels, length, sms, bf16=True)
+    per_cta = {
+        "adain_snake_conv_bf16": asc.tiles_per_cta(
+            batch, channels, length, sms, tile_len),
+        "adain_snake_conv_carry_bf16": asc.carry_tiles_per_chunk(
+            batch, channels, channels, length, k, FORMS[
+                "adain_snake_conv_carry_bf16"], sms, tile_len, bf16=True)}
     flush = torch.empty(64 * 2 ** 20, device="cuda")
 
     def device_ms(fn, reps=30):
@@ -144,12 +162,13 @@ def main() -> None:
             times.append(start.elapsed_time(end))
         return statistics.median(times)
 
-    out = {"shape": list(SHAPE), "tile_len": tile_len,
-           "tiles_per_cta": per_cta, "ms": {}}
-    for name, lib in libs.items():
-        fn = lib.adain_snake_conv_bf16
-        out["ms"][name] = device_ms(lambda: asc._launch(
-            fn, *inputs, k, d, tile_len, per_cta))
+    out = {"shape": list(SHAPE), "dilation": FORMS, "tile_len": tile_len,
+           "tiles_per_cta": per_cta, "ms": {form: {} for form in FORMS}}
+    for form, d in FORMS.items():
+        for name, lib in libs.items():
+            fn = getattr(lib, form)
+            out["ms"][form][name] = device_ms(lambda: asc._launch(
+                fn, *inputs, k, d, tile_len, per_cta[form]))
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

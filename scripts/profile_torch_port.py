@@ -17,7 +17,12 @@ collect`` in pcm16; and ``b1_stream``, the ``b1`` string streamed windowed
 (``stream_decode(exact=False)``, 64-frame windows with 16-frame halos),
 which also reports the time to the first chunk and the device span of
 ``decode_prepare`` and of each window's Generator (``decode_window``),
-between CUDA events recorded around each call (idle gaps included).
+between CUDA events recorded around each call (idle gaps included); and
+``bench_bf16``, bench.py's serving shape (32 copies of a 250-character zh
+text, token bucket 256, frame bucket 512) in pcm16 on a
+``KokoroConfig(dtype=torch.bfloat16)`` engine with the same weights, so
+the bf16 render's device time splits by class too (its conv kernels in
+the ``*_bf16`` classes).
 Every request also reports the kernel wrappers' own launch counts, and the
 kernels that ran just before each iSTFT kernel launch on the device
 timeline (from the profiler's trace): on the Generator's tail that is
@@ -42,6 +47,8 @@ BUILD = os.path.join(ROOT, "build")  # git-ignored scratch for the trace
 
 CLASSES = (  # first match wins
     ("istft_oa", r"istft_oa"),
+    ("adain_snake_conv_carry_bf16", r"adain_snake_conv_carry_bf16"),
+    ("adain_snake_conv_bf16", r"adain_snake_conv_tile_bf16"),
     ("adain_snake_conv_carry", r"adain_snake_conv_carry"),
     ("adain_snake_conv", r"adain_snake_conv_tile"),
     # the weight split both conv wrappers launch before their kernel
@@ -58,6 +65,9 @@ REQUESTS = {
            "tsʰɤ↘ʂɨ↘i↗kɤ↘ ðə.", "tʃən→pu↗tsʰwo↘ hi."] * 2,
 }
 STREAM = ("b1_stream", "b1", 64, 16)  # name, texts, window, halo frames
+# bench.py's serving shape: 32 copies of a 250-character zh text
+BENCH = ("bench_bf16", ("ni↗xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst. " * 12)[:250],
+         32, 256, 512)  # name, text, batch, token bucket, frame bucket
 SPANS = ("decode_prepare", "decode_window")
 
 
@@ -114,6 +124,8 @@ def main() -> int:
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
 
+    import dataclasses
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -122,6 +134,7 @@ def main() -> int:
         return 1
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
     from illufly_tts_tpu_torch.model.config import KokoroConfig
+    from illufly_tts_tpu_torch.model.params import export_flax_params
     from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
     from illufly_tts_tpu_torch.ops import istft_oa as oa
 
@@ -144,6 +157,16 @@ def main() -> int:
         synth.collect(h)
         return h, {}
 
+    bf16 = Synthesizer(dataclasses.replace(synth.config, dtype=torch.bfloat16),
+                       params=export_flax_params(synth.model),
+                       token_buckets=(BENCH[3],), frame_buckets=(BENCH[4],))
+    bf16.register_random_voice("v", seed=0)
+
+    def bench(texts, voices):
+        h = bf16.dispatch(texts, voices, fmt="pcm16")
+        bf16.collect(h)
+        return h, {}
+
     def stream(texts, voices):
         t0 = time.perf_counter()
         h = synth.dispatch(texts, voices)
@@ -155,12 +178,14 @@ def main() -> int:
 
     runs = [(name, texts, batch) for name, texts in REQUESTS.items()]
     runs.append((STREAM[0], REQUESTS[STREAM[1]], stream))
+    runs.append((BENCH[0], [BENCH[1]] * BENCH[2], bench))
     for name, texts, run in runs:
         voices = ["v"] * len(texts)
         run(texts, voices)  # warm
         torch.cuda.synchronize()
-        oa.launches = 0
-        asc.launches.update({k: 0 for k in asc.launches})
+        oa.launches = oa.launches_bf16 = 0
+        for table in (asc.launches, asc.launches_bf16):
+            table.update({k: 0 for k in table})
         for span in spans.values():
             span.clear()
         with profile(activities=[ProfilerActivity.CPU,
@@ -169,7 +194,9 @@ def main() -> int:
             h, extra = run(texts, voices)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-        extra["launches"] = {"istft_oa": oa.launches, **asc.launches}
+        extra["launches"] = {"istft_oa": oa.launches, **asc.launches,
+                             "istft_head_bf16": oa.launches_bf16,
+                             **asc.launches_bf16}
         for key, span in spans.items():
             if span:
                 extra[f"{key}_span_ms_each"] = sum(

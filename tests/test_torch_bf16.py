@@ -174,20 +174,29 @@ def test_conv_plain_bf16_matches_pallas_carry(k, d, length):
                                   "adain_snake_conv_carry"])
 def test_conv_wrappers_bf16_on_cpu_take_plain_path(name):
     """A bfloat16 x on the CPU runs the plain bf16 version, with w as the
-    model holds it (``kmajor``) or as it comes; nothing is launched."""
+    model holds it (stage-packed, ``pack_weights``, as a bf16
+    ``AdaSnakeResBlock`` hands it over) or as it comes; nothing is
+    launched."""
     x, *rest = map(torch.from_numpy, _conv_inputs(7, 200, seed=3))
     x = x.bfloat16()
     mask, scale, shift, alpha, w, bias = rest
-    w_k = asc.kmajor(w)
-    assert w_k.dtype == BF16 and w_k.shape == w.shape
-    assert w_k.transpose(1, 2).is_contiguous()
+    c_in, c_out = w.shape[1:]
+    w_p = asc.pack_weights(w)
+    assert w_p.dtype == BF16 and w_p.is_contiguous()
+    assert tuple(w_p.shape) == asc.packed_shape(7, c_in, c_out)
+    block = tl.AdaSnakeResBlock(c_in, 7, (3,), 8).bfloat16()
+    held = block._weight(block.conv1_0)
+    assert tuple(held.shape) == asc.packed_shape(7, c_in, c_in)
+    assert block._weight(block.conv1_0) is held  # made once per version
     before = dict(asc.launches), dict(asc.launches_bf16)
-    out = getattr(asc, name)(x, mask, scale, shift, alpha, w_k, bias, 7, 3)
+    out = getattr(asc, name)(x, mask, scale, shift, alpha, w_p, bias, 7, 3)
+    as_is = getattr(asc, name)(x, mask, scale, shift, alpha, w, bias, 7, 3)
     assert (dict(asc.launches), dict(asc.launches_bf16)) == before
     want = asc.adain_snake_conv_plain(x, mask, scale, shift, alpha, w, bias,
                                       7, 3)
     assert out.dtype == BF16
     torch.testing.assert_close(out, want, rtol=0, atol=0)
+    torch.testing.assert_close(as_is, want, rtol=0, atol=0)
 
 
 def test_bf16_moments_run_in_float32():
@@ -524,8 +533,9 @@ def test_bf16_engine_saves_f32_and_loads(tmp_path):
     block = b16.net.decoder.generator.res_0_0
     w_after = block._weight(block.conv1_0)
     assert not torch.equal(w_after, w_before)
+    want = block.conv1_0.weight.permute(2, 1, 0)  # held stage-packed
     torch.testing.assert_close(
-        w_after, block.conv1_0.weight.permute(2, 1, 0), rtol=0, atol=0)
+        asc.unpack_weights(w_after, *want.shape[1:]), want, rtol=0, atol=0)
     b16.register_random_voice("v", seed=1)
     audio = b16.synthesize_batch(["ni→xau↓ma"], ["v"], fmt="f32")[0]
     assert np.isfinite(audio).all() and audio.size > 0

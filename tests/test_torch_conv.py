@@ -286,3 +286,151 @@ def test_carry_walks_where_its_buffer_fits():
         30] * 4
     assert chunk(11, 3) == chunk(11, 5) == 1
     assert asc.smem_bytes(128, 11, 0) <= asc.MAX_SMEM
+
+
+# ---- the bf16 forms' held weights and geometry ------------------------------
+
+PACK_CASES = [(11, 128, 128), (7, 24, 256), (3, 256, 256), (3, 24, 40)]
+
+
+@pytest.mark.parametrize("kernel,c_in,c_out", PACK_CASES)
+def test_pack_weights_round_trips_bit_for_bit(kernel, c_in, c_out):
+    """``unpack_weights(pack_weights(w))`` gives back w in bfloat16 bit
+    for bit, C_in and C_out not multiples of the 16-channel stage or the
+    128-channel tile included."""
+    w = torch.from_numpy(np.random.RandomState(kernel).randn(
+        kernel, c_in, c_out).astype(np.float32)).bfloat16()
+    packed = asc.pack_weights(w)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    assert tuple(packed.shape) == asc.packed_shape(kernel, c_in, c_out)
+    back = asc.unpack_weights(packed, c_in, c_out)
+    assert torch.equal(back.view(torch.int16), w.view(torch.int16))
+
+
+@pytest.mark.parametrize("kernel,c_in,c_out", PACK_CASES)
+def test_packed_weights_at_the_kernels_addresses(kernel, c_in, c_out):
+    """A pure-Python model of the bytes the bf16 kernels read: the copy
+    engine brings stage ``st`` of output tile ``o_tile`` from byte
+    ``(o_tile * stages + st) * k * W_TAP_BYTES`` (``start_weights_bf16``),
+    and the MMAs read tap t's row (output channel) r of k half ``half``
+    at ``t * W_TAP_BYTES + half * 128 * 16 + r * 16`` of the stage, eight
+    input channels of 2 bytes (the K-major descriptor: 16-byte rows, the
+    halves 128 rows apart). Each such byte pair holds w's value, zero past
+    C_in and C_out."""
+    rng = np.random.RandomState(c_out)
+    w = rng.randn(kernel, c_in, c_out).astype(np.float32)
+    raw = asc.pack_weights(torch.from_numpy(w)).view(torch.int16).numpy()
+    raw = raw.reshape(-1)
+    want = torch.from_numpy(w).bfloat16().view(torch.int16).numpy()
+    tiles, stages = -(-c_out // asc.COUT_TILE), -(-c_in // asc.CIN_STAGE)
+    assert raw.size * 2 == tiles * stages * kernel * asc.W_TAP_BYTES
+    seen = 0
+    for o_tile in range(tiles):
+        for st in range(stages):
+            stage_byte = (o_tile * stages + st) * kernel * asc.W_TAP_BYTES
+            for t in range(kernel):
+                for half in range(2):
+                    rows = np.arange(asc.COUT_TILE)[:, None]
+                    j = np.arange(8)[None, :]
+                    byte = (stage_byte + t * asc.W_TAP_BYTES
+                            + half * asc.COUT_TILE * 16 + rows * 16 + 2 * j)
+                    got = raw[byte // 2]
+                    ci = st * asc.CIN_STAGE + 8 * half + j
+                    co = o_tile * asc.COUT_TILE + rows
+                    inside = (ci < c_in) & (co < c_out)
+                    expect = np.where(inside, want[t, np.minimum(ci, c_in - 1),
+                                                   np.minimum(co, c_out - 1)],
+                                      0)
+                    np.testing.assert_array_equal(got, expect)
+                    seen += got.size
+    assert seen == raw.size
+
+
+def test_bf16_plain_takes_packed_weights():
+    """The plain version gives the same bits for w as it comes and packed:
+    the CPU path of a model that holds packed weights."""
+    x, mask, gamma, beta, alpha, w, b = _inputs(7, 130)
+    xt = torch.from_numpy(x).permute(0, 2, 1).contiguous().bfloat16()
+    w = torch.from_numpy(w)
+    scale = 1.0 + torch.from_numpy(gamma)
+    args = (xt, torch.from_numpy(mask), scale, torch.from_numpy(beta),
+            torch.from_numpy(alpha).reshape(-1))
+    bias = torch.from_numpy(b).reshape(-1)
+    want = asc.adain_snake_conv_plain(*args, w, bias, 7, 3)
+    got = asc.adain_snake_conv_plain(*args, asc.pack_weights(w), bias, 7, 3)
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+BF16_MAIN_TILES = {
+    (32, 128, 61440): 256,  # bench.py's shape (B=32, F 512), stage 1
+    (8, 128, 61440): 256,   # the timed shape, stage 1
+    (32, 256, 10240): 256,  # bench.py's stage 0
+    (8, 256, 10240): 256,   # B=8 stage 0
+    (1, 128, 11520): 128,   # a B=1 stream window (64 + 2 * 16 frames)
+    (1, 256, 1920): 64,     # its stage 0
+}
+
+
+@pytest.mark.parametrize("shape", sorted(BF16_MAIN_TILES))
+def test_bf16_column_tile_by_shape(shape):
+    """The bf16 forms take 256-column tiles at the batch path's shapes
+    (each stage's weights feed 256 columns) and shorter ones at the B=1
+    stream windows, which spread over more SMs; each choice finishes the
+    busiest of 132 SMs first by ``TILE_COST_BF16``, the longest among
+    equals."""
+    batch, c_out, length = shape
+    tile_len = asc.column_tile(batch, c_out, length, 132, bf16=True)
+    assert tile_len == BF16_MAIN_TILES[shape]
+
+    def busiest(tl):
+        ctas = batch * -(-c_out // asc.COUT_TILE) * -(-length // tl)
+        return -(-ctas // 132) * asc.TILE_COST_BF16[tl]
+
+    best = min(busiest(tl) for tl in asc.TILE_LENS_BF16)
+    assert busiest(tile_len) == best
+    assert all(tl <= tile_len for tl in asc.TILE_LENS_BF16
+               if busiest(tl) == best)
+
+
+BF16_KD = [(k, d) for k in (3, 7, 11) for d in (1, 2, 3, 4, 5)
+           if (k - 1) * d % 2 == 0]
+
+
+@pytest.mark.parametrize("tile_len", [256, 128, 64])
+def test_bf16_shared_memory_fits_with_the_carry(tile_len):
+    """Every bf16 launch of k <= 11, d <= 5 fits the 232448 bytes a CTA
+    may take, with the walking carry of C_in = 256 (the widest Generator
+    stage) beside its stages; the formula is the source's (checked at
+    load on the card)."""
+    for k, d in BF16_KD:
+        carry = (256 + 1) // 2 * (k - 1) * d
+        assert asc.smem_bytes(tile_len, k, 0, bf16=True) <= asc.MAX_SMEM
+        assert asc.smem_bytes(tile_len, k, carry, bf16=True) <= asc.MAX_SMEM
+    # at the largest launch: 3 stages of 45 KB weights and a 324-row
+    # window, 3 raw buffers (x rows of 344, a 328-column mask, 48
+    # parameters), 128 bytes of mbarriers
+    assert asc.smem_bytes(256, 11, 0, bf16=True) == 4 * (
+        32 + 3 * (11 * 1024 + 8 * 324) + 3 * (16 * 172 + 328 + 48))
+
+
+@pytest.mark.parametrize("kernel,dilation", [(3, 5), (7, 3), (11, 1),
+                                             (11, 5)])
+@pytest.mark.parametrize("shape", sorted(BF16_MAIN_TILES))
+def test_bf16_carry_walks_and_covers_the_card(shape, kernel, dilation):
+    """The bf16 carry walks at every main-path shape (its buffer fits):
+    chunks of the chosen tile cover each row exactly, in about one wave;
+    the halo-tile runs likewise."""
+    batch, c_out, length = shape
+    sms = 132
+    tile_len = asc.column_tile(batch, c_out, length, sms, bf16=True)
+    per_chunk = asc.carry_tiles_per_chunk(batch, c_out, c_out, length,
+                                          kernel, dilation, sms, tile_len,
+                                          bf16=True)
+    per_cta = asc.tiles_per_cta(batch, c_out, length, sms, tile_len)
+    n_tiles = -(-length // tile_len)
+    rows = batch * -(-c_out // asc.COUT_TILE)
+    assert per_chunk == per_cta  # walking, not one-tile chunks
+    runs = -(-n_tiles // per_chunk)
+    assert (runs - 1) * per_chunk < n_tiles <= runs * per_chunk
+    assert runs * rows <= max(sms, rows)
+    assert runs * rows >= min(sms, n_tiles * rows) / 2

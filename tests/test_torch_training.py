@@ -408,6 +408,92 @@ def test_dataset_batches_match_jax(tmp_path):
                                           err_msg=key)
 
 
+# ``DEGENERATE`` on the port's parameter names (chip_smoke.py's form)
+PORT_DEGENERATE = re.compile(r"\.conv1(_\d)?\.bias$|\.noise_conv_\d\.")
+
+
+def _split_gradients(model, arrays, where):
+    """The waveform objective's gradients with the fused convs' forward in
+    the kernels' 3xTF32 split arithmetic (``adain_snake_conv_3xtf32_plain``;
+    backward plain, as ``ops/kernel_grad.py`` does on the card) in the
+    Generator's noise blocks (``where="noise"``), in every other
+    residual block (``"main"``), in both (``"all"``) or nowhere."""
+    from illufly_tts_tpu_torch.model import layers as port_layers
+    from illufly_tts_tpu_torch.ops.kernel_grad import KernelFunction
+
+    def split(x, mask, scale, shift, alpha, w, b, k, d=1):
+        def launch(x, sc, sh, al, w, b):
+            return asc.adain_snake_conv_3xtf32_plain(x, mask, sc, sh, al, w,
+                                                     b, k, d)
+
+        def plain(x, sc, sh, al, w, b):
+            return asc.adain_snake_conv_plain(x, mask, sc, sh, al, w, b, k, d)
+
+        return KernelFunction.apply(launch, plain, x, scale, shift, alpha, w,
+                                    b)
+
+    inside = [False]
+
+    def conv(*args):
+        use = where == "all" or where == ("noise" if inside[0] else "main")
+        return (split if use else asc.adain_snake_conv_plain)(*args)
+
+    hooks = []
+    for name, block in model.decoder.generator.named_children():
+        if name.startswith("noise_res_"):
+            hooks += [block.register_forward_pre_hook(
+                          lambda m, a: inside.__setitem__(0, True)),
+                      block.register_forward_hook(
+                          lambda m, a, o: inside.__setitem__(0, False))]
+    saved = (port_layers.adain_snake_conv, port_layers.adain_snake_conv_carry)
+    port_layers.adain_snake_conv = port_layers.adain_snake_conv_carry = conv
+    try:
+        model.zero_grad(set_to_none=True)
+        loss, _ = port_step.make_loss_fn(model, FRAMES)(port_batch(arrays))
+        loss.backward()
+    finally:
+        port_layers.adain_snake_conv, port_layers.adain_snake_conv_carry = (
+            saved)
+        for hook in hooks:
+            hook.remove()
+    return {name: p.grad.detach().double().clone()
+            for name, p in model.named_parameters() if p.grad is not None}
+
+
+def test_noise_blocks_set_the_gradient_spread():
+    """Why ``chip_smoke.py`` phase 10 runs the Generator's noise blocks
+    through the plain version in both of its gradient passes
+    (``NOISE_BLOCK``). At the random init the harmonic source is silent, so
+    each ``noise_conv_i`` sees the spectrum of a silent signal (its output
+    is constant in time up to rounding and the signs of zero bins:
+    ``DEGENERATE``'s class 2) and the noise block after it divides that
+    near-constant channel by sqrt(var + 1e-5) in its AdaINs, then adds the
+    result to the main path. The branch's output is thus decided by the
+    rounding of whichever conv version runs in it, and it reaches every
+    leaf: the kernels' split arithmetic in the noise blocks alone moves the
+    gradients as much as everywhere, and several times more than in all
+    the other residual blocks together. Measured here (CPU, relative L2
+    of the median / worst leaf): 2.1e-5 / 1.3e-4 with the split arithmetic
+    in the noise blocks alone, 2.7e-6 / 1.1e-5 in the main path alone. On
+    the card, where the kernels' tensor-core sums round coarser, the
+    comparison through the kernels in the noise blocks too is what
+    ``scripts/grad_check_repeat.py`` reports beside phase 10's (PERF.md)."""
+    jcfg = small_config()
+    model = port_model(jcfg, init_params(jcfg))
+    trainable_parameters(model)
+    arrays = _batch(jcfg)
+    plain = _split_gradients(model, arrays, "none")
+    spread = {}
+    for where in ("all", "noise", "main"):
+        got = _split_gradients(model, arrays, where)
+        errs = [rel_l2(got[k].numpy(), g.numpy()) for k, g in plain.items()
+                if not PORT_DEGENERATE.search(k)]
+        spread[where] = (float(np.median(errs)), max(errs))
+    assert spread["noise"][0] >= 0.5 * spread["all"][0], spread
+    assert spread["noise"][0] >= 3 * spread["main"][0], spread
+    assert spread["noise"][1] >= 3 * spread["main"][1], spread
+
+
 def test_tables_made_while_serving_enter_a_training_graph():
     """The STFT tables and the mel filterbank are cached per device; one
     first made under ``torch.inference_mode()`` (serving) must not be an
