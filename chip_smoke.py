@@ -97,10 +97,29 @@ From the root of a checkout. It
    the four formats, an exact stream bitwise equal to ``collect()`` and a
    windowed stream (first-chunk ms); and the card's bf16 render of zh_1
    against the CPU's: frame totals within ``FRAME_SLACK`` and mel-L1(card
-   bf16, CPU bf16) <= mel-L1(CPU bf16, CPU f32).
+   bf16, CPU bf16) <= mel-L1(CPU bf16, CPU f32);
+12. warms the engine as CUDA graphs (``Synthesizer.warmup``), under cuDNN's
+   deterministic algorithms: phase 4's engine captures phase 4's three keys
+   in the four formats (3 stage-A and 12 stage-B graphs; each capture's
+   seconds and the graph pool's bytes printed), then serves the same
+   requests again: every key replays, the audio is bitwise equal to the
+   same engine's eager render before the warmup, the launches are exact with
+   the replays counted, two batches of one key in flight at once keep their
+   own outputs, exact streams of replayed handles concatenate to
+   ``collect()``, and the windowed stream (eager) is bitwise as before; wall
+   time eager (a fresh engine on the same weights) against replayed, in
+   turns, per request and format, and through the scheduler (phase 7's
+   first batch); bench.py's shape in bf16 (pcm16, mulaw8k) replayed bitwise
+   equal to eager, with exact bf16 launches, and timed; ``create_app`` with
+   ``TTS_WARMUP=1`` on a fresh engine (startup to ready, the first
+   request's stages replayed, the background pass, a request of another
+   warmed shape replayed); ``load_params`` on the warmed engine leaves no
+   graph and renders bitwise as a fresh engine on those weights.
 
-It prints a ``{"kernels": [...]}`` JSON line and, last, ``{"ok": true,
-"device": {...}}``. Any failed check exits non-zero with no result line;
+It prints a ``{"kernels": [...]}`` JSON line (each kernel's launches per
+phase; ``launches_replayed``: those of phase 12's replays) and, last,
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
+result line;
 so does a host without CUDA, or a directory without the port's package.
 """
 from __future__ import annotations
@@ -2052,6 +2071,447 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
     return out, rows
 
 
+GRAPH_REPS = 5  # phase 12: timed renders per engine, in turns
+
+
+def pool_bytes(torch, pool):
+    """Bytes the caching allocator holds in the graph memory pool
+    ``pool`` (``torch.cuda.graph_pool_handle()``), or None where its
+    snapshot names no pools."""
+    segments = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in seg for seg in segments):
+        return None
+    return sum(seg["total_size"] for seg in segments
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
+                 conv_per_generator, card, failures, reset_counts,
+                 check_counts, check_wave):
+    """Phase 12: the engine's warmup as CUDA graphs. -> (summary, launches
+    the replays made by kernel, f32 and bf16)."""
+    import asyncio
+    import dataclasses
+    import tempfile
+    import threading
+
+    import aiohttp
+    from aiohttp import web
+
+    from illufly_tts_tpu_torch.api import endpoints
+    from illufly_tts_tpu_torch.api.auth import create_access_token
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.runtime.scheduler import (
+        TaskStatus,
+        TTSServiceManager,
+    )
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "cudnn_deterministic": True}
+    # bitwise comparisons need cuDNN's deterministic algorithms; the graphs
+    # are captured under them too, so eager and replayed run the same ones
+    torch.backends.cudnn.deterministic = True
+    tree = export_flax_params(synth.model)
+
+    def render(engine, texts, fmt, voice="smoke_voice", **kw):
+        h = engine.dispatch(texts, [voice] * len(texts), fmt=fmt, **kw)
+        return h, engine.collect(h)
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and x.tobytes() == y.tobytes()
+            for x, y in zip(a, b))
+
+    def check(label, ok):
+        if not ok:
+            failures.append(f"phase 12: {label}")
+        return ok
+
+    # -- eager references on phase 4's engine, before any warmup
+    eager, keys = {}, {}
+    for name, texts in requests.items():
+        for fmt in FORMATS:
+            h, eager[name, fmt] = render(synth, texts, fmt)
+            keys[name] = (h.b_bucket, h.t_bucket, h.f_bucket)
+    texts4 = requests["mixed_4"]
+    pair = None  # a second mixed_4 batch on the same key, other durations
+    for speed in (1.04, 0.96, 1.1, 0.9):
+        h, clips = render(synth, texts4, "f32", speeds=[speed] * 4)
+        if (h.b_bucket, h.t_bucket, h.f_bucket) == keys["mixed_4"]:
+            pair = (speed, clips)
+            break
+    check("no second mixed_4 batch on mixed_4's key", pair is not None)
+    h = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt="f32")
+    windowed_eager = list(synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
+                                              exact=False))
+
+    # -- warmup(narrow=False): phase 4's three keys in the four formats
+    out["captures"], out["warmup_s"] = [], {}
+    for name, (b, t, f) in keys.items():
+        before = set(synth._graphs)
+        out["warmup_s"][name] = synth.warmup(
+            batch_sizes=(b,), token_sizes=(t,), frame_sizes=(f,),
+            formats=FORMATS, narrow=False)
+        torch.cuda.synchronize()
+        pool = pool_bytes(torch, synth._graph_pool)
+        for key in sorted(set(synth._graphs) - before, key=len):
+            g = synth._graphs[key]
+            out["captures"].append({"key": list(key), "warm_pass_s": g.warm_s,
+                                    "capture_s": g.lock_s,
+                                    "pool_reserved_bytes": pool})
+            log(f"  captured {key}: warm pass {g.warm_s:.3f} s, "
+                f"capture {g.lock_s:.3f} s; {len(g.launches)} kernels, "
+                f"{sum(g.launches.values())} launches a replay")
+        log(f"warmup {name} (B={b}, T={t}, F={f}, {len(FORMATS)} formats): "
+            f"{out['warmup_s'][name]:.2f} s; graph pool reserved "
+            f"{(pool or 0) / 2**30:.2f} GiB (None: {pool is None}), all "
+            f"reserved "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB ({card})")
+    check(f"{len(synth._graphs)} graphs, want 3 stage A + 12 stage B",
+          len(synth._graphs) == 3 + 3 * len(FORMATS))
+    out["pool_reserved_bytes"] = pool_bytes(torch, synth._graph_pool)
+
+    # -- the same requests replayed: bitwise, exact launches, replay counts
+    reset_counts()
+    replays0 = dict(synth.graph_replays)
+    out["bitwise_equal"] = {}
+    renders = 0
+    for name, texts in requests.items():
+        for fmt in FORMATS:
+            h, clips = render(synth, texts, fmt)
+            renders += 1
+            per_frame = 200 if fmt == "mulaw8k" else 600
+            for i, wave in enumerate(clips):
+                check_wave(f"replayed {name}/{fmt}[{i}]", wave,
+                           int(h.fitted_totals[i]) * per_frame)
+            out["bitwise_equal"][f"{name}/{fmt}"] = check(
+                f"replayed {name}/{fmt} differs from the eager render",
+                same(clips, eager[name, fmt]))
+    replayed = check_counts(f"replayed batch path ({renders} renders)",
+                            renders)
+    grown = {key: synth.graph_replays[key] - replays0.get(key, 0)
+             for key in synth._graphs}
+    want = {key: len(FORMATS) if len(key) == 2 else 1 for key in grown}
+    check(f"replays per key {grown}, want {want}", grown == want)
+    log(f"replayed: {renders} renders bitwise equal to the eager renders: "
+        f"{all(out['bitwise_equal'].values())}; replays per key {grown}")
+    if pair is not None:
+        hx = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt="f32")
+        hy = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt="f32",
+                            speeds=[pair[0]] * 4)
+        synth.launch_decode(hx)
+        synth.launch_decode(hy)
+        ok = same(synth.collect(hx), eager["mixed_4", "f32"]) and same(
+            synth.collect(hy), pair[1])
+        out["two_batches_in_flight_bitwise"] = check(
+            "two batches of one key in flight: a handle lost its outputs", ok)
+        log(f"two mixed_4 batches on one key dispatched before either "
+            f"decodes (the scheduler's order), each bitwise its eager "
+            f"render: {ok}")
+    out["exact_stream_bitwise"] = {}
+    for fmt in ("f32", "pcm16"):
+        h = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt=fmt)
+        stream = np.concatenate(list(synth.stream_decode(
+            h, window_frames=STREAM_WINDOW)), axis=1)
+        whole = synth.collect(h)
+        ok = same(whole, eager["mixed_4", fmt]) and all(
+            stream[i, : c.size].tobytes() == c.tobytes()
+            for i, c in enumerate(whole))
+        out["exact_stream_bitwise"][fmt] = check(
+            f"exact stream of a replayed handle ({fmt}) differs", ok)
+    reset_counts()
+    h = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt="f32")
+    chunks = list(synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
+                                      exact=False))
+    windowed = check_counts("windowed stream on the warmed engine (eager)",
+                            len(chunks))
+    out["windowed_unchanged"] = check(
+        "the windowed stream changed after warmup",
+        same(chunks, windowed_eager))
+    log(f"exact streams of replayed handles bitwise equal to collect(): "
+        f"{out['exact_stream_bitwise']}; windowed stream ({len(chunks)} "
+        f"windows, eager) bitwise as before warmup: "
+        f"{out['windowed_unchanged']}, launches {windowed}")
+
+    # -- launch_decode's host time at long_8's shape, replayed (phase 8
+    # times it eager)
+    out["launch_decode_replayed"] = repair_timing(
+        torch, synth, requests["long_8"], failures)
+
+    # -- wall: a fresh unwarmed engine on the same weights vs replayed
+    inventory = {"token_buckets": synth.token_buckets,
+                 "frame_buckets": synth.frame_buckets,
+                 "batch_buckets": synth.batch_buckets}
+    cold = Synthesizer(synth.config, params=tree, **inventory)
+    cold.register_random_voice("smoke_voice", seed=0)
+    cold.register_random_voice("smoke_voice_b", seed=1)
+    for name, texts in requests.items():
+        for fmt in FORMATS:
+            render(cold, texts, fmt)  # the eager engine's first calls
+    out["wall_ms"] = {}
+    for name, texts in requests.items():
+        for fmt in FORMATS:
+            runs = {"eager": [], "replayed": []}
+            for rep in range(GRAPH_REPS):
+                turn = [("eager", cold), ("replayed", synth)]
+                for label, engine in (turn if rep % 2 == 0 else turn[::-1]):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    render(engine, texts, fmt)
+                    runs[label].append((time.perf_counter() - t0) * 1e3)
+            row = {label: {"ms": ms, "median_ms": statistics.median(ms)}
+                   for label, ms in runs.items()}
+            out["wall_ms"][f"{name}/{fmt}"] = row
+            log(f"wall ms, {name}/{fmt} (dispatch -> collect, medians of "
+                f"{GRAPH_REPS}, in turns): eager "
+                f"{row['eager']['median_ms']:.1f}, replayed "
+                f"{row['replayed']['median_ms']:.1f} ({card})")
+
+    # -- through the scheduler: phase 7's first batch, eager vs replayed
+    first = TASKS[:4]
+    decoded = []
+    launch_decode = synth.launch_decode
+
+    def recorded_launch(handle):
+        done = launch_decode(handle)
+        decoded.append((handle.b_bucket, handle.t_bucket, handle.f_bucket,
+                        handle.fmt))
+        return done
+
+    async def first_batch(p, out_dir):
+        manager = TTSServiceManager(pipeline=p, batch_size=4,
+                                    output_dir=out_dir)
+        await manager.start()
+        try:
+            with p._cache_lock:
+                p._audio_cache.clear()
+            sent = []
+            for user, seq, text, voice, fmt, stamps in first:
+                t_submit = time.time()
+                tid = await manager.submit_task(
+                    text, voice, user_id=user, sequence_id=seq,
+                    output_format=fmt, return_timestamps=stamps)
+                sent.append((manager.tasks[tid], t_submit))
+            deadline = time.monotonic() + 120.0
+            while any(task.status in (TaskStatus.PENDING,
+                                      TaskStatus.PROCESSING)
+                      for task, _ in sent):
+                if time.monotonic() > deadline:
+                    raise TimeoutError("phase 12 tasks did not finish")
+                await asyncio.sleep(0.005)
+            if any(task.status != TaskStatus.COMPLETED for task, _ in sent):
+                failures.append("phase 12: a scheduler task failed")
+            return [(task.completed_at - t) * 1e3 for task, t in sent]
+        finally:
+            await manager.shutdown()
+
+    cold_pipe = type(pipe)(synthesizer=cold)
+    with tempfile.TemporaryDirectory() as tmp:
+        synth.launch_decode = recorded_launch
+        try:
+            asyncio.run(first_batch(pipe, tmp))
+        finally:
+            del synth.launch_decode
+        sched_keys = sorted(set(decoded))
+        for b, t, f, fmt in sched_keys:
+            synth.warmup(batch_sizes=(b,), token_sizes=(t,),
+                         frame_sizes=(f,), formats=(fmt,))
+        asyncio.run(first_batch(cold_pipe, tmp))  # the eager pipeline's warm
+        sched = {"eager": [], "replayed": []}
+        for rep in range(3):
+            turn = [("eager", cold_pipe), ("replayed", pipe)]
+            for label, p in (turn if rep % 2 == 0 else turn[::-1]):
+                before = sum(synth.graph_replays[k] for k in sched_keys)
+                sched[label].append(asyncio.run(first_batch(p, tmp)))
+                if label == "replayed":
+                    check("the scheduler's batches did not replay",
+                          sum(synth.graph_replays[k] for k in sched_keys)
+                          - before == len(sched_keys))
+    out["scheduler_first_batch"] = {
+        "keys": [list(k) for k in sched_keys],
+        **{label: {"submit_to_result_ms": runs, "median_ms":
+                   statistics.median(max(r) for r in runs)}
+           for label, runs in sched.items()}}
+    log(f"scheduler, phase 7's first {len(first)} tasks (stage-B keys "
+        f"{sched_keys}): submit -> last result, median of 3: eager "
+        f"{out['scheduler_first_batch']['eager']['median_ms']:.1f} ms, "
+        f"replayed "
+        f"{out['scheduler_first_batch']['replayed']['median_ms']:.1f} ms "
+        f"({card})")
+
+    # -- bf16 at bench.py's shape, eager vs replayed
+    cfg16 = dataclasses.replace(synth.config, dtype=torch.bfloat16)
+    buckets = {"token_buckets": (BENCH["tokens"],),
+               "frame_buckets": (BENCH["frames"],)}
+    e16 = Synthesizer(cfg16, params=tree, **buckets)
+    w16 = Synthesizer(cfg16, params=tree, **buckets)
+    texts32 = [BENCH_TEXT] * BENCH["batch"]
+    fmts16 = ("pcm16", "mulaw8k")
+    ref16 = {}
+    for engine in (e16, w16):
+        engine.register_random_voice("bench_voice", seed=7)
+    for fmt in fmts16:
+        _, ref16[fmt] = render(e16, texts32, fmt, voice="bench_voice")
+    t0 = time.perf_counter()
+    w16.warmup(batch_sizes=(BENCH["batch"],), token_sizes=(BENCH["tokens"],),
+               frame_sizes=(BENCH["frames"],), formats=fmts16)
+    out["bf16"] = {"warmup_s": time.perf_counter() - t0, "bitwise_equal": {},
+                   "wall_ms": {}}
+    reset_counts()
+    for fmt in fmts16:
+        h, clips = render(w16, texts32, fmt, voice="bench_voice")
+        out["bf16"]["bitwise_equal"][fmt] = check(
+            f"bf16 replayed {fmt} differs from the eager render",
+            same(clips, ref16[fmt]))
+    replayed16 = bf16_counts()
+    want16 = {name: len(fmts16) * (1 if "istft" in name
+                                   else conv_per_generator)
+              for name in replayed16}
+    check(f"bf16 replays launched {replayed16}, want {want16} and no f32 "
+          "form", replayed16 == want16 and not oa.launches
+          and not any(asc.launches.values()))
+    check("bf16 keys did not replay", all(
+        w16.graph_replays[k] == (len(fmts16) if len(k) == 2 else 1)
+        for k in w16._graphs))
+    for fmt in fmts16:
+        runs = {"eager": [], "replayed": []}
+        for rep in range(GRAPH_REPS):
+            turn = [("eager", e16), ("replayed", w16)]
+            for label, engine in (turn if rep % 2 == 0 else turn[::-1]):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render(engine, texts32, fmt, voice="bench_voice")
+                runs[label].append((time.perf_counter() - t0) * 1e3)
+        row = {label: {"ms": ms, "median_ms": statistics.median(ms)}
+               for label, ms in runs.items()}
+        out["bf16"]["wall_ms"][fmt] = row
+        log(f"bf16 bench.py shape (B=32, T 256, F 512), {fmt}: replayed "
+            f"bitwise equal to eager: {out['bf16']['bitwise_equal'][fmt]}; "
+            f"wall ms, medians of {GRAPH_REPS} in turns: eager "
+            f"{row['eager']['median_ms']:.1f}, replayed "
+            f"{row['replayed']['median_ms']:.1f}; bf16 launches of the two "
+            f"replays {replayed16} ({card})")
+    del e16, w16
+    torch.cuda.empty_cache()
+
+    # -- TTS_WARMUP=1: create_app warms a fresh engine through warmup_staged
+    fresh = Synthesizer(synth.config, params=tree, **inventory)
+    fresh.register_random_voice("smoke_voice", seed=0)
+    fresh_pipe = type(pipe)(synthesizer=fresh)
+
+    async def post_tts(session, port, text):
+        """-> (status, replays of stage A, of stage B, Generator passes)."""
+        reset_counts()
+        before = dict(fresh.graph_replays)
+        async with session.post(f"http://127.0.0.1:{port}/api/tts",
+                                json={"text": text,
+                                      "voice_id": "smoke_voice"}) as resp:
+            await resp.read()
+        grown = {k: n - before.get(k, 0)
+                 for k, n in fresh.graph_replays.items()}
+        return (resp.status, sum(n for k, n in grown.items() if len(k) == 2),
+                sum(n for k, n in grown.items() if len(k) == 4),
+                oa.launches)
+
+    async def serve_warm(out_dir):
+        app = endpoints.create_app(pipeline=fresh_pipe, max_wait_time=0.1,
+                                   batch_size=4, output_dir=out_dir)
+        t0 = time.perf_counter()
+        runner = web.AppRunner(app, shutdown_timeout=2.0)
+        await runner.setup()  # runs the startup: warmup_staged
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        ready_s = time.perf_counter() - t0
+        port = runner.addresses[0][1]
+        primary = sorted(fresh._graphs, key=len)
+        background = [t for t in threading.enumerate()
+                      if t.name == "warmup-background"]
+        try:
+            headers = {"Authorization":
+                       f"Bearer {create_access_token('smoke')}"}
+            async with aiohttp.ClientSession(headers=headers) as session:
+                first_req = await post_tts(session, port, TASKS[0][2])
+                t_bg = time.perf_counter()
+                for thread in background:
+                    await asyncio.to_thread(thread.join, 900.0)
+                bg_s = time.perf_counter() - t_bg
+                alive = any(t.is_alive() for t in background)
+                other = await post_tts(session, port, WARM_TEXTS[0])
+        finally:
+            await runner.cleanup()
+        return ready_s, primary, first_req, len(background), bg_s, alive, \
+            other
+
+    os.environ["TTS_WARMUP"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ready_s, primary, first_req, n_bg, bg_s, alive, other = \
+                asyncio.run(serve_warm(tmp))
+    finally:
+        os.environ.pop("TTS_WARMUP", None)
+    stalls = [g.lock_s for k, g in fresh._graphs.items() if k not in primary]
+    out["tts_warmup"] = {
+        "startup_to_ready_s": ready_s, "primary_keys": [list(k)
+                                                        for k in primary],
+        "warmup_phases": fresh.last_warmup_phases,
+        "drain_s": fresh.last_drain_s,
+        "first_request": dict(zip(("status", "stage_a_replays",
+                                   "stage_b_replays", "generator_passes"),
+                                  first_req)),
+        "background_s_after_first_request": bg_s,
+        "background_keys": len(stalls),
+        "background_capture_lock_s": {"max": max(stalls, default=0.0),
+                                      "sum": sum(stalls)},
+        "other_shape_request": dict(zip(("status", "stage_a_replays",
+                                         "stage_b_replays",
+                                         "generator_passes"), other)),
+        "graphs": len(fresh._graphs), "card": card}
+    for label, (status, a_n, b_n, passes) in (("first", first_req),
+                                              ("other-shape", other)):
+        check(f"TTS_WARMUP {label} request: status {status}, stage A "
+              f"replays {a_n}, stage B replays {b_n} of {passes} passes",
+              status == 200 and a_n >= 1 and b_n == passes >= 1)
+    check("TTS_WARMUP: no background warmup thread, or it did not end",
+          n_bg == 1 and not alive)
+    log(f"TTS_WARMUP=1 create_app: startup to ready {ready_s:.2f} s "
+        f"(primary keys {primary}, phases {fresh.last_warmup_phases}, "
+        f"drain {fresh.last_drain_s:.3f} s); first /api/tts: stage A "
+        f"replays {first_req[1]}, stage B replays {first_req[2]} of "
+        f"{first_req[3]} Generator passes; background pass ended "
+        f"{bg_s:.2f} s after it ({len(stalls)} keys, each capture holding "
+        f"the engine lock up to {max(stalls, default=0.0) * 1e3:.1f} ms, "
+        f"{sum(stalls) * 1e3:.1f} ms in all); another shape then: stage A "
+        f"replays {other[1]}, stage B replays {other[2]} of {other[3]} "
+        f"passes ({card})")
+    del fresh, fresh_pipe
+    torch.cuda.empty_cache()
+
+    # -- load_params on a warmed engine drops every graph
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "weights.msgpack")
+        synth.save_params(path)
+        synth.load_params(path)
+    replays = dict(synth.graph_replays)
+    _, after = render(synth, [ZH], "pcm16")
+    _, want_zh = render(cold, [ZH], "pcm16")
+    out["load_params"] = {
+        "graphs_left": len(synth._graphs),
+        "nothing_replayed": dict(synth.graph_replays) == replays,
+        "bitwise_equal_to_fresh_engine": same(after, want_zh)}
+    check(f"after load_params: {out['load_params']}",
+          out["load_params"]["graphs_left"] == 0
+          and out["load_params"]["nothing_replayed"]
+          and out["load_params"]["bitwise_equal_to_fresh_engine"])
+    log(f"load_params on the warmed engine: {out['load_params']}")
+    del cold, cold_pipe
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 12: {out['seconds']:.1f} s ({card})")
+    return out, {**replayed, **replayed16}
+
+
 def main() -> None:
     import torch
 
@@ -2417,6 +2877,11 @@ def main() -> None:
         torch, np, F, synth, layers, vocoder, asc, oa, flush, card, failures,
         conv_per_generator, reset_counts, check_wave)
 
+    # ---- 12. warmup as CUDA graphs ----------------------------------------------
+    graphs, replayed = graphs_phase(
+        torch, np, synth, pipe, requests, oa, asc, conv_per_generator, card,
+        failures, reset_counts, check_counts, check_wave)
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -2511,6 +2976,8 @@ def main() -> None:
                           "bytes over HBM, the larger",
             "card": card,
         })
+    for row in rows:
+        row["launches_replayed"] = replayed[row["name"]]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"requests_wall_ms": timings,
                     "stream_first_chunk_ms": first_ms,
@@ -2520,6 +2987,7 @@ def main() -> None:
     log(json.dumps({"weights": weights}))
     log(json.dumps({"training": training}))
     log(json.dumps({"bf16": bf16}))
+    log(json.dumps({"graphs": graphs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

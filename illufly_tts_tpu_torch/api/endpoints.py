@@ -267,28 +267,28 @@ def create_app(
         # the lazy g++ build cost up to 120 s inside the first request)
         _flac_prewarm()
         if os.environ.get("TTS_WARMUP", "").lower() in ("1", "true", "yes"):
-            # precompile the common bucket inventory before taking traffic
-            # (SURVEY §7 hard-part 5: warm buckets or tail latency explodes)
+            # capture the common serving keys' CUDA graphs before taking
+            # traffic (Synthesizer.warmup): the port's counterpart of the
+            # JAX server's ahead-of-time compiles
             warmup = getattr(
                 manager.pipeline.synthesizer, "warmup", None
             )
             if not callable(warmup):
                 logger.warning(
-                    "TTS_WARMUP is set, but the engine has no warmup: the "
-                    "knob does nothing until CUDA-graph warmup lands"
+                    "TTS_WARMUP is set, but this pipeline's synthesizer has "
+                    "no warmup: the knob does nothing for it"
                 )
             else:
-                logger.info("warming compiled bucket inventory...")
+                logger.info("capturing the serving keys' CUDA graphs...")
                 # warm a slim inventory AND narrow the dispatcher to it
                 # (narrow=True, Synthesizer.warmup docstring): every
-                # steady-state shape is then warm; partial batches /
-                # short texts / short utterances pad to a warm bucket
-                # instead of cold-compiling at traffic time. absorb=True
-                # runs one throwaway call so the tunnel drain completes
-                # before traffic arrives (absorb_drain). Formats: PCM
-                # requests dispatch mulaw24k stage B when the wire codec
-                # is on, and mulaw8k is API-reachable (format=mulaw8k
-                # telephony) — warm what traffic will actually hit.
+                # steady-state shape then replays a graph; partial batches
+                # / short texts / short utterances pad to a warmed key
+                # instead of running eagerly. absorb=True runs one
+                # throwaway call before traffic (absorb_drain). Formats:
+                # PCM requests dispatch mulaw24k stage B when the wire
+                # codec is on, and mulaw8k is API-reachable
+                # (format=mulaw8k telephony) — warm what traffic will hit.
                 fmts = (
                     ("mulaw24k", "mulaw8k")
                     if wire_format == "mulaw24k"
@@ -298,10 +298,10 @@ def create_app(
                     manager.pipeline.synthesizer, "warmup_staged", None
                 )
                 if callable(staged):
-                    # restart-optimized: primary program sync (traffic
-                    # can flow after ONE executable load), rest of the
-                    # inventory warms on a background thread — shapes pad
-                    # to the primary bucket until it lands
+                    # restart-optimized: the primary key's graphs first
+                    # (traffic can flow after them), the rest of the
+                    # inventory on a background thread — shapes pad to the
+                    # primary buckets until it lands
                     pri_s, _ = await asyncio.to_thread(
                         lambda: staged(
                             batch_sizes=tuple(sorted({1, batch_size})),
@@ -313,8 +313,8 @@ def create_app(
                         )
                     )
                     logger.info(
-                        "primary program warm in %.1fs; background "
-                        "warmup running", pri_s,
+                        "primary key warm in %.1fs; background warmup "
+                        "running", pri_s,
                     )
                 else:
                     await asyncio.to_thread(

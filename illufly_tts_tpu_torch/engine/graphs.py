@@ -1,0 +1,100 @@
+# -*- coding: utf-8 -*-
+"""The engine's stages as CUDA graphs, one per serving key.
+
+The JAX engine compiles one XLA program per serving key before traffic
+(``warmup``): stage A per ``(batch, tokens)``, stage B per ``(batch, tokens,
+frames, fmt)``. The port has nothing to compile, but an eager stage pays
+Python and one launch per op on every call. Its counterpart of a compiled
+program is a stage captured as a CUDA graph: one replay launches every
+kernel of the stage, the three hand-written kernels among them.
+
+A ``StageGraph`` is
+- **static inputs**, allocated before the capture (outside the graph pool);
+  each run copies its inputs into them;
+- **one eager warm pass** on the engine's side stream, which makes what a
+  capture may not: the nvcc builds (``ops/cuda_build.py``), the STFT tables
+  (``ops/stft.py::_table``), the SM count, the bfloat16 packed weights, the
+  cuBLAS workspace of that stream;
+- **the graph**, captured on that stream into the one memory pool all of
+  the engine's graphs share (a private pool per graph would hold the
+  largest stage's intermediates once per key), under the engine's lock;
+- **its outputs**, which each run clones before the lock is released: the
+  next replay of any graph in the shared pool may reuse their memory;
+- **its launches** of each hand-written kernel, which the capture tallied
+  (``ops/capture_tally.py``) and each replay adds to the wrappers' counts.
+
+On the CPU there is no graph: ``run`` computes the stage eagerly, so the
+engine's warmed keys and their bookkeeping work the same there.
+"""
+from __future__ import annotations
+
+import threading
+import time
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+
+from ..ops import adain_snake_conv as asc
+from ..ops import istft_oa as oa
+from ..ops.capture_tally import captured
+
+
+def add_launches(tally: Dict[str, int], times: int = 1) -> None:
+    """Add ``times`` x ``tally`` (``{kernel name: launches}``, as
+    ``captured()`` yields it) to the wrappers' launch counts."""
+    for name, n in tally.items():
+        if name in ("istft_oa", "istft_head_bf16"):
+            oa.count_launch(name == "istft_head_bf16", n * times)
+        else:
+            asc.count_launch(name, n * times)
+
+
+class StageGraph:
+    """One stage at one serving key: ``fn(*inputs) -> tuple of tensors``
+    captured on ``inputs``' shapes and types (``fn`` must take no decision
+    on the host from its inputs' values)."""
+
+    def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
+                 pool=None, stream: Optional[torch.cuda.Stream] = None,
+                 lock: Optional[threading.Lock] = None):
+        """Warm ``fn`` once on ``inputs``, then (on CUDA) capture it on
+        ``stream`` into ``pool`` while holding ``lock``. A capture that
+        fails raises."""
+        self.fn = fn
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.lock_s = 0.0  # seconds the capture held the lock
+        t0 = time.perf_counter()
+        if not inputs[0].is_cuda:
+            fn(*inputs)
+            self.warm_s = time.perf_counter() - t0
+            return
+        self.static = tuple(x.clone() for x in inputs)
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            fn(*self.static)
+        # wait here, not under the lock: the capture begins by synchronizing
+        # the device, which would otherwise wait for this pass with the lock
+        stream.synchronize()
+        self.warm_s = time.perf_counter() - t0
+        graph = torch.cuda.CUDAGraph()
+        with lock:
+            t0 = time.perf_counter()
+            with captured() as tally, torch.cuda.graph(
+                    graph, pool=pool, stream=stream,
+                    capture_error_mode="thread_local"):
+                outputs = tuple(fn(*self.static))
+            self.lock_s = time.perf_counter() - t0
+        self.graph, self.outputs, self.launches = graph, outputs, tally
+
+    def run(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        """The stage's outputs for ``inputs``: on CUDA copied into the
+        static inputs, replayed and cloned (hold the engine's lock); on the
+        CPU computed."""
+        if self.graph is None:
+            return tuple(self.fn(*inputs))
+        for static, x in zip(self.static, inputs):
+            static.copy_(x)
+        self.graph.replay()
+        add_launches(self.launches)
+        return tuple(out.clone() for out in self.outputs)

@@ -79,15 +79,14 @@ class ManagerBackend:
             if os.environ.get("TTS_WARMUP", "").lower() in (
                 "1", "true", "yes"
             ):
-                # same deployment knob as the HTTP server: warm + narrow
-                # the bucket inventory so MCP traffic never cold-compiles
-                # (Synthesizer.warmup docstring)
+                # same deployment knob as the HTTP server: capture the
+                # serving keys' CUDA graphs and narrow the bucket inventory
+                # to them, so MCP traffic replays (Synthesizer.warmup)
                 warmup = getattr(synth, "warmup", None)
                 if not callable(warmup):
                     logger.warning(
-                        "TTS_WARMUP is set, but the engine has no warmup: "
-                        "the knob does nothing until CUDA-graph warmup "
-                        "lands"
+                        "TTS_WARMUP is set, but this pipeline's synthesizer "
+                        "has no warmup: the knob does nothing for it"
                     )
                 else:
                     batch = self.config.get("batch_size") or 4

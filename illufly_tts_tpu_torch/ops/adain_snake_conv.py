@@ -56,6 +56,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from .capture_tally import tallied
 from .kernel_grad import kernel_call
 
 # kernel geometry; must equal the source's (checked at load)
@@ -87,12 +88,15 @@ launches_bf16 = {"adain_snake_conv_bf16": 0, "adain_snake_conv_carry_bf16": 0}
 _launches_lock = threading.Lock()
 
 
-def count_launch(name: str) -> None:
-    """Add one launch of kernel ``name`` to ``launches`` (or, for a bf16
-    form, to ``launches_bf16``)."""
+def count_launch(name: str, n: int = 1) -> None:
+    """Add ``n`` launches of kernel ``name`` to ``launches`` (or, for a
+    bf16 form, to ``launches_bf16``); while this thread captures a CUDA
+    graph, to the capture's tally instead (``ops/capture_tally.py``)."""
+    if tallied(name, n):
+        return
     with _launches_lock:
         table = launches_bf16 if name in launches_bf16 else launches
-        table[name] += 1
+        table[name] += n
 
 
 def instance_moments(x: torch.Tensor, mask: torch.Tensor,

@@ -38,6 +38,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from .capture_tally import tallied
 from .kernel_grad import kernel_call
 from .stft import _bases, hann, istft
 
@@ -52,15 +53,19 @@ launches_bf16 = 0  # istft_head_bf16
 _launches_lock = threading.Lock()
 
 
-def count_launch(bf16: bool = False) -> None:
-    """Add one launch to ``launches`` (``launches_bf16`` for the bf16
-    head)."""
+def count_launch(bf16: bool = False, n: int = 1) -> None:
+    """Add ``n`` launches to ``launches`` (``launches_bf16`` for the bf16
+    head); while this thread captures a CUDA graph, to the capture's tally
+    instead (``ops/capture_tally.py``), as ``istft_oa`` or
+    ``istft_head_bf16``."""
     global launches, launches_bf16
+    if tallied("istft_head_bf16" if bf16 else "istft_oa", n):
+        return
     with _launches_lock:
         if bf16:
-            launches_bf16 += 1
+            launches_bf16 += n
         else:
-            launches += 1
+            launches += n
 
 
 def istft_oa_plain(mag: torch.Tensor, phase: torch.Tensor,

@@ -6,10 +6,15 @@
 
 Builds the port's ``Synthesizer(KokoroConfig(), seed=0)`` on the card
 (float32, TF32 off), warms each request once, then runs each request
-under ``torch.profiler`` and reports: wall time, device busy time (sum of
+under ``torch.profiler`` (``utils/profiling.py::device_trace``, whose
+Chrome trace lands in the git-ignored ``build/``) and reports: wall time,
+device busy time (sum of
 kernel times; one stream), the device idle share ``1 - busy / wall``,
 kernel time by class (each hand-written kernel its own class), and the top
 kernels.
+
+Each request is also timed without the profiler first (host clock to a
+synchronize, median of 5: ``wall_ms_unprofiled_median``).
 
 Requests: ``b1`` (one zh string, 807 frames, frame bucket 1024) and ``b8``
 (eight strings of ~18 tokens, frame bucket 512), each ``dispatch ->
@@ -22,7 +27,10 @@ between CUDA events recorded around each call (idle gaps included); and
 text, token bucket 256, frame bucket 512) in pcm16 on a
 ``KokoroConfig(dtype=torch.bfloat16)`` engine with the same weights, so
 the bf16 render's device time splits by class too (its conv kernels in
-the ``*_bf16`` classes).
+the ``*_bf16`` classes); then ``b1_graph`` and ``b8_graph``, the ``b1`` and
+``b8`` requests again after ``Synthesizer.warmup`` captured their keys
+(pcm16) as CUDA graphs, so that each stage replays (``graph_replays``
+reports the replays the request made).
 Every request also reports the kernel wrappers' own launch counts, and the
 kernels that ran just before each iSTFT kernel launch on the device
 timeline (from the profiler's trace): on the Generator's tail that is
@@ -35,7 +43,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import glob
 import re
+import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -69,6 +80,7 @@ STREAM = ("b1_stream", "b1", 64, 16)  # name, texts, window, halo frames
 BENCH = ("bench_bf16", ("ni↗xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst. " * 12)[:250],
          32, 256, 512)  # name, text, batch, token bucket, frame bucket
 SPANS = ("decode_prepare", "decode_window")
+UNPROFILED_REPS = 5  # timed runs of each request before the profiled one
 
 
 def spanned(fn, spans, torch):
@@ -99,15 +111,13 @@ def kernel_times(prof, torch):
     return sorted(out, key=lambda r: -r[1])
 
 
-def before_istft(prof, depth=2):
+def before_istft(trace_dir, depth=2):
     """{names of the ``depth`` kernels before an iSTFT kernel, in order:
-    count} over the trace's device kernels, ordered by start time."""
-    os.makedirs(BUILD, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
+    count} over the device kernels of the Chrome trace in ``trace_dir``,
+    ordered by start time."""
+    (path,) = glob.glob(os.path.join(trace_dir, "*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
     kernels = sorted((e["ts"], e["name"]) for e in events
                      if e.get("cat") == "kernel" and e.get("ph") == "X")
     names = [name for _, name in kernels]
@@ -127,7 +137,6 @@ def main() -> int:
     import dataclasses
 
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -137,6 +146,7 @@ def main() -> int:
     from illufly_tts_tpu_torch.model.params import export_flax_params
     from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
     from illufly_tts_tpu_torch.ops import istft_oa as oa
+    from illufly_tts_tpu_torch.utils.profiling import device_trace
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -176,20 +186,40 @@ def main() -> int:
         return h, {"windows": 1 + len(list(gen)),
                    "first_chunk_ms": first_ms}
 
+    def replayed(texts, voices):
+        before = sum(synth.graph_replays.values())
+        h, extra = batch(texts, voices)
+        extra["graph_replays"] = sum(synth.graph_replays.values()) - before
+        return h, extra
+
     runs = [(name, texts, batch) for name, texts in REQUESTS.items()]
     runs.append((STREAM[0], REQUESTS[STREAM[1]], stream))
     runs.append((BENCH[0], [BENCH[1]] * BENCH[2], bench))
+    runs += [(f"{name}_graph", texts, replayed)
+             for name, texts in REQUESTS.items()]
+    os.makedirs(BUILD, exist_ok=True)
     for name, texts, run in runs:
         voices = ["v"] * len(texts)
+        if run is replayed:  # capture the eager run's keys first
+            done = result["requests"][name.removesuffix("_graph")]
+            synth.warmup(batch_sizes=(done["b_bucket"],),
+                         token_sizes=(done["t_bucket"],),
+                         frame_sizes=(done["f_bucket"],))
         run(texts, voices)  # warm
-        torch.cuda.synchronize()
+        unprofiled = []
+        for _ in range(UNPROFILED_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(texts, voices)
+            torch.cuda.synchronize()
+            unprofiled.append((time.perf_counter() - t0) * 1e3)
         oa.launches = oa.launches_bf16 = 0
         for table in (asc.launches, asc.launches_bf16):
             table.update({k: 0 for k in table})
         for span in spans.values():
             span.clear()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        trace_dir = tempfile.mkdtemp(dir=BUILD)
+        with device_trace(trace_dir) as prof:
             t0 = time.perf_counter()
             h, extra = run(texts, voices)
             torch.cuda.synchronize()
@@ -203,7 +233,8 @@ def main() -> int:
                     s.elapsed_time(e) for s, e in span) / len(span)
                 extra[f"{key}_calls"] = len(span)
         kernels = kernel_times(prof, torch)
-        extra["kernels_before_istft"] = before_istft(prof)
+        extra["kernels_before_istft"] = before_istft(trace_dir)
+        shutil.rmtree(trace_dir)
         busy = sum(us for _, us, _ in kernels)
         by_class = {c: 0.0 for c, _ in CLASSES}
         by_class["other"] = 0.0
@@ -212,10 +243,13 @@ def main() -> int:
                        "other")
             by_class[cls] += us
         result["requests"][name] = {
-            "batch": len(texts), "t_bucket": h.t_bucket,
+            "batch": len(texts), "b_bucket": h.b_bucket,
+            "t_bucket": h.t_bucket,
             "f_bucket": h.f_bucket,
             "frames": [int(t) for t in h.fitted_totals[: h.n]],
             "wall_ms": wall_us / 1e3,
+            "wall_ms_unprofiled": unprofiled,
+            "wall_ms_unprofiled_median": statistics.median(unprofiled),
             "device_busy_ms": busy / 1e3,
             "device_idle_share": 1.0 - busy / wall_us,
             "kernel_ms_by_class": {k: v / 1e3 for k, v in by_class.items()},

@@ -134,8 +134,8 @@ async def test_create_app_without_cuda_raises(tmp_path, monkeypatch):
 
 async def test_warmup_knob_warns_without_engine_warmup(tmp_path, monkeypatch,
                                                        caplog):
-    """TTS_WARMUP on an engine without ``warmup`` logs that the knob does
-    nothing, and the server still starts."""
+    """TTS_WARMUP on a pipeline whose synthesizer has no ``warmup`` logs
+    that the knob does nothing for it, and the server still starts."""
     monkeypatch.setenv("TTS_WARMUP", "1")
     monkeypatch.setenv("FASTAPI_SECRET_KEY", "test-secret")
     app = port_endpoints.create_app(output_dir=str(tmp_path),
@@ -145,7 +145,7 @@ async def test_warmup_knob_warns_without_engine_warmup(tmp_path, monkeypatch,
     with caplog.at_level("WARNING", logger=port_endpoints.logger.name):
         await client.start_server()
     await client.close()
-    assert any("does nothing until CUDA-graph warmup" in r.getMessage()
+    assert any("has no warmup: the knob does nothing" in r.getMessage()
                for r in caplog.records)
 
 
