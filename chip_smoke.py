@@ -24,11 +24,15 @@ From the root of a checkout. It
    non-silence and that every kernel ran as often as each stage B runs it
    (the iSTFT kernel once per Generator pass);
 5. drives the streaming path: exact streams concatenate bit for bit to
-   ``collect()``; a windowed stream gives finite, non-silent chunks of the
-   right count and length, with every kernel launched per window as per
-   stage B; and the mulaw24k bytes equal ``mulaw_encode_np`` of the card's
-   own int16 rendering; then holds each kernel against its plain version
-   at the shapes both paths gave it;
+   ``collect()``; a windowed stream's first use captures its prepare and
+   window graphs (its time and each capture's warm pass and lock time on
+   a line of their own; launches: one Generator pass per window plus the
+   window's warm pass), then the timed windowed stream replays them and
+   gives finite, non-silent chunks of the right count and length, with
+   every kernel launched per window as per stage B; and the mulaw24k
+   bytes equal ``mulaw_encode_np`` of the card's own int16 rendering; then
+   holds each kernel against its plain version at the shapes both paths
+   gave it;
 6. holds the port on the card against the port on the CPU at full width
    (B=2, frame bucket 128), both stage Bs fed the card's stage-A outputs;
 7. serves text: ``TTSServiceManager(batch_size=4)`` over
@@ -41,7 +45,8 @@ From the root of a checkout. It
    to ``dispatch`` equal to ``FRONTEND_TABLE``'s, every kernel launched as
    often as the Generator passes give, and no launch for the repeat (an
    audio-cache hit); then a ~260-character paragraph through
-   ``process(segment_text=True)`` and one windowed ``stream_process``. On
+   ``process(segment_text=True)`` and a windowed ``stream_process`` (its
+   first use, which captures, on a line of its own, then one replayed). On
    a host without ``jieba`` (which the Chinese G2P imports) the G2P's
    outputs come from ``FRONTEND_TABLE``; the normalizers, the pipeline, the
    scheduler and the model run as they are;
@@ -95,29 +100,43 @@ From the root of a checkout. It
    beside the f32 engine, with exact launches (each bf16 form as often as
    the Generator passes give, no f32 form; none in the f32 engine); zh_1 in
    the four formats, an exact stream bitwise equal to ``collect()`` and a
-   windowed stream (first-chunk ms); and the card's bf16 render of zh_1
+   windowed stream (its first use, then replayed: first-chunk ms); and the
+   card's bf16 render of zh_1
    against the CPU's: frame totals within ``FRAME_SLACK`` and mel-L1(card
    bf16, CPU bf16) <= mel-L1(CPU bf16, CPU f32);
 12. warms the engine as CUDA graphs (``Synthesizer.warmup``), under cuDNN's
    deterministic algorithms: phase 4's engine captures phase 4's three keys
    in the four formats (3 stage-A and 12 stage-B graphs; each capture's
-   seconds and the graph pool's bytes printed), then serves the same
-   requests again: every key replays, the audio is bitwise equal to the
+   seconds, the allocator's growth and the graph pool's bytes printed),
+   then serves the same requests again: every key replays, the audio is
+   bitwise equal to the
    same engine's eager render before the warmup, the launches are exact with
    the replays counted, two batches of one key in flight at once keep their
    own outputs, exact streams of replayed handles concatenate to
-   ``collect()``, and the windowed stream (eager) is bitwise as before; wall
-   time eager (a fresh engine on the same weights) against replayed, in
-   turns, per request and format, and through the scheduler (phase 7's
-   first batch); bench.py's shape in bf16 (pcm16, mulaw8k) replayed bitwise
-   equal to eager, with exact bf16 launches, and timed; ``create_app`` with
+   ``collect()``; wall time eager (a fresh engine on the same weights)
+   against replayed, in turns, per request and format, and through the
+   scheduler (phase 7's first batch); bench.py's shape in bf16 (pcm16,
+   mulaw8k) replayed bitwise equal to eager, with exact bf16 launches, and
+   timed; windowed streams of zh_1 and mixed_4 in float32 and of zh_1 in
+   bfloat16, each on a fresh engine: its first use (the prepare and window
+   graphs captured: extra seconds, lock time and the allocator's growth
+   per key) and its replays bitwise equal to the eager reference loop
+   (``eager_windowed_stream``: host-int starts, blocking copies), with
+   exact launches, and first-chunk and whole-stream ms, eager reference
+   against replayed, medians of 5 in turns; two zh_1 streams of one key
+   (pitch 1 and 1.3), their windows interleaved, each bitwise equal to its
+   eager reference; the first use of long_8's stream keys (B=8, F 4096),
+   to its first chunk: lock time and the allocator's growth per key;
+   ``create_app`` with
    ``TTS_WARMUP=1`` on a fresh engine (startup to ready, the first
    request's stages replayed, the background pass, a request of another
    warmed shape replayed); ``load_params`` on the warmed engine leaves no
    graph and renders bitwise as a fresh engine on those weights.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's launches per
-phase; ``launches_replayed``: those of phase 12's replays) and, last,
+phase; ``launches_replayed``: those of phase 12's batch replays;
+``launches_stream_replayed``: those of its replayed windowed streams) and,
+last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line;
 so does a host without CUDA, or a directory without the port's package.
@@ -904,16 +923,28 @@ def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
             f"{len(pieces)} pieces, {audio.size / 24000:.2f} s of audio in "
             f"{paragraph_ms:.1f} ms")
 
-        # one windowed stream
+        # one windowed stream: its first use captures the prepare and
+        # window graphs of its key (the window's warm pass is one more
+        # Generator pass); the timed one replays them
+        def stream():
+            t0 = time.perf_counter()
+            gen = pipe.stream_process(STREAM_TEXT, "smoke_voice",
+                                      window_frames=STREAM_WINDOW,
+                                      halo_frames=STREAM_HALO, exact=False)
+            chunks = [next(gen)]
+            first_chunk_ms = (time.perf_counter() - t0) * 1e3
+            chunks += list(gen)
+            return chunks, first_chunk_ms, (time.perf_counter() - t0) * 1e3
+
         reset()
-        t0 = time.perf_counter()
-        gen = pipe.stream_process(STREAM_TEXT, "smoke_voice",
-                                  window_frames=STREAM_WINDOW,
-                                  halo_frames=STREAM_HALO, exact=False)
-        chunks = [next(gen)]
-        first_chunk_ms = (time.perf_counter() - t0) * 1e3
-        chunks += list(gen)
-        stream_ms = (time.perf_counter() - t0) * 1e3
+        (chunks, _, _), stream_first_use = first_use(
+            synth, stream, "windowed stream_process", card)
+        (_, _, h), = dispatched
+        windows = -(-int(h.fitted_totals[0]) // STREAM_WINDOW)
+        counts(f"windowed stream, first use ({windows} windows)",
+               windows + 1)
+        reset()
+        chunks, first_chunk_ms, stream_ms = stream()
         (ipa_list, _, h), = dispatched
         total = int(h.fitted_totals[0])
         windows = -(-total // STREAM_WINDOW)
@@ -923,7 +954,7 @@ def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
             failures.append("the stream's IPA differs from the table's")
         check_wave("windowed stream", np.concatenate(chunks), total * 600)
         log(f"windowed stream_process ({STREAM_WINDOW} + {STREAM_HALO} "
-            f"frames): {len(chunks)} chunks, first after "
+            f"frames), replayed: {len(chunks)} chunks, first after "
             f"{first_chunk_ms:.1f} ms, all after {stream_ms:.1f} ms")
     finally:
         del synth._stage_b, synth.dispatch
@@ -938,7 +969,8 @@ def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
         "paragraph": {"characters": len(PARAGRAPH), "pieces": len(pieces),
                       "ms": paragraph_ms, "launches": para_launches},
         "stream": {"windows": windows, "first_chunk_ms": first_chunk_ms,
-                   "all_chunks_ms": stream_ms, "launches": stream_launches},
+                   "all_chunks_ms": stream_ms, "launches": stream_launches,
+                   "first_use": stream_first_use},
     }
 
 
@@ -1976,15 +2008,21 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
         torch.backends.cudnn.deterministic = False
         if not exact_equal:
             failures.append("bf16 exact stream differs from collect()")
-        torch.cuda.synchronize()
+        # the first use captures the stream's graphs (the window's warm
+        # pass is one more Generator pass); the timed stream replays them
         reset_counts()
-        t0 = time.perf_counter()
-        h = s16.dispatch([ZH], ["smoke_voice"], fmt="f32")
-        gen = s16.stream_decode(h, STREAM_WINDOW, STREAM_HALO, exact=False)
-        chunks = [next(gen)]
-        first_ms = (time.perf_counter() - t0) * 1e3
-        chunks += list(gen)
-        stream_ms = (time.perf_counter() - t0) * 1e3
+        (_, chunks, _, _), first_use16 = first_use(
+            s16, lambda: timed_stream(torch, s16, [ZH]),
+            "bf16 windowed stream (zh_1)", card)
+        got = bf16_counts()
+        want = {name: (len(chunks) + 1) * (1 if "istft" in name
+                                           else conv_per_generator)
+                for name in got}
+        if got != want or oa.launches or any(asc.launches.values()):
+            failures.append(f"bf16 windowed stream, first use: launches "
+                            f"{got}, want {want} and no f32 launch")
+        reset_counts()
+        h, chunks, first_ms, stream_ms = timed_stream(torch, s16, [ZH])
         got = bf16_counts()
         want = {name: len(chunks) * (1 if "istft" in name
                                      else conv_per_generator)
@@ -1998,10 +2036,12 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
             failures.append("bf16 windowed chunks: length or finiteness")
         out["stream"] = {"first_chunk_ms": first_ms, "all_chunks_ms":
                          stream_ms, "chunks": len(chunks), "launches": got,
-                         "exact_bitwise_equal_to_collect": exact_equal}
+                         "exact_bitwise_equal_to_collect": exact_equal,
+                         "first_use": first_use16}
         log(f"bf16 zh_1: four formats served; exact stream bitwise equal to "
             f"collect(): {exact_equal}; windowed stream ({STREAM_WINDOW} + "
-            f"{STREAM_HALO} frames, F_bucket {h.f_bucket}): {len(chunks)} "
+            f"{STREAM_HALO} frames, F_bucket {h.f_bucket}), replayed: "
+            f"{len(chunks)} "
             f"chunks, first after {first_ms:.1f} ms, all after "
             f"{stream_ms:.1f} ms, launches {got} ({card})")
     finally:
@@ -2085,6 +2125,84 @@ def pool_bytes(torch, pool):
                if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
 
 
+def timed_stream(torch, engine, texts, voice="smoke_voice"):
+    """One windowed stream of ``texts`` (f32 handle, ``STREAM_WINDOW`` +
+    ``STREAM_HALO``) through ``stream_decode``: -> (handle, chunks,
+    first-chunk ms, all-chunks ms), host clock from ``dispatch``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = engine.dispatch(texts, [voice] * len(texts), fmt="f32")
+    gen = engine.stream_decode(h, STREAM_WINDOW, STREAM_HALO, exact=False)
+    chunks = [next(gen)]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    chunks += list(gen)
+    return h, chunks, first_ms, (time.perf_counter() - t0) * 1e3
+
+
+def eager_windowed_stream(torch, np, engine, handle, window_frames,
+                          halo_frames, prepare=None, window=None):
+    """The windowed stream as the engine ran it before its stages became
+    graphs: ``decode_prepare`` once, then per window ``decode_window`` with
+    a host-int start and a blocking copy to the host, crossfaded as
+    ``stream_decode`` crossfades. Yields the chunks. ``prepare`` and
+    ``window`` stand in for the two model calls (to time them). It runs on
+    this tree's ``decode_window``, which makes each host-int start a
+    device scalar (one small copy to the card a window) and gathers where
+    the engine before sliced views: a reference for the output, not the
+    older engine's timing (``scripts/profile_torch_port.py --streams-of``
+    times any checkout's own ``stream_decode``)."""
+    from illufly_tts_tpu_torch.model.kokoro import _fit_durations
+
+    net = engine.net
+    prepare = prepare or net.decode_prepare
+    window = window or net.decode_window
+    f_bucket = engine._pick_f_bucket(handle)
+    with torch.inference_mode():
+        prep = prepare(handle.ids, handle.mask, handle.d,
+                       _fit_durations(handle.pred_dur, f_bucket),
+                       handle.ref, f_bucket, pitch=handle.pitch)
+    spf = engine.config.samples_per_frame
+    overlap = halo_frames * spf
+    ramp = np.linspace(0.0, 1.0, overlap, dtype=np.float32)[None, :]
+    max_total = int(handle.fitted_totals[: handle.n].max())
+    body = window_frames * spf
+    prev_tail = None
+    for emitted in range(0, max_total, window_frames):
+        with torch.inference_mode():
+            audio = window(*prep, handle.ref, 2 * emitted,
+                           2 * window_frames, 2 * halo_frames)
+        chunk = audio.float().cpu().numpy()
+        out = chunk[:, :body].copy()
+        if prev_tail is not None:
+            out[:, :overlap] = (prev_tail * (1.0 - ramp)
+                                + out[:, :overlap] * ramp)
+        prev_tail = chunk[:, body: body + overlap]
+        frames_here = min(window_frames, max_total - emitted)
+        yield out[: handle.n, : frames_here * spf]
+
+
+def first_use(engine, run, label, card):
+    """``run()``, a windowed stream that uses its keys for the first time
+    on ``engine``, and what capturing them cost: -> (its result, summary:
+    seconds of the whole call, and per captured key the warm pass's
+    seconds, the seconds the capture held the engine's lock, and the
+    allocator's state before and after the capture)."""
+    before = set(engine._graphs)
+    t0 = time.perf_counter()
+    result = run()
+    seconds = time.perf_counter() - t0
+    keys = {}
+    for key, g in engine._graphs.items():
+        if key not in before:
+            keys[str(key)] = {"warm_pass_s": g.warm_s,
+                              "capture_lock_s": g.lock_s, **g.memory}
+    log(f"{label}: first use {seconds * 1e3:.1f} ms in all; captured "
+        + "; ".join(f"{k} (warm pass {v['warm_pass_s'] * 1e3:.1f} ms, lock "
+                    f"held {v['capture_lock_s'] * 1e3:.1f} ms)"
+                    for k, v in keys.items()) + f" ({card})")
+    return result, {"s": seconds, "keys": keys}
+
+
 def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
                  conv_per_generator, card, failures, reset_counts,
                  check_counts, check_wave):
@@ -2100,7 +2218,10 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
 
     from illufly_tts_tpu_torch.api import endpoints
     from illufly_tts_tpu_torch.api.auth import create_access_token
-    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.engine.synthesizer import (
+        Synthesizer,
+        stage_kind,
+    )
     from illufly_tts_tpu_torch.model.params import export_flax_params
     from illufly_tts_tpu_torch.runtime.scheduler import (
         TaskStatus,
@@ -2142,9 +2263,6 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
             pair = (speed, clips)
             break
     check("no second mixed_4 batch on mixed_4's key", pair is not None)
-    h = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt="f32")
-    windowed_eager = list(synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
-                                              exact=False))
 
     # -- warmup(narrow=False): phase 4's three keys in the four formats
     out["captures"], out["warmup_s"] = [], {}
@@ -2159,17 +2277,21 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
             g = synth._graphs[key]
             out["captures"].append({"key": list(key), "warm_pass_s": g.warm_s,
                                     "capture_s": g.lock_s,
-                                    "pool_reserved_bytes": pool})
+                                    "pool_reserved_bytes": pool,
+                                    "memory": g.memory})
             log(f"  captured {key}: warm pass {g.warm_s:.3f} s, "
                 f"capture {g.lock_s:.3f} s; {len(g.launches)} kernels, "
-                f"{sum(g.launches.values())} launches a replay")
+                f"{sum(g.launches.values())} launches a replay; "
+                f"{memory_growth(g.memory)}")
         log(f"warmup {name} (B={b}, T={t}, F={f}, {len(FORMATS)} formats): "
             f"{out['warmup_s'][name]:.2f} s; graph pool reserved "
             f"{(pool or 0) / 2**30:.2f} GiB (None: {pool is None}), all "
             f"reserved "
             f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB ({card})")
-    check(f"{len(synth._graphs)} graphs, want 3 stage A + 12 stage B",
-          len(synth._graphs) == 3 + 3 * len(FORMATS))
+    # phases 5 and 7 captured their streams' keys at first use
+    batch_keys = [k for k in synth._graphs if stage_kind(k) in ("a", "b")]
+    check(f"{len(batch_keys)} batch graphs, want 3 stage A + 12 stage B",
+          len(batch_keys) == 3 + 3 * len(FORMATS))
     out["pool_reserved_bytes"] = pool_bytes(torch, synth._graph_pool)
 
     # -- the same requests replayed: bitwise, exact launches, replay counts
@@ -2191,8 +2313,9 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
     replayed = check_counts(f"replayed batch path ({renders} renders)",
                             renders)
     grown = {key: synth.graph_replays[key] - replays0.get(key, 0)
-             for key in synth._graphs}
-    want = {key: len(FORMATS) if len(key) == 2 else 1 for key in grown}
+             for key in batch_keys}
+    want = {key: len(FORMATS) if stage_kind(key) == "a" else 1
+            for key in grown}
     check(f"replays per key {grown}, want {want}", grown == want)
     log(f"replayed: {renders} renders bitwise equal to the eager renders: "
         f"{all(out['bitwise_equal'].values())}; replays per key {grown}")
@@ -2220,19 +2343,8 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
             for i, c in enumerate(whole))
         out["exact_stream_bitwise"][fmt] = check(
             f"exact stream of a replayed handle ({fmt}) differs", ok)
-    reset_counts()
-    h = synth.dispatch(texts4, ["smoke_voice"] * 4, fmt="f32")
-    chunks = list(synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
-                                      exact=False))
-    windowed = check_counts("windowed stream on the warmed engine (eager)",
-                            len(chunks))
-    out["windowed_unchanged"] = check(
-        "the windowed stream changed after warmup",
-        same(chunks, windowed_eager))
     log(f"exact streams of replayed handles bitwise equal to collect(): "
-        f"{out['exact_stream_bitwise']}; windowed stream ({len(chunks)} "
-        f"windows, eager) bitwise as before warmup: "
-        f"{out['windowed_unchanged']}, launches {windowed}")
+        f"{out['exact_stream_bitwise']}")
 
     # -- launch_decode's host time at long_8's shape, replayed (phase 8
     # times it eager)
@@ -2372,7 +2484,7 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
           "form", replayed16 == want16 and not oa.launches
           and not any(asc.launches.values()))
     check("bf16 keys did not replay", all(
-        w16.graph_replays[k] == (len(fmts16) if len(k) == 2 else 1)
+        w16.graph_replays[k] == (len(fmts16) if stage_kind(k) == "a" else 1)
         for k in w16._graphs))
     for fmt in fmts16:
         runs = {"eager": [], "replayed": []}
@@ -2395,6 +2507,12 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
     del e16, w16
     torch.cuda.empty_cache()
 
+    # -- the windowed stream: prepare and window graphs captured at first
+    # use, replayed, against the eager reference loop
+    out["windowed"], replayed_streams = stream_graphs(
+        torch, np, synth, requests, tree, inventory, oa, asc,
+        conv_per_generator, card, check, reset_counts)
+
     # -- TTS_WARMUP=1: create_app warms a fresh engine through warmup_staged
     fresh = Synthesizer(synth.config, params=tree, **inventory)
     fresh.register_random_voice("smoke_voice", seed=0)
@@ -2410,8 +2528,9 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
             await resp.read()
         grown = {k: n - before.get(k, 0)
                  for k, n in fresh.graph_replays.items()}
-        return (resp.status, sum(n for k, n in grown.items() if len(k) == 2),
-                sum(n for k, n in grown.items() if len(k) == 4),
+        return (resp.status,
+                sum(n for k, n in grown.items() if stage_kind(k) == "a"),
+                sum(n for k, n in grown.items() if stage_kind(k) == "b"),
                 oa.launches)
 
     async def serve_warm(out_dir):
@@ -2509,7 +2628,205 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
     torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t_phase
     log(f"phase 12: {out['seconds']:.1f} s ({card})")
-    return out, {**replayed, **replayed16}
+    return out, {**replayed, **replayed16}, replayed_streams
+
+
+def memory_growth(memory):
+    """A capture's growth of the allocator's reserved and allocated bytes
+    and segments (``StageGraph.memory``), as a log phrase."""
+    if "before" not in memory:
+        return "allocator state not recorded"
+    before, after = memory["before"], memory["after"]
+    mib = {key: (after[key] - before[key]) / 2 ** 20
+           for key in ("reserved_bytes", "allocated_bytes")}
+    return (f"reserved +{mib['reserved_bytes']:.1f} MiB (to "
+            f"{after['reserved_bytes'] / 2 ** 30:.2f} GiB), allocated "
+            f"+{mib['allocated_bytes']:.1f} MiB, segments "
+            f"+{after['segments'] - before['segments']}")
+
+
+def stream_graphs(torch, np, synth, requests, tree, inventory, oa, asc,
+                  conv_per_generator, card, check, reset_counts):
+    """Phase 12's windowed streams (zh_1 and mixed_4 in float32, zh_1 in
+    bfloat16), each on a fresh engine under deterministic cuDNN: the
+    eager reference loop (``eager_windowed_stream``), then the engine's
+    first use (its prepare and window graphs captured), then its replays,
+    bitwise equal to the reference with exact launches; then first-chunk
+    and whole-stream ms, eager reference against replayed, medians of
+    ``GRAPH_REPS`` in turns. -> (summary, the kernels' launches in the
+    replayed streams)."""
+    import dataclasses
+
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+
+    def fresh(dtype):
+        engine = Synthesizer(dataclasses.replace(synth.config, dtype=dtype),
+                             params=tree, **inventory)
+        engine.register_random_voice("smoke_voice", seed=0)
+        return engine
+
+    def launches():
+        return {"istft_oa": oa.launches, "istft_head_bf16": oa.launches_bf16,
+                **asc.launches, **asc.launches_bf16}
+
+    def want_launches(passes, bf16):
+        tile = "adain_snake_conv_bf16" if bf16 else "adain_snake_conv"
+        carry = ("adain_snake_conv_carry_bf16" if bf16
+                 else "adain_snake_conv_carry")
+        want = {name: 0 for name in launches()}
+        want.update({"istft_head_bf16" if bf16 else "istft_oa": passes,
+                     tile: conv_per_generator * passes,
+                     carry: conv_per_generator * passes})
+        return want
+
+    def eager_stream(engine, texts):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        h = engine.dispatch(texts, ["smoke_voice"] * len(texts), fmt="f32")
+        gen = eager_windowed_stream(torch, np, engine, h, STREAM_WINDOW,
+                                    STREAM_HALO)
+        chunks = [next(gen)]
+        first_ms = (time.perf_counter() - t0) * 1e3
+        chunks += list(gen)
+        return h, chunks, first_ms, (time.perf_counter() - t0) * 1e3
+
+    def replayed_stream(engine, texts):
+        return timed_stream(torch, engine, texts)
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.shape == y.shape and x.tobytes() == y.tobytes()
+            for x, y in zip(a, b))
+
+    out, replayed = {}, {}
+    engines = {torch.float32: fresh(torch.float32),
+               torch.bfloat16: fresh(torch.bfloat16)}
+    for label, texts, dtype in (("zh_1", requests["zh_1"], torch.float32),
+                                ("mixed_4", requests["mixed_4"],
+                                 torch.float32),
+                                ("zh_1 bf16", requests["zh_1"],
+                                 torch.bfloat16)):
+        engine = engines[dtype]
+        bf16 = dtype == torch.bfloat16
+        _, ref, _, _ = eager_stream(engine, texts)
+        reset_counts()
+        (_, chunks, _, first_use_ms), use = first_use(
+            engine, lambda: replayed_stream(engine, texts),
+            f"phase 12 windowed {label}", card)
+        windows = len(chunks)
+        row = {"windows": windows, "first_use": use,
+               "first_use_bitwise_equal": check(
+                   f"windowed {label}: the first use differs from the eager "
+                   "reference loop", same(chunks, ref))}
+        check(f"windowed {label}, first use: launches {launches()}",
+              launches() == want_launches(windows + 1, bf16))
+        reset_counts()
+        replays0 = sum(engine.graph_replays.values())
+        _, chunks, _, _ = timed_stream(torch, engine, texts)
+        got = launches()
+        for name, n in got.items():
+            replayed[name] = replayed.get(name, 0) + n
+        row["replayed_bitwise_equal"] = check(
+            f"windowed {label}: replayed differs from the eager reference "
+            "loop", same(chunks, ref))
+        row["launches_replayed"] = got
+        check(f"windowed {label}, replayed: launches {got}",
+              got == want_launches(windows, bf16))
+        grown = sum(engine.graph_replays.values()) - replays0
+        check(f"windowed {label}: {grown} replays, want {windows + 1}",
+              grown == windows + 1)
+        runs = {"eager": [], "replayed": []}
+        for rep in range(GRAPH_REPS):
+            turn = [("eager", eager_stream), ("replayed", replayed_stream)]
+            for name, run in (turn if rep % 2 == 0 else turn[::-1]):
+                _, _, first_ms, all_ms = run(engine, texts)
+                runs[name].append((first_ms, all_ms))
+        for name, ms in runs.items():
+            row[name] = {
+                "first_chunk_ms": [f for f, _ in ms],
+                "all_chunks_ms": [a for _, a in ms],
+                "first_chunk_median_ms": statistics.median(f for f, _ in ms),
+                "all_chunks_median_ms": statistics.median(a for _, a in ms)}
+        row["first_use_extra_s"] = (
+            first_use_ms - row["replayed"]["all_chunks_median_ms"]) / 1e3
+        out[label] = row
+        log(f"windowed {label} ({windows} windows of {STREAM_WINDOW} + "
+            f"{STREAM_HALO} frames): first use and replays bitwise equal to "
+            f"the eager reference loop: {row['first_use_bitwise_equal']}, "
+            f"{row['replayed_bitwise_equal']}; medians of {GRAPH_REPS} in "
+            f"turns, first chunk / whole stream ms: eager "
+            f"{row['eager']['first_chunk_median_ms']:.1f} / "
+            f"{row['eager']['all_chunks_median_ms']:.1f}, replayed "
+            f"{row['replayed']['first_chunk_median_ms']:.1f} / "
+            f"{row['replayed']['all_chunks_median_ms']:.1f} ({card})")
+        log(f"windowed {label}: the first use took "
+            f"{row['first_use_extra_s']:.3f} s more than a replayed stream "
+            f"(warm passes and captures); per key: " + "; ".join(
+                f"{key} lock held {v['capture_lock_s'] * 1e3:.1f} ms, "
+                f"{memory_growth(v)}" for key, v in use["keys"].items()))
+
+    # two streams of one key, their windows interleaved (each replay copies
+    # its own stream's inputs into the graphs' static inputs): zh_1 at
+    # pitch 1 and 1.3, each against its eager reference
+    engine = engines[torch.float32]
+    texts = requests["zh_1"]
+
+    def pitched(pitch):
+        return engine.dispatch(texts, ["smoke_voice"] * len(texts),
+                               fmt="f32", pitches=[pitch] * len(texts))
+
+    pitches = (1.0, 1.3)
+    refs = [list(eager_windowed_stream(torch, np, engine, pitched(p),
+                                       STREAM_WINDOW, STREAM_HALO))
+            for p in pitches]
+    replays0 = dict(engine.graph_replays)
+    pairs = list(zip(*(engine.stream_decode(pitched(p), STREAM_WINDOW,
+                                            STREAM_HALO, exact=False)
+                       for p in pitches)))
+    row = {"pitches": pitches,
+           "bitwise_equal": [same([pair[i] for pair in pairs], refs[i])
+                             for i in range(2)],
+           "streams_differ": not same(*refs),
+           "replays": {str(k): n - replays0.get(k, 0)
+                       for k, n in engine.graph_replays.items()
+                       if n != replays0.get(k, 0)}}
+    check(f"two interleaved zh_1 streams of one key: {row}",
+          all(row["bitwise_equal"]) and row["streams_differ"]
+          and sum(row["replays"].values()) == 2 * (len(refs[0]) + 1))
+    out["interleaved_zh_1"] = row
+    log(f"two zh_1 streams of one key (pitch {pitches}), windows "
+        f"interleaved: each bitwise equal to its eager reference loop: "
+        f"{row['bitwise_equal']}; the two differ: {row['streams_differ']}; "
+        f"replays {row['replays']} ({card})")
+
+    # the largest stream keys' first use: long_8 (B=8, F 4096), to its
+    # first chunk
+    texts = requests["long_8"]
+    h = engine.dispatch(texts, ["smoke_voice"] * len(texts), fmt="f32")
+
+    def first_chunk():
+        gen = engine.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
+                                   exact=False)
+        chunk = next(gen)
+        gen.close()
+        return chunk
+
+    chunk, use = first_use(engine, first_chunk, "phase 12 windowed long_8",
+                           card)
+    check(f"windowed long_8: first chunk {chunk.shape}, finite "
+          f"{np.isfinite(chunk).all()}",
+          chunk.shape == (len(texts), STREAM_WINDOW
+                          * engine.config.samples_per_frame)
+          and bool(np.isfinite(chunk).all()))
+    out["long_8_first_use"] = use
+    log(f"windowed long_8 (B=8, F {h.f_bucket}), first use to the first "
+        f"chunk: {use['s']:.3f} s; per key: " + "; ".join(
+            f"{key} warm pass {v['warm_pass_s'] * 1e3:.1f} ms, lock held "
+            f"{v['capture_lock_s'] * 1e3:.1f} ms, {memory_growth(v)}"
+            for key, v in use["keys"].items()) + f" ({card})")
+    del engines, engine
+    torch.cuda.empty_cache()
+    return out, replayed
 
 
 def main() -> None:
@@ -2747,15 +3064,16 @@ def main() -> None:
         failures.append("mulaw24k bytes differ from mulaw_encode_np(pcm16)")
     torch.backends.cudnn.deterministic = False
 
-    torch.cuda.synchronize()
+    # the stream's first use captures its prepare and window graphs (the
+    # window's warm pass is one more Generator pass); the timed stream
+    # after it replays them
     reset_counts()
-    t0 = time.perf_counter()  # from dispatch, as the render's wall time
-    h = synth.dispatch(texts, voices(texts), fmt="f32")
-    gen = synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO, exact=False)
-    chunks = [next(gen)]
-    first_ms = (time.perf_counter() - t0) * 1e3
-    chunks += list(gen)
-    stream_ms = (time.perf_counter() - t0) * 1e3
+    (_, chunks, _, _), stream_first_use = first_use(
+        synth, lambda: timed_stream(torch, synth, texts),
+        "windowed stream (mixed_4)", card)
+    check_counts("windowed stream, first use (captures)", len(chunks) + 1)
+    reset_counts()
+    h, chunks, first_ms, stream_ms = timed_stream(torch, synth, texts)
     windows = h.f_bucket // STREAM_WINDOW
     max_total = int(h.fitted_totals[: h.n].max())
     want_lens = [min(STREAM_WINDOW, max_total - lo) * 600
@@ -2768,9 +3086,9 @@ def main() -> None:
         if not np.isfinite(c).all() or float(np.abs(c).max()) <= 1e-4:
             failures.append(f"windowed chunk {i}: non-finite or silent")
     log(f"windowed stream (mixed_4, window {STREAM_WINDOW} + halo "
-        f"{STREAM_HALO} frames, F_bucket {h.f_bucket} = {windows} windows): "
-        f"{len(chunks)} chunks, first after {first_ms:.1f} ms, all after "
-        f"{stream_ms:.1f} ms; full render (pcm16, section 4) "
+        f"{STREAM_HALO} frames, F_bucket {h.f_bucket} = {windows} windows), "
+        f"replayed: {len(chunks)} chunks, first after {first_ms:.1f} ms, all "
+        f"after {stream_ms:.1f} ms; full render (pcm16, section 4) "
         f"{timings['mixed_4']['pcm16']:.1f} ms")
     unrecord(layers, vocoder, asc, oa)
 
@@ -2878,7 +3196,7 @@ def main() -> None:
         conv_per_generator, reset_counts, check_wave)
 
     # ---- 12. warmup as CUDA graphs ----------------------------------------------
-    graphs, replayed = graphs_phase(
+    graphs, replayed, replayed_streams = graphs_phase(
         torch, np, synth, pipe, requests, oa, asc, conv_per_generator, card,
         failures, reset_counts, check_counts, check_wave)
 
@@ -2978,10 +3296,12 @@ def main() -> None:
         })
     for row in rows:
         row["launches_replayed"] = replayed[row["name"]]
+        row["launches_stream_replayed"] = replayed_streams[row["name"]]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"requests_wall_ms": timings,
                     "stream_first_chunk_ms": first_ms,
-                    "stream_all_chunks_ms": stream_ms}))
+                    "stream_all_chunks_ms": stream_ms,
+                    "stream_first_use": stream_first_use}))
     log(json.dumps({"serving": serving}))
     log(json.dumps({"http": http}))
     log(json.dumps({"weights": weights}))

@@ -3,10 +3,13 @@
 
 The JAX engine compiles one XLA program per serving key before traffic
 (``warmup``): stage A per ``(batch, tokens)``, stage B per ``(batch, tokens,
-frames, fmt)``. The port has nothing to compile, but an eager stage pays
-Python and one launch per op on every call. Its counterpart of a compiled
-program is a stage captured as a CUDA graph: one replay launches every
-kernel of the stage, the three hand-written kernels among them.
+frames, fmt)``; and the windowed stream's two programs at their first use,
+the prepare per ``("prep", batch, tokens, frames)`` and the window per
+``("win", batch, window, halo)``, one program for every window position.
+The port has nothing to compile, but an eager stage pays Python and one
+launch per op on every call. Its counterpart of a compiled program is a
+stage captured as a CUDA graph: one replay launches every kernel of the
+stage, the three hand-written kernels among them.
 
 A ``StageGraph`` is
 - **static inputs**, allocated before the capture (outside the graph pool);
@@ -21,7 +24,12 @@ A ``StageGraph`` is
 - **its outputs**, which each run clones before the lock is released: the
   next replay of any graph in the shared pool may reuse their memory;
 - **its launches** of each hand-written kernel, which the capture tallied
-  (``ops/capture_tally.py``) and each replay adds to the wrappers' counts.
+  (``ops/capture_tally.py``) and each replay adds to the wrappers' counts;
+- **the allocator's state** (``torch.cuda.memory_stats``: reserved and
+  allocated bytes, segments) just before and just after the capture, so
+  that the pool's growth can be laid to a key. ``torch.cuda.graph`` begins
+  by releasing the allocator's unused cached blocks; "before" is taken
+  after doing the same, so that the difference is the capture's own.
 
 On the CPU there is no graph: ``run`` computes the stage eagerly, so the
 engine's warmed keys and their bookkeeping work the same there.
@@ -49,6 +57,15 @@ def add_launches(tally: Dict[str, int], times: int = 1) -> None:
             asc.count_launch(name, n * times)
 
 
+def allocator_state(device) -> Dict[str, int]:
+    """The caching allocator's reserved and allocated bytes and its
+    segment count on ``device``, all pools together."""
+    stats = torch.cuda.memory_stats(device)
+    return {"reserved_bytes": stats.get("reserved_bytes.all.current", 0),
+            "allocated_bytes": stats.get("allocated_bytes.all.current", 0),
+            "segments": stats.get("segment.all.current", 0)}
+
+
 class StageGraph:
     """One stage at one serving key: ``fn(*inputs) -> tuple of tensors``
     captured on ``inputs``' shapes and types (``fn`` must take no decision
@@ -56,17 +73,22 @@ class StageGraph:
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
                  pool=None, stream: Optional[torch.cuda.Stream] = None,
-                 lock: Optional[threading.Lock] = None):
+                 lock: Optional[threading.Lock] = None,
+                 cpu_pass: bool = True):
         """Warm ``fn`` once on ``inputs``, then (on CUDA) capture it on
         ``stream`` into ``pool`` while holding ``lock``. A capture that
-        fails raises."""
+        fails raises. On the CPU the warm pass runs only with
+        ``cpu_pass`` (a key captured at its first use runs at once
+        anyway)."""
         self.fn = fn
         self.graph = None
         self.launches: Dict[str, int] = {}
         self.lock_s = 0.0  # seconds the capture held the lock
+        self.memory: Dict[str, Dict[str, int]] = {}
         t0 = time.perf_counter()
         if not inputs[0].is_cuda:
-            fn(*inputs)
+            if cpu_pass:
+                fn(*inputs)
             self.warm_s = time.perf_counter() - t0
             return
         self.static = tuple(x.clone() for x in inputs)
@@ -78,12 +100,16 @@ class StageGraph:
         stream.synchronize()
         self.warm_s = time.perf_counter() - t0
         graph = torch.cuda.CUDAGraph()
+        device = inputs[0].device
         with lock:
             t0 = time.perf_counter()
+            torch.cuda.empty_cache()  # as the capture's start does
+            self.memory["before"] = allocator_state(device)
             with captured() as tally, torch.cuda.graph(
                     graph, pool=pool, stream=stream,
                     capture_error_mode="thread_local"):
                 outputs = tuple(fn(*self.static))
+            self.memory["after"] = allocator_state(device)
             self.lock_s = time.perf_counter() - t0
         self.graph, self.outputs, self.launches = graph, outputs, tally
 

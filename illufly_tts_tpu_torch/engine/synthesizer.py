@@ -15,12 +15,17 @@ stage A, the audio after stage B) are non-blocking copies into pinned host
 memory, each with a CUDA event that ``_pick_f_bucket`` or ``collect`` waits
 on. ``stream_decode`` streams one utterance batch chunk by chunk: exactly
 (slices of the batch render, each copied alone) or windowed
-(``decode_prepare`` once, then the Generator per window).
+(``decode_prepare`` once, then the Generator per window, each window's copy
+started one window ahead of the chunk handed over).
 
 ``warmup`` is the JAX engine's ahead-of-time compile done the port's way:
 each warmed serving key's stage is captured as a CUDA graph
 (``engine/graphs.py``) and from then on always replays; a key never warmed
-runs eagerly, on the same kernels. ``load_params`` drops every graph.
+runs eagerly, on the same kernels. The windowed stream's two stages are
+captured at their first use, as the JAX engine compiles them at first use:
+the prepare per ``("prep", batch, tokens, frames)``, the window per
+``("win", batch, frames, window, halo)`` (generator frames), one graph for
+every window position. ``load_params`` drops every graph.
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a CUDA
 device and without that argument it raises. Parameters are float32
@@ -130,6 +135,15 @@ class DispatchHandle:
         self.ts_ctx = None  # pipeline-owned frontend context for timestamps
 
 
+def stage_kind(key: tuple) -> str:
+    """A serving key's stage: "a" for ``(batch, tokens)``, "b" for
+    ``(batch, tokens, frames, fmt)``, "prep" or "win" for the windowed
+    stream's keys."""
+    if isinstance(key[0], str):
+        return key[0]
+    return "a" if len(key) == 2 else "b"
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` or CUDA; raises when CUDA is asked for and absent."""
     dev = torch.device(device if device is not None else "cuda")
@@ -182,12 +196,19 @@ class Synthesizer:
             self.device)
         self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
         self._lock = threading.Lock()
-        # warmed serving keys -> their stage's graph: (batch, tokens) for
-        # stage A, (batch, tokens, frames, fmt) for stage B; one lock for
-        # every capture and replay (the graphs share one memory pool and
-        # each graph's static buffers)
+        # serving keys -> their stage's graph: (batch, tokens) for stage A,
+        # (batch, tokens, frames, fmt) for stage B (both warmed), and the
+        # windowed stream's ("prep", batch, tokens, frames) and ("win",
+        # batch, frames, window, halo) (at first use); one lock for every
+        # capture and replay (the graphs share one memory pool and each
+        # graph's static buffers), another for the first-use check
         self._graphs: Dict[tuple, StageGraph] = {}
         self._graph_lock = threading.Lock()
+        self._first_use_lock = threading.Lock()
+        # a windowed stream renders one window ahead of the chunk it hands
+        # over on the card, where a render is only enqueued; none on the
+        # CPU, where it runs at once and would delay the chunk
+        self._render_ahead = self.device.type == "cuda"
         self.graph_replays: Counter = Counter()  # key -> replays
         self._graph_pool = self._capture_stream = None
         if self.device.type == "cuda":
@@ -412,19 +433,45 @@ class Synthesizer:
     def _stage_fn(self, key: tuple):
         """The stage a serving key runs: stage A for ``(batch, tokens)``,
         -> (d, pred_dur, totals); stage B for ``(batch, tokens, frames,
-        fmt)``, -> (audio,)."""
-        if len(key) == 2:
+        fmt)``, -> (audio,); the stream's prepare for ``("prep", batch,
+        tokens, frames)``, (ids, mask, d, pred_dur, ref_s, pitch) -> (x,
+        f0_m, cum_rad, cur_mask); its window for ``("win", batch, frames,
+        window, halo)``, (x, f0_m, cum_rad, cur_mask, ref_s, start) ->
+        (audio,)."""
+        kind = stage_kind(key)
+        if kind == "a":
             return self._stage_a
+        if kind == "prep":
+            frames = key[3]
+            return lambda ids, mask, d, pred_dur, ref_s, pitch: (
+                self.net.decode_prepare(
+                    ids, mask, d, _fit_durations(pred_dur, frames), ref_s,
+                    frames, pitch=pitch))
+        if kind == "win":
+            window, halo = key[3:]
+            return lambda *prep_ref_start: (self.net.decode_window(
+                *prep_ref_start, window, halo),)
         frames, fmt = key[2:]
         return lambda ids, mask, d, pred_dur, ref_s, pitch: self._stage_b(
             ids, mask, d, pred_dur, ref_s, pitch, frames, fmt)[:1]
 
     def _run_stage(self, key: tuple, inputs) -> tuple:
         """The stage of ``key`` on ``inputs``: a warmed key's graph replays
-        (its outputs cloned under the lock), any other key runs eagerly."""
+        (its outputs cloned under the lock); a stream key is captured at
+        its first use and replays from then on; any other key runs
+        eagerly."""
         graph = self._graphs.get(key)
+        if graph is None and stage_kind(key) in ("prep", "win"):
+            graph = self._first_use(key, inputs)
         if graph is None:
             return tuple(self._stage_fn(key)(*inputs))
+        if graph.graph is None:
+            # the CPU: no static buffers to guard, so computed outside
+            # the lock, which only guards the count
+            out = graph.run(inputs)
+            with self._graph_lock:
+                self.graph_replays[key] += 1
+            return out
         with self._graph_lock:
             out = graph.run(inputs)
             self.graph_replays[key] += 1
@@ -647,7 +694,11 @@ class Synthesizer:
         chunk comes after one window. Window-local AdaIN statistics make
         the audio an approximation of the batch render; chunks are float32
         in every format, and the last is trimmed to the fitted frame
-        total. Needs a handle that stage B has not consumed."""
+        total. Needs a handle that stage B has not consumed. The prepare
+        and the window replay their graphs (captured at the key's first
+        use); window k + 1 is enqueued with its copy to the host before
+        chunk k is handed over (on the card), so a consumer that stops
+        early leaves at most one window rendered for nothing."""
         if exact:
             yield from self._stream_exact(handle, window_frames)
             return
@@ -663,13 +714,16 @@ class Synthesizer:
                 f"window_frames {window_frames} must divide the frame "
                 f"bucket {f_bucket}"
             )
-        model = self.net
-        with torch.inference_mode():
-            prep = model.decode_prepare(
-                handle.ids, handle.mask, handle.d,
-                _fit_durations(handle.pred_dur, f_bucket), handle.ref,
-                f_bucket, pitch=handle.pitch,
+        if window_frames + halo_frames > f_bucket:
+            raise ValueError(
+                f"window_frames {window_frames} + halo_frames {halo_frames} "
+                f"exceed the frame bucket {f_bucket}"
             )
+        with torch.inference_mode():
+            prep = self._run_stage(
+                ("prep", handle.b_bucket, handle.t_bucket, f_bucket),
+                (handle.ids, handle.mask, handle.d, handle.pred_dur,
+                 handle.ref, handle.pitch))
         spf = self.config.samples_per_frame
         # windows work in generator frames (2 per model frame) of spf / 2
         # samples: the halo of 2 * halo_frames generator frames spans
@@ -678,14 +732,30 @@ class Synthesizer:
         ramp = np.linspace(0.0, 1.0, overlap, dtype=np.float32)[None, :]
         max_total = int(handle.fitted_totals[: handle.n].max())
         body = window_frames * spf
-        prev_tail: Optional[np.ndarray] = None
-        for emitted in range(0, max_total, window_frames):
+        win_key = ("win", handle.b_bucket, f_bucket, 2 * window_frames,
+                   2 * halo_frames)
+        # each window's start as a device scalar (generator frames), all
+        # made at once on the device
+        starts = torch.arange(0, 2 * max_total, 2 * window_frames,
+                              device=self.device)
+
+        def render(k: int) -> _HostCopy:
             with torch.inference_mode():
-                audio = model.decode_window(
-                    *prep, handle.ref, 2 * emitted, 2 * window_frames,
-                    2 * halo_frames,
-                )
-            chunk = audio.float().cpu().numpy()  # [B, (window + halo) * spf]
+                (audio,) = self._run_stage(win_key,
+                                           (*prep, handle.ref, starts[k]))
+            return _HostCopy(audio.float())  # [B, (window + halo) * spf]
+
+        # on the card, window k + 1's render and copy are enqueued before
+        # chunk k is crossfaded and handed over
+        pending = render(0) if self._render_ahead and len(starts) else None
+        prev_tail: Optional[np.ndarray] = None
+        for k, emitted in enumerate(range(0, max_total, window_frames)):
+            if self._render_ahead:
+                ready = pending
+                pending = render(k + 1) if k + 1 < len(starts) else None
+            else:
+                ready = render(k)
+            chunk = ready.numpy()
             out = chunk[:, :body].copy()
             if prev_tail is not None:
                 out[:, :overlap] = (
@@ -746,15 +816,29 @@ class Synthesizer:
             if fresh:
                 self._voices.pop(voice, None)
 
-    def _capture(self, key: tuple, inputs) -> StageGraph:
+    def _capture(self, key: tuple, inputs, cpu_pass: bool = True
+                 ) -> StageGraph:
         """Warm and capture ``key``'s stage on ``inputs`` and serve the key
-        from its graph from now on (on the CPU: one eager pass, and the key
-        is recorded)."""
+        from its graph from now on (on the CPU: one eager pass with
+        ``cpu_pass``, and the key is recorded)."""
         with torch.inference_mode():
             graph = StageGraph(self._stage_fn(key), inputs,
                                self._graph_pool, self._capture_stream,
-                               self._graph_lock)
+                               self._graph_lock, cpu_pass=cpu_pass)
         self._graphs[key] = graph
+        return graph
+
+    def _first_use(self, key: tuple, inputs) -> StageGraph:
+        """A windowed-stream key's graph, captured on ``inputs`` if this is
+        the key's first use (a capture that fails raises)."""
+        with self._first_use_lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                t0 = time.perf_counter()
+                graph = self._capture(key, inputs, cpu_pass=False)
+                logger.info("stream stage %s captured at first use in "
+                            "%.2fs (lock held %.3fs)", key,
+                            time.perf_counter() - t0, graph.lock_s)
         return graph
 
     def _zero_inputs(self, batch: int, tokens: int):
@@ -813,7 +897,7 @@ class Synthesizer:
         eagerly. Its ``__drain__`` voice is removed afterwards, and its
         collect does not release ``warmup_staged``'s background pass."""
         fmt = "pcm16"
-        warmed = [k for k in self._graphs if len(k) == 4]
+        warmed = [k for k in self._graphs if stage_kind(k) == "b"]
         if warmed:
             matching = [k for k in warmed
                         if (batch is None or k[0] == batch)

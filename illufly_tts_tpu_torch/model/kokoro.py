@@ -163,7 +163,7 @@ class KokoroModel(nn.Module):
         cum_rad: torch.Tensor,    # [B, 2F]
         cur_mask: torch.Tensor,   # [B, 2F]
         ref_s: torch.Tensor,      # [B, 2 * style_dim]
-        start: int,               # generator-frame (2F) units
+        start,                    # 0-d int tensor (or int), 2F units
         window: int,              # generator-frame units
         halo: int,                # generator-frame units
         pcm16: bool = False,
@@ -173,32 +173,53 @@ class KokoroModel(nn.Module):
         too, so consecutive windows overlap by ``halo`` frames for the
         caller's crossfade. -> audio [B, (window + halo) * 300].
 
+        ``start`` is a 0-d integer tensor on ``x``'s device (a Python int
+        is turned into one), as the JAX model's is a traced scalar: the
+        slices are gathers at offsets clamped on the device, as
+        ``dynamic_slice_in_dim`` clamps them, and nothing here reads a
+        value on the host, so one captured graph serves every window
+        position. The gathers (the span of x, f0, mask, the phase before
+        it, the emitted audio and its mask) are a few small launches a
+        window beside the Generator's.
+
         The generator's AdaIN layers are instance norms over time, so a
         window's statistics differ from the full render's: the output is an
         approximation that converges as windows grow. Phase (``cum_rad``)
         and conv context (the halo) are exact."""
         cfg = self.config
+        dev = x.device
+        start = torch.as_tensor(start, dtype=torch.int64, device=dev)
         dec_style = ref_s[:, : cfg.style_split].to(cfg.dtype)
         span = window + 2 * halo
         # no left padding (pad frames would bias-propagate through the
         # convs; clamping lets the first windows see the true start); the
         # right gets `halo` zero frames past the masked end, where the
         # full render's own zero padding lies
+        total_p = x.shape[-1] + halo
+        if span > total_p:
+            # checked here, on the shapes: a gather past the tensor would
+            # be a device-side assert, which ends the process's CUDA work
+            raise ValueError(
+                f"window {window} + 2 x halo {halo} generator frames exceed "
+                f"the {x.shape[-1]} frames of x and its {halo}-frame right "
+                "pad; use a larger frame bucket or a smaller window or halo")
         x_p = F.pad(x, (0, halo))
         f0_p, rad_p, mask_p = (F.pad(t, (0, halo))
                                for t in (f0_m, cum_rad, cur_mask))
-        total_p = x_p.shape[-1]
         lo = _slice_start(start - halo, span, total_p)
-        rad0 = rad_p[:, lo]  # phase accumulated before the slice
+        cols = lo + torch.arange(span, device=dev)
+        rad0 = rad_p.index_select(1, lo[None])[:, 0]  # phase before the slice
         audio = self.decoder.generate(
-            x_p[:, :, lo:lo + span], dec_style, f0_p[:, lo:lo + span],
-            mask_p[:, lo:lo + span], rad_offset=rad0)
+            x_p.index_select(2, cols), dec_style, f0_p.index_select(1, cols),
+            mask_p.index_select(1, cols), rad_offset=rad0)
         spi = cfg.samples_per_frame // 2
         emit = window + halo  # window body + right overlap for crossfade
         a0 = _slice_start((start - lo) * spi, emit * spi, audio.shape[1])
-        audio = audio[:, a0:a0 + emit * spi]
+        audio = audio.index_select(
+            1, a0 + torch.arange(emit * spi, device=dev))
         m0 = _slice_start(start, emit, total_p)
-        audio = audio * mask_p[:, m0:m0 + emit].repeat_interleave(spi, dim=1)
+        mask_w = mask_p.index_select(1, m0 + torch.arange(emit, device=dev))
+        audio = audio * mask_w.repeat_interleave(spi, dim=1)
         if pcm16:
             # hard clip, not the batch path's peak normalization: the
             # stream is causal, the global peak unknown at window k, and a
@@ -234,10 +255,11 @@ def peak_normalize(audio: torch.Tensor) -> torch.Tensor:
     return torch.clamp(audio * scale, -1.0, 1.0)
 
 
-def _slice_start(start: int, size: int, total: int) -> int:
-    """A slice start clamped into [0, total - size], as a JAX dynamic
-    slice clamps it."""
-    return min(max(start, 0), total - size)
+def _slice_start(start: torch.Tensor, size: int,
+                 total: int) -> torch.Tensor:
+    """A slice start (0-d tensor) clamped into [0, total - size] on the
+    device, as a JAX dynamic slice clamps it."""
+    return start.clamp(min=0).clamp(max=total - size)
 
 
 def _fit_durations(pred_dur: torch.Tensor, budget: int) -> torch.Tensor:

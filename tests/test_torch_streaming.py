@@ -10,6 +10,12 @@ seed 123) and one shared voice, on the CPU.
   crossfaded ``stream_decode(exact=False)`` chunks agree with JAX within
   1e-4 of the audio's peak (the stage-B tolerance of
   ``tests/test_torch_model.py``);
+- at speed != 1 the windowed stream still agrees with JAX's; at pitch != 1
+  (where a voiced source would make the random Generator chaotic across
+  frameworks) the prepared F0 contour agrees with JAX's and the engine's
+  chunks equal, bit for bit, ``parent_windowed_stream``: the loop over
+  ``decode_prepare`` / ``decode_window`` with host-int starts and blocking
+  copies that the engine ran before its stages became graphs;
 - exact streaming concatenates to the port's own ``collect()`` bit for bit;
 - a mulaw8k batch expands to within one mu-law step of JAX's."""
 import jax.numpy as jnp
@@ -22,6 +28,7 @@ from illufly_tts_tpu.engine.synthesizer import Synthesizer as JaxSynthesizer
 from illufly_tts_tpu.model.kokoro import _fit_durations as jax_fit
 from illufly_tts_tpu_torch.audio import telephony as tel
 from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+from illufly_tts_tpu_torch.model.kokoro import _fit_durations
 from tests.test_model import tiny_config
 from tests.test_torch_params import numpy_tree, port_config
 
@@ -144,6 +151,91 @@ def test_windowed_stream_matches_jax(engines):
     # the short row's masked tail stays silent
     stream = np.concatenate(got, axis=1)
     assert not stream[1, int(hp.fitted_totals[1]) * 600:].any()
+
+
+def parent_windowed_stream(synth, handle, window_frames, halo_frames):
+    """The windowed stream as the engine ran it eagerly: ``decode_prepare``
+    once, then per window ``decode_window`` with a host-int start, a
+    blocking copy to the host and the linear crossfade. -> the chunks."""
+    f_bucket = synth._pick_f_bucket(handle)
+    net = synth.net
+    with torch.inference_mode():
+        prep = net.decode_prepare(
+            handle.ids, handle.mask, handle.d,
+            _fit_durations(handle.pred_dur, f_bucket), handle.ref, f_bucket,
+            pitch=handle.pitch)
+    spf = synth.config.samples_per_frame
+    overlap = halo_frames * spf
+    ramp = np.linspace(0.0, 1.0, overlap, dtype=np.float32)[None, :]
+    max_total = int(handle.fitted_totals[: handle.n].max())
+    body = window_frames * spf
+    prev_tail, chunks = None, []
+    for emitted in range(0, max_total, window_frames):
+        with torch.inference_mode():
+            audio = net.decode_window(*prep, handle.ref, 2 * emitted,
+                                      2 * window_frames, 2 * halo_frames)
+        chunk = audio.float().cpu().numpy()
+        out = chunk[:, :body].copy()
+        if prev_tail is not None:
+            out[:, :overlap] = (prev_tail * (1.0 - ramp)
+                                + out[:, :overlap] * ramp)
+        prev_tail = chunk[:, body: body + overlap]
+        frames_here = min(window_frames, max_total - emitted)
+        chunks.append(out[: handle.n, : frames_here * spf])
+    return chunks
+
+
+@pytest.mark.parametrize("speeds", [[0.8, 1.3], [1.25, 1.25]])
+def test_windowed_stream_at_speed_matches_jax(engines, speeds):
+    """Speed scales stage A's durations, and so the frames every window
+    renders: both engines' windowed streams on one speed-scaled batch."""
+    jsynth, port = engines
+    hj = jsynth.dispatch(TEXTS, VOICES, speeds=speeds)
+    hp = port.dispatch(TEXTS, VOICES, speeds=speeds)
+    np.testing.assert_array_equal(hp.pred_dur.numpy(),
+                                  np.asarray(hj.pred_dur))
+    base = port.dispatch(TEXTS, VOICES)
+    assert (hp.pred_dur.numpy() != base.pred_dur.numpy()).any()
+    ref = list(jsynth.stream_decode(hj, WINDOW, HALO, exact=False))
+    got = list(port.stream_decode(hp, WINDOW, HALO, exact=False))
+    assert [g.shape for g in got] == [np.asarray(r).shape for r in ref]
+    for g, r in zip(got, ref):
+        _scaled_close(g, r)
+
+
+def test_windowed_stream_at_pitch(engines):
+    """Pitch scales the F0 contour ``decode_prepare`` hands the windows:
+    held to JAX's there; the chunks, voiced or not, to the port's eager
+    loop bit for bit."""
+    jsynth, port = engines
+    pitches = [1.6, 0.7]
+    hj = jsynth.dispatch(TEXTS, VOICES, pitches=pitches)
+    hp = port.dispatch(TEXTS, VOICES, pitches=pitches)
+    np.testing.assert_array_equal(hp.pred_dur.numpy(),
+                                  np.asarray(hj.pred_dur))
+    _, f0_ref, _, _ = jsynth._get_stage_prep(hj.b_bucket, hj.t_bucket,
+                                             FRAMES)(
+        jsynth.params, hj.ids, hj.mask, hj.d, hj.pred_dur, hj.ref, hj.pitch)
+    with torch.inference_mode():
+        _, f0, _, _ = port.net.decode_prepare(
+            hp.ids, hp.mask, hp.d, _fit_durations(hp.pred_dur, FRAMES),
+            hp.ref, FRAMES, pitch=hp.pitch)
+    _scaled_close(f0.numpy(), f0_ref)
+    neutral = port.dispatch(TEXTS, VOICES)
+    with torch.inference_mode():
+        f0_neutral = port.net.decode_prepare(
+            neutral.ids, neutral.mask, neutral.d,
+            _fit_durations(neutral.pred_dur, FRAMES), neutral.ref,
+            FRAMES)[1]
+    np.testing.assert_allclose(
+        f0.numpy(), f0_neutral.numpy() * np.array(pitches)[:, None],
+        rtol=1e-6)
+    want = parent_windowed_stream(port, port.dispatch(
+        TEXTS, VOICES, pitches=pitches), WINDOW, HALO)
+    got = list(port.stream_decode(hp, WINDOW, HALO, exact=False))
+    assert len(got) == len(want) == FRAMES // WINDOW
+    for g, w in zip(got, want):
+        assert g.tobytes() == w.tobytes()
 
 
 def test_windowed_stream_checks_its_handle(engines):

@@ -229,7 +229,9 @@ def test_staged_throwaway_keeps_a_concurrent_first_batch(jax_synth,
 @pytest.mark.parametrize("fmt", FORMATS)
 def test_warmed_render_equals_unwarmed(fmt):
     """Replayed keys give the eager render bit for bit: batch, exact
-    stream (from a replayed handle) and windowed stream."""
+    stream (from a replayed handle) and windowed stream. The windowed
+    stream's keys are recorded at first use in both engines; no batch key
+    of the unwarmed engine replays."""
     buckets = dict(token_buckets=(32,), frame_buckets=(64,),
                    batch_buckets=(2,))
     cold, warm = _port(**buckets), _port(**buckets)
@@ -244,7 +246,9 @@ def test_warmed_render_equals_unwarmed(fmt):
             s.dispatch(TEXTS, voices, fmt=fmt), 16, 4, exact=False)), axis=1)
     assert warm.graph_replays[(2, 32, 64, fmt)] == 2
     assert warm.graph_replays[(2, 32)] == 3
-    assert cold.graph_replays == {}
+    stream_keys = {("prep", 2, 32, 64): 1, ("win", 2, 64, 32, 8): 4}
+    assert cold.graph_replays == stream_keys
+    assert {k: warm.graph_replays[k] for k in stream_keys} == stream_keys
     for a, b in zip(cold.out, warm.out):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
     assert cold.exact.tobytes() == warm.exact.tobytes()

@@ -4,11 +4,15 @@
 A JAX suite names its modules at import (``from illufly_tts_tpu.api.endpoints
 import create_app``) and, in some cases, inside the test body. ``collect``
 lists a suite's cases, one id per parametrized combination (``slow`` cases
-left out, as Tier-1 leaves them out); ``use_port_globals`` swaps the port's
-objects into the suite's module globals and ``use_port_modules`` the port's
-modules into ``sys.modules`` (and onto the JAX parent package), so the
-function-local imports find them too; ``run`` calls one case, async or not,
-with the fixtures it asks for. Everything is undone by ``monkeypatch``."""
+left out, as Tier-1 leaves them out, unless ``include_slow``: a case that
+is slow for its JAX compiles can be cheap on the port); ``use_port_globals``
+swaps the port's objects into the suite's module globals and
+``use_port_modules`` the port's modules into ``sys.modules`` (and onto the
+JAX parent package), so the function-local imports find them too;
+``use_port_engine`` does both for the engine, pipeline and scheduler, with
+the port's ``Synthesizer`` on the CPU and ``tiny_config`` giving the port's
+config; ``run`` calls one case, async or not, with the fixtures it asks
+for. Everything is undone by ``monkeypatch``."""
 from __future__ import annotations
 
 import asyncio
@@ -19,9 +23,10 @@ import sys
 from typing import Dict, List, Tuple
 
 
-def _expand(qualname: str, fn) -> List[Tuple[str, Tuple[str, dict]]]:
+def _expand(qualname: str, fn,
+            include_slow: bool = False) -> List[Tuple[str, Tuple[str, dict]]]:
     marks = getattr(fn, "pytestmark", [])
-    if any(m.name == "slow" for m in marks):
+    if not include_slow and any(m.name == "slow" for m in marks):
         return []
     grids = []
     for m in marks:
@@ -42,7 +47,8 @@ def _expand(qualname: str, fn) -> List[Tuple[str, Tuple[str, dict]]]:
     return out
 
 
-def collect(module, exclude=()) -> Dict[str, Tuple[str, dict]]:
+def collect(module, exclude=(), include_slow=False
+            ) -> Dict[str, Tuple[str, dict]]:
     """Case id -> (qualified name, parameters) for every test function and
     ``Test*`` class method defined in ``module``, minus ``exclude`` (bare
     function or method names)."""
@@ -51,12 +57,13 @@ def collect(module, exclude=()) -> Dict[str, Tuple[str, dict]]:
         if (name.startswith("test_") and inspect.isfunction(obj)
                 and obj.__module__ == module.__name__):
             if name not in exclude:
-                cases.update(_expand(name, obj))
+                cases.update(_expand(name, obj, include_slow))
         elif name.startswith("Test") and inspect.isclass(obj):
             for mname, meth in vars(obj).items():
                 if (mname.startswith("test_") and inspect.isfunction(meth)
                         and mname not in exclude):
-                    cases.update(_expand(f"{name}::{mname}", meth))
+                    cases.update(_expand(f"{name}::{mname}", meth,
+                                         include_slow))
     return cases
 
 
@@ -74,6 +81,50 @@ def use_port_modules(monkeypatch, mapping: Dict[str, str]) -> None:
         importlib.import_module(parent)
         monkeypatch.setitem(sys.modules, jax_name, port)
         monkeypatch.setattr(sys.modules[parent], child, port, raising=False)
+
+
+PORT_ENGINE_MODULES = {
+    f"illufly_tts_tpu.{name}": f"illufly_tts_tpu_torch.{name}"
+    for name in ("engine.synthesizer", "pipeline", "runtime.scheduler")
+}
+
+
+def cpu_synthesizer():
+    """The port's ``Synthesizer`` with ``device="cpu"`` by default (the
+    JAX suites construct it without a device)."""
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+
+    class CpuSynthesizer(Synthesizer):
+        def __init__(self, *args, device="cpu", **kwargs):
+            super().__init__(*args, device=device, **kwargs)
+
+    return CpuSynthesizer
+
+
+def use_port_engine(monkeypatch, module=None, names=(), extra=None) -> None:
+    """The port's engine, pipeline and scheduler (and ``extra`` modules,
+    ``{JAX name: port name}``) behind the JAX names; the port's
+    ``Synthesizer`` defaults to the CPU; ``tests.test_model.tiny_config``
+    gives the port's config of the same dimensions. ``names`` of the
+    suite ``module``'s globals are swapped for the port's objects of the
+    same name (``Synthesizer``, ``tiny_config`` and the pipeline and
+    scheduler classes)."""
+    import tests.test_model
+    from illufly_tts_tpu_torch import pipeline
+    from illufly_tts_tpu_torch.engine import synthesizer
+    from illufly_tts_tpu_torch.runtime import scheduler
+    from tests.test_torch_params import port_config
+
+    cpu = cpu_synthesizer()
+    monkeypatch.setattr(synthesizer, "Synthesizer", cpu)
+    monkeypatch.setattr(tests.test_model, "tiny_config", port_config)
+    use_port_modules(monkeypatch, {**PORT_ENGINE_MODULES, **(extra or {})})
+    port = {"Synthesizer": cpu, "tiny_config": port_config,
+            "TTSPipeline": pipeline.TTSPipeline,
+            "CachedTTSPipeline": pipeline.CachedTTSPipeline,
+            "TTSServiceManager": scheduler.TTSServiceManager}
+    for name in names:
+        monkeypatch.setattr(module, name, port[name])
 
 
 def run(module, case: Tuple[str, dict], **fixtures) -> None:
