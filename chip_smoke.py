@@ -131,12 +131,37 @@ From the root of a checkout. It
    ``TTS_WARMUP=1`` on a fresh engine (startup to ready, the first
    request's stages replayed, the background pass, a request of another
    warmed shape replayed); ``load_params`` on the warmed engine leaves no
-   graph and renders bitwise as a fresh engine on those weights.
+   graph and renders bitwise as a fresh engine on those weights;
+13. runs data parallelism (``parallel/mesh.py``) as two and three
+   replicas sharing the one card, under cuDNN's deterministic algorithms,
+   on phase 4's weights: ``make_mesh`` over the card (and past its count:
+   the JAX assert), then zh_1, mixed_4 and a B=8 batch in pcm16 and
+   mulaw8k and mixed_4 in f32 on two replicas (each replica's rows bitwise
+   equal to the one-device engine's render of them at the shard's batch
+   size and the batch's buckets; in pcm16 and f32 the gathered batch
+   within the golden gate, rms/scale < 5e-3, of the one-device render of
+   the whole batch, whose other shapes let cuDNN and cuBLAS sum in other
+   orders; in mu-law that distance is printed), mixed_4 padded
+   to 6 rows on three (bitwise the two replicas' render); ``warmup`` of mixed_4's key on every replica
+   (replays bitwise equal to eager), an exact and a windowed stream of a
+   one-request handle (first use, then replayed: bitwise equal, and equal
+   to the one-device engine's); two concurrent requests through
+   ``create_app`` over ``TTSPipeline(mesh=)`` with ``FrozenG2P`` (WAV bodies
+   equal to the mesh engine's render of the batches the scheduler formed);
+   B=8 wall time, two replicas against one device, in turns; ``train(mesh=
+   <2 replicas>)`` at B=8 / 64 tokens / 128 frames, step 0 against a
+   one-device step on the same batch (phase 10's loss tolerances; each
+   weight's update within two steps of lr, at most 1% of entries off by
+   1e-3 lr: Adam's first step is the gradient's sign), then a step after a
+   resume; a bfloat16 ``train`` on float32 masters (B=2, 2 steps), step 0
+   against the CPU's bf16 step; every Generator pass launching each kernel
+   once per replica, and each kernel held against its plain version at the
+   replicas' shapes.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's launches per
 phase; ``launches_replayed``: those of phase 12's batch replays;
-``launches_stream_replayed``: those of its replayed windowed streams) and,
-last,
+``launches_stream_replayed``: those of its replayed windowed streams;
+``launches_mesh``: those of phase 13) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line;
 so does a host without CUDA, or a directory without the port's package.
@@ -2829,6 +2854,477 @@ def stream_graphs(torch, np, synth, requests, tree, inventory, oa, asc,
     return out, replayed
 
 
+MESH_REPS = 5  # phase 13: timed B=8 renders per engine, in turns
+
+
+def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
+               conv_per_generator, card, failures, reset_counts,
+               check_counts, check_wave, dev):
+    """Phase 13: data parallelism, one replica per 'data' device, here two
+    (and three) replicas sharing the one card. -> (summary dict, f32
+    launches by kernel, bf16 launches by kernel, f32 conv shapes by
+    kernel, head shapes, bf16 conv shapes, bf16 head shapes)."""
+    import asyncio
+    import base64
+    import copy
+    import dataclasses
+    import tempfile
+
+    import aiohttp
+    from aiohttp import web
+
+    from illufly_tts_tpu_torch.api import endpoints
+    from illufly_tts_tpu_torch.api.auth import create_access_token
+    from illufly_tts_tpu_torch.audio.telephony import mulaw_decode_np
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.parallel.mesh import compute_copy, make_mesh
+    from illufly_tts_tpu_torch.pipeline import CachedTTSPipeline
+    from illufly_tts_tpu_torch.training import loop
+    from illufly_tts_tpu_torch.training import step as tstep
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.deterministic = True  # bitwise comparisons below
+    out = {"card": card, "cudnn_deterministic": True, "checks": {}}
+    launches = {"istft_oa": 0, **{name: 0 for name in CONV_KERNELS}}
+    tree = export_flax_params(synth.model)  # phase 4's weights
+    voice = "smoke_voice"
+
+    def check(label, ok):
+        out["checks"][label] = bool(ok)
+        if not ok:
+            failures.append(f"phase 13: {label}")
+        return ok
+
+    def counted(label, generator_runs):
+        got = check_counts(f"phase 13: {label}", generator_runs)
+        for name, n in got.items():
+            launches[name] += n
+
+    def same(a, b):
+        return len(a) == len(b) and all(
+            x.dtype == y.dtype and x.tobytes() == y.tobytes()
+            for x, y in zip(a, b))
+
+    # -- the mesh
+    one = make_mesh(n_data=1)
+    check("make_mesh(n_data=1) spans cuda:0",
+          one.shape == {"data": 1, "model": 1} and one.data_devices == [dev])
+    refused = None
+    try:
+        make_mesh(n_data=torch.cuda.device_count() + 1)
+    except AssertionError as exc:
+        refused = str(exc)
+    check("make_mesh past the card count raises AssertionError",
+          refused is not None)
+    mesh2 = make_mesh(n_data=2, devices=[dev] * 2)
+    mesh3 = make_mesh(n_data=3, devices=[dev] * 3)
+    check("meshes over a repeated cuda:0",
+          mesh2.shape["data"] == 2 and mesh3.shape["data"] == 3)
+    log(f"phase 13: make_mesh(n_data=1) {one}; make_mesh(n_data="
+        f"{torch.cuda.device_count() + 1}) raises {refused!r}; 2 and 3 "
+        f"replicas on cuda:0 built")
+
+    single = Synthesizer(cfg, params=tree, device=dev)
+    e2 = Synthesizer(cfg, params=tree, mesh=mesh2)
+    e3 = Synthesizer(cfg, params=tree, mesh=mesh3)
+    for engine in (single, e2, e3):
+        engine.register_random_voice(voice, seed=0)
+    buckets = (single.batch_buckets, single.token_buckets,
+               single.frame_buckets)
+
+    def forced(rows, t_bucket, f_bucket):
+        single.batch_buckets, single.token_buckets = (rows,), (t_bucket,)
+        single.frame_buckets = (f_bucket,)
+
+    def unforced():
+        (single.batch_buckets, single.token_buckets,
+         single.frame_buckets) = buckets
+
+    def shard_refs(h, texts, fmt):
+        """The one-device engine's render of each replica's real rows at
+        the replica's batch size and the batch's token and frame
+        buckets."""
+        rows = h.b_bucket // len(h.shards)
+        refs = []
+        forced(rows, h.t_bucket, h.f_bucket)
+        try:
+            for lo in range(0, len(texts), rows):
+                part = texts[lo:lo + rows]
+                refs += single.collect(single.dispatch(
+                    part, [voice] * len(part), fmt=fmt))
+        finally:
+            unforced()
+        return refs
+
+    def as_float(clip):
+        return mulaw_decode_np(clip) if clip.dtype == np.uint8 else clip
+
+    def close(got, want):
+        """-> (equal lengths and rms/scale below ``CPU_GPU_TOL`` for every
+        item, the golden gate; the worst rms/scale; the worst max
+        |difference| over max(peak, 1), ``tests/test_sharding.py``'s
+        measure; for mu-law the largest code difference)."""
+        worst_rms = worst_max = 0.0
+        codes = None
+        for a, b in zip(got, want):
+            if a.size != b.size:
+                return False, None, None, None
+            if a.dtype == np.uint8:
+                codes = max(codes or 0, int(np.abs(
+                    a.astype(np.int16) - b).max()))
+            a, b = as_float(a).astype(np.float64), as_float(b)
+            rms = float(np.sqrt(np.mean((a - b) ** 2)))
+            worst_rms = max(worst_rms, rms / (float(np.sqrt(np.mean(
+                b.astype(np.float64) ** 2))) + 1e-9))
+            worst_max = max(worst_max, float(np.abs(a - b).max()) / max(
+                float(np.abs(b).max()), 1.0))
+        return (len(got) == len(want) and worst_rms < CPU_GPU_TOL,
+                worst_rms, worst_max, codes)
+
+    # -- serving on two replicas
+    conv_shapes, head_shapes = record_shapes(layers, vocoder, asc, oa)
+    b8 = requests["mixed_4"] * 2
+    cases = [("zh_1", requests["zh_1"], "pcm16"),
+             ("zh_1", requests["zh_1"], "mulaw8k"),
+             ("mixed_4", requests["mixed_4"], "pcm16"),
+             ("mixed_4", requests["mixed_4"], "mulaw8k"),
+             ("mixed_4", requests["mixed_4"], "f32"),
+             ("b8", b8, "pcm16"), ("b8", b8, "mulaw8k")]
+    served, eager = [], {}
+    try:
+        for name, texts, fmt in cases:
+            reset_counts()
+            h = e2.dispatch(texts, [voice] * len(texts), fmt=fmt)
+            got = e2.collect(h)
+            counted(f"{name}/{fmt} on 2 replicas", 2)
+            per = 200 if fmt == "mulaw8k" else 600
+            for i, clip in enumerate(got):
+                check_wave(f"phase 13 {name}/{fmt}[{i}]", clip,
+                           int(h.fitted_totals[i]) * per)
+            bitwise = check(f"{name}/{fmt}: each replica's rows bitwise the "
+                            "one-device engine's at the shard's batch",
+                            same(got, shard_refs(h, texts, fmt)))
+            # the one-device engine at the whole batch's size: other
+            # shapes, so cuDNN and cuBLAS may sum in other orders
+            whole = single.collect(single.dispatch(texts, [voice] * len(
+                texts), fmt=fmt))
+            ok, rms, worst, codes = close(got, whole)
+            if fmt != "mulaw8k":  # a flipped code near the peak is ~1%
+                check(f"{name}/{fmt}: gathered within the golden gate of "
+                      "the one-device batch render", ok)
+            eager[name, fmt] = got
+            served.append({"request": name, "fmt": fmt, "b_bucket": h.b_bucket,
+                           "shard_rows": [s.b_bucket for s in h.shards],
+                           "t_bucket": h.t_bucket, "f_bucket": h.f_bucket,
+                           "shards_bitwise": bitwise,
+                           "rms_over_scale": rms,
+                           "max_err_over_peak": worst,
+                           "max_code_diff": codes})
+            log(f"phase 13: {name}/{fmt} on 2 replicas: B bucket "
+                f"{h.b_bucket} as {[s.b_bucket for s in h.shards]}, "
+                f"T {h.t_bucket}, F {h.f_bucket}; shards bitwise the "
+                f"one-device engine's: {bitwise}; gathered vs the one-device "
+                f"batch render: rms/scale {rms} (limit {CPU_GPU_TOL}, "
+                f"pcm16/f32), max err/max(peak, 1) {worst}"
+                + (f", codes at most {codes} apart" if codes is not None
+                   else ""))
+        texts4 = requests["mixed_4"]
+        reset_counts()
+        h3 = e3.dispatch(texts4, [voice] * 4)
+        got3 = e3.collect(h3)
+        counted("mixed_4 on 3 replicas", 3)
+        check("3 replicas pad mixed_4 to 6 rows",
+              h3.b_bucket == 6 and [s.b_bucket for s in h3.shards]
+              == [2, 2, 2])
+        # the real rows run at two a replica on both engines
+        ok3 = check("3 replicas bitwise the 2 replicas' render",
+                    same(got3, eager["mixed_4", "pcm16"]))
+        out["serving"] = served
+        out["three_replicas"] = {"b_bucket": h3.b_bucket, "bitwise": ok3}
+        log(f"phase 13: mixed_4 on 3 replicas: B bucket {h3.b_bucket} as "
+            f"{[s.b_bucket for s in h3.shards]}, bitwise the 2 replicas' "
+            f"render: {ok3}")
+
+        # -- graphs and streams on two replicas
+        h = e2.dispatch(texts4, [voice] * 4)
+        e2.collect(h)
+        key4 = (h.t_bucket, h.f_bucket)
+        t0 = time.perf_counter()
+        e2.warmup(batch_sizes=(4,), token_sizes=(key4[0],),
+                  frame_sizes=(key4[1],), formats=("pcm16",))
+        warm_s = time.perf_counter() - t0
+        reset_counts()
+        h = e2.dispatch(texts4, [voice] * 4, fmt="pcm16")
+        replayed = e2.collect(h)
+        counted("mixed_4 replayed on 2 replicas", 2)
+        keys = [(2, key4[0]), (2, key4[0], key4[1], "pcm16")]
+        check("each replica replays its graphs",
+              all(rep.graph_replays[k] == 1 for rep in e2._replicas
+                  for k in keys))
+        check("replays bitwise equal to eager",
+              same(replayed, eager["mixed_4", "pcm16"]))
+        zh = requests["zh_1"]
+        h = e2.dispatch(zh, [voice], fmt="f32")
+        exact = np.concatenate(list(e2.stream_decode(
+            h, window_frames=STREAM_WINDOW)), axis=1)
+        check("exact stream on 2 replicas bitwise equal to collect()",
+              exact[0].tobytes() == e2.collect(e2.dispatch(
+                  zh, [voice], fmt="f32"))[0].tobytes())
+        streams = {}
+        for label in ("first use", "replayed"):
+            reset_counts()
+            h = e2.dispatch(zh, [voice], fmt="f32")
+            t0 = time.perf_counter()
+            chunks = list(e2.stream_decode(h, window_frames=STREAM_WINDOW,
+                                           halo_frames=STREAM_HALO,
+                                           exact=False))
+            ms = (time.perf_counter() - t0) * 1e3
+            # each replica renders every window; at first use each one's
+            # window capture adds its warm pass
+            counted(f"windowed stream ({label}) on 2 replicas",
+                    2 * len(chunks) + (2 if label == "first use" else 0))
+            streams[label] = (chunks, ms, h.f_bucket)
+        forced(1, h.t_bucket, h.f_bucket)
+        try:
+            hs = single.dispatch(zh, [voice], fmt="f32")
+            ref = list(single.stream_decode(hs, window_frames=STREAM_WINDOW,
+                                            halo_frames=STREAM_HALO,
+                                            exact=False))
+        finally:
+            unforced()
+        first, again = streams["first use"][0], streams["replayed"][0]
+        check("windowed stream replayed bitwise equal to its first use",
+              same(first, again))
+        check("windowed stream bitwise the one-device engine's",
+              same(again, ref))
+        for i, c in enumerate(again):
+            check(f"windowed chunk {i} finite, not silent",
+                  np.isfinite(c).all() and float(np.abs(c).max()) > 1e-4)
+        out["graphs"] = {"warmup_s": warm_s, "keys": [list(k) for k in keys],
+                         "stream_chunks": len(again),
+                         "stream_first_use_ms": streams["first use"][1],
+                         "stream_replayed_ms": streams["replayed"][1]}
+        log(f"phase 13: warmup of mixed_4's key on 2 replicas in {warm_s:.2f}"
+            f" s, replays bitwise equal to eager; windowed stream of zh_1 "
+            f"(F {streams['replayed'][2]}): {len(again)} chunks, first use "
+            f"{streams['first use'][1]:.1f} ms, replayed "
+            f"{streams['replayed'][1]:.1f} ms, bitwise the one-device "
+            f"engine's ({card})")
+
+        # -- text in: the scheduler and create_app over TTSPipeline(mesh=)
+        pipe = frozen_frontend(CachedTTSPipeline)(mesh=mesh2)
+        eng = pipe.synthesizer
+        eng.register_random_voice(voice, seed=0)
+        check("TTSPipeline(mesh=) serves on 2 replicas",
+              len(eng._replicas) == 2 and eng.device == dev)
+        batches = []
+        dispatch = eng.dispatch
+
+        def recorded_dispatch(*args, **kw):
+            batches.append((args, kw))
+            return dispatch(*args, **kw)
+
+        eng.dispatch = recorded_dispatch
+        texts = (TASKS[0][2], TASKS[6][2])
+        os.environ.pop("TTS_DEV_MODE", None)
+        os.environ["FASTAPI_SECRET_KEY"] = os.urandom(16).hex()
+        token = create_access_token("mesh_user")
+
+        async def http(out_dir):
+            app = endpoints.create_app(pipeline=pipe, max_wait_time=0.2,
+                                       batch_size=4, output_dir=out_dir)
+            runner = web.AppRunner(app, shutdown_timeout=2.0)
+            await runner.setup()
+            site = web.TCPSite(runner, "127.0.0.1", 0)
+            await site.start()
+            port = runner.addresses[0][1]
+            headers = {"Authorization": f"Bearer {token}"}
+            try:
+                async with aiohttp.ClientSession(headers=headers) as session:
+                    async def post(text):
+                        async with session.post(
+                                f"http://127.0.0.1:{port}/api/tts",
+                                json={"text": text, "voice_id": voice}) as r:
+                            return r.status, await r.read()
+
+                    return await asyncio.gather(*(post(t) for t in texts))
+            finally:
+                await runner.cleanup()
+
+        reset_counts()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out_dir:
+            answers = asyncio.run(http(out_dir))
+        http_ms = (time.perf_counter() - t0) * 1e3
+        counted("two HTTP requests on 2 replicas", 2 * len(batches))
+        del eng.dispatch
+        ok = all(status == 200 for status, _ in answers)
+        check("HTTP 200 for both requests", ok)
+        rows = []
+        for args, kw in batches:
+            rows += [r.tobytes() for r in eng.collect(
+                eng.dispatch(*args, **kw), pcm16=True)]
+        wavs = [np.frombuffer(riff_data(base64.b64decode(
+            json.loads(body)["audio_base64"])), "<i2").tobytes()
+            for status, body in answers if status == 200]
+        check("WAV bodies equal the mesh engine's own render",
+              ok and len(wavs) == 2 and all(w in rows for w in wavs))
+        out["http"] = {"requests": len(texts), "engine_batches": [
+            len(args[0]) for args, _ in batches], "wall_ms": http_ms}
+        log(f"phase 13: create_app over TTSPipeline(mesh=2 replicas): two "
+            f"concurrent requests in {http_ms:.1f} ms (client wall), the "
+            f"scheduler's batches {out['http']['engine_batches']}, WAV "
+            f"bodies equal to the engine's render ({card})")
+        del pipe, eng
+
+        # -- wall time, two replicas against one device, B=8 on one card
+        walls = {"one device": [], "2 replicas": []}
+        order = [("one device", single), ("2 replicas", e2)]
+        for rep in range(MESH_REPS):
+            for label, engine in order if rep % 2 == 0 else order[::-1]:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.collect(engine.dispatch(b8, [voice] * 8))
+                walls[label].append((time.perf_counter() - t0) * 1e3)
+        out["b8_wall_ms"] = {k: statistics.median(v) for k, v in walls.items()}
+        out["b8_wall_ms_all"] = walls
+        log(f"phase 13: B=8 pcm16 (mixed_4 twice), host wall ms, median of "
+            f"{MESH_REPS} in turns: one device "
+            f"{out['b8_wall_ms']['one device']:.1f}, 2 replicas on the one "
+            f"card {out['b8_wall_ms']['2 replicas']:.1f} (eager, "
+            f"deterministic cuDNN; for information) [{card}]")
+        del e3
+
+        # -- training on two replicas
+        init = copy.deepcopy(synth.model)
+        teacher = copy.deepcopy(init)
+        gen = loop.synthetic_batches(init, teacher, TRAIN["batch"],
+                                     TRAIN["tokens"], TRAIN["frames"], seed=0)
+        data = [next(gen) for _ in range(2)]
+        del teacher, gen
+        frames = TRAIN["frames"]
+
+        def run(model, part, **kw):
+            seen = []
+            master, _, _ = loop.train(
+                model, steps=len(part), batch_size=TRAIN["batch"],
+                tokens=TRAIN["tokens"], frames=frames, log_every=1,
+                batches=iter(part), on_metrics=lambda s, m: seen.append(m),
+                **kw)
+            return master, seen
+
+        with tempfile.TemporaryDirectory() as ckpt:
+            reset_counts()
+            t0 = time.perf_counter()
+            m_mesh, mesh_m = run(copy.deepcopy(init), data[:1], mesh=mesh2,
+                                 checkpoint_dir=ckpt)
+            torch.cuda.synchronize()
+            mesh_step_s = time.perf_counter() - t0
+            counted("train(mesh=2 replicas), step 0", 2)
+            reset_counts()
+            m_one, one_m = run(copy.deepcopy(init), data[:1])
+            counted("train() on one device, step 0", 1)
+            scale = float(data[0].target_audio.abs().mean())
+            dur_err = abs(mesh_m[0]["dur_loss"] - one_m[0]["dur_loss"]) / (
+                one_m[0]["dur_loss"])
+            audio_err = abs(mesh_m[0]["audio_loss"] - one_m[0]["audio_loss"])
+            check("step 0 loss: 2 replicas vs one device (phase 10's "
+                  "tolerances)", dur_err <= STEP0_DUR_TOL
+                  and audio_err <= CPU_GPU_TOL * scale)
+            lr = 1e-4
+            diff, n_off, n_all = 0.0, 0, 0
+            for (name, p), q, p0 in zip(m_mesh.named_parameters(),
+                                        m_one.parameters(),
+                                        init.parameters()):
+                d = ((p - p0) - (q - p0)).abs() / lr
+                diff = max(diff, float(d.max()))
+                n_off += int((d > 1e-3).sum())
+                n_all += d.numel()
+            check("step 0 weights: 2 replicas vs one device (each update "
+                  "within two steps of lr, at most 1% of entries off by "
+                  "1e-3 lr)", diff <= 2.002 and n_off <= 0.01 * n_all)
+            reset_counts()
+            m_mesh, more = run(m_mesh, data[1:], mesh=mesh2,
+                               checkpoint_dir=ckpt, resume=True)
+            counted("train(mesh=2 replicas), step 1 after a resume", 2)
+        losses = [mesh_m[0]["loss"], more[0]["loss"]]
+        check("2 mesh steps: finite losses",
+              all(math.isfinite(v) for v in losses))
+        out["training"] = {
+            "mesh_losses": losses, "one_device_step0": one_m[0],
+            "mesh_step0": mesh_m[0], "dur_loss_rel_err": dur_err,
+            "audio_loss_err_over_mean_abs_target": audio_err / scale,
+            "step0_update_max_diff_lr": diff,
+            "step0_update_entries_off": n_off, "entries": n_all,
+            "mesh_step0_s": mesh_step_s}
+        log(f"phase 13: train(mesh=2 replicas) at B={TRAIN['batch']}, "
+            f"tokens {TRAIN['tokens']}, frames {frames}: losses {losses}; "
+            f"step 0 vs one device: dur_loss rel {dur_err:.2e} (limit "
+            f"{STEP0_DUR_TOL}), audio_loss {audio_err / scale:.2e} of "
+            f"mean|target| (limit {CPU_GPU_TOL}); updates differ by at most "
+            f"{diff:.3f} lr, {n_off} of {n_all} entries by more than 1e-3 "
+            f"lr ({card})")
+        del m_mesh, m_one
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+        unforced()
+
+    # -- bf16 training on one device, step 0 against the CPU's
+    conv16, head16 = record_shapes(layers, vocoder, asc, oa)
+    try:
+        small = [tstep.TrainBatch(*(t[:2] for t in b)) for b in data]
+        reset_counts()
+        m16 = compute_copy(init, torch.bfloat16, dev)
+        master16, seen16 = run(m16, small)
+        got16 = bf16_counts()
+        want16 = {"istft_head_bf16": 2,
+                  **{n: conv_per_generator * 2 for n in BF16_CONV}}
+        f32_launched = oa.launches + sum(asc.launches.values())
+        check("bf16 training launches each bf16 form per Generator pass, no "
+              "f32 form", got16 == want16 and f32_launched == 0)
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+    check("bf16 train: finite losses, float32 masters",
+          all(math.isfinite(m["loss"]) for m in seen16)
+          and all(p.dtype == torch.float32 for p in master16.parameters()))
+    cpu_batch = small[0].to("cpu")
+    cpu = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            model = compute_copy(init, dtype, "cpu")
+            audio, mask, dur_loss = tstep.teacher_forced_audio(
+                model, frames, cpu_batch)
+            audio_loss = (torch.abs(audio.float() - cpu_batch.target_audio)
+                          * mask).sum() / mask.sum().clamp(min=1.0)
+            cpu[dtype] = (float(dur_loss), float(audio_loss),
+                          (audio.float() * mask))
+            del model
+    (d16, a16, w16), (d32, a32, w32) = cpu[torch.bfloat16], cpu[torch.float32]
+    spread = float((w16 - w32).abs().mean())
+    card16 = seen16[0]
+    check("bf16 step 0, card vs CPU bf16: dur_loss within twice the CPU's "
+          "bf16-vs-f32 distance, audio_loss within twice the CPU's mean "
+          "|bf16 - f32 audio|",
+          abs(card16["dur_loss"] - d16) <= 2 * abs(d16 - d32)
+          and abs(card16["audio_loss"] - a16) <= 2 * spread)
+    out["bf16_training"] = {
+        "batch": 2, "losses": [m["loss"] for m in seen16],
+        "card_step0": card16, "cpu_bf16": {"dur_loss": d16,
+                                           "audio_loss": a16},
+        "cpu_f32": {"dur_loss": d32, "audio_loss": a32},
+        "cpu_mean_abs_bf16_minus_f32_audio": spread, "launches": got16}
+    log(f"phase 13: bf16 train() on float32 masters, B=2, 2 steps: losses "
+        f"{out['bf16_training']['losses']}; step 0 card vs CPU bf16: "
+        f"dur_loss {card16['dur_loss']:.5f} vs {d16:.5f} (CPU f32 {d32:.5f}),"
+        f" audio_loss {card16['audio_loss']:.5f} vs {a16:.5f} (CPU f32 "
+        f"{a32:.5f}, mean |bf16 - f32 audio| {spread:.5f}); launches {got16}")
+    torch.backends.cudnn.deterministic = False
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 in {out['phase_s']:.1f} s")
+    return (out, launches, got16, conv_shapes, head_shapes, conv16, head16)
+
+
 def main() -> None:
     import torch
 
@@ -3200,6 +3696,31 @@ def main() -> None:
         torch, np, synth, pipe, requests, oa, asc, conv_per_generator, card,
         failures, reset_counts, check_counts, check_wave)
 
+    # ---- 13. data parallelism: replicas on the 'data' axis ------------------
+    (mesh, mesh_launches, mesh_bf16, mesh_conv, mesh_head, mesh_conv16,
+     mesh_head16) = mesh_phase(
+        torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
+        conv_per_generator, card, failures, reset_counts, check_counts,
+        check_wave, torch.device("cuda", 0))
+    log("kernels vs plain at the shapes the replicas gave them:")
+    for name in CONV_KERNELS:
+        err = check_conv(torch, asc, name, [
+            (*shape, False) for shape in sorted(mesh_conv[name])])
+        conv[name]["max_abs_err"] = max(conv[name]["max_abs_err"], err)
+    head_err = max(head_err, check_head(
+        torch, oa, [(b, f, False) for b, f in sorted(mesh_head)]))
+    for name, plain_name in BF16_CONV.items():
+        worst, err, share = check_conv_bf16(
+            torch, asc, name,
+            [(*shape, False) for shape in sorted(mesh_conv16[plain_name])])
+        row = bf16_rows[name]
+        row["err_over_peak"] = max(row["err_over_peak"], worst)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["bitwise_share"] = min(row["bitwise_share"], share)
+    bf16_rows["istft_head_bf16"]["max_abs_err"] = max(
+        bf16_rows["istft_head_bf16"]["max_abs_err"], check_head_bf16(
+            torch, oa, [(b, f, False) for b, f in sorted(mesh_head16)]))
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -3297,6 +3818,9 @@ def main() -> None:
     for row in rows:
         row["launches_replayed"] = replayed[row["name"]]
         row["launches_stream_replayed"] = replayed_streams[row["name"]]
+        # phase 13: serving, graphs, streams, HTTP and training on the
+        # replicas (f32 forms); bf16 training (bf16 forms)
+        row["launches_mesh"] = {**mesh_launches, **mesh_bf16}[row["name"]]
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"requests_wall_ms": timings,
                     "stream_first_chunk_ms": first_ms,
@@ -3308,6 +3832,7 @@ def main() -> None:
     log(json.dumps({"training": training}))
     log(json.dumps({"bf16": bf16}))
     log(json.dumps({"graphs": graphs}))
+    log(json.dumps({"mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -5,8 +5,11 @@ aiohttp (uvicorn/fastapi are optional in this environment).
 
 ``--device`` goes to the engine (or the trained model): CUDA by default,
 the CPU only when ``--device cpu`` is passed. Without a CUDA device and
-without that flag the engine raises. ``--dp`` above 1 (data parallelism) is
-a usage error: it is not ported."""
+without that flag the engine raises. ``serve --dp N`` and ``train --dp N``
+(N > 1) run one replica per device of an N-way 'data' mesh
+(``parallel/mesh.py``) over the host's CUDA devices, or over ``--device``
+alone where it names one; too few devices fail as the JAX CLI's
+``make_mesh`` assert does."""
 from __future__ import annotations
 
 import logging
@@ -28,6 +31,18 @@ logger = logging.getLogger("illufly_tts_tpu_torch")
 _DEVICE_HELP = "engine device: cuda (default) or cpu"
 
 
+def _dp_mesh(dp: int, device):
+    """The N-way 'data' mesh of ``--dp N`` (None for N <= 1): over every
+    CUDA device of the host, or over ``device`` alone where it names one
+    other than plain ``cuda`` (an AssertionError for N > 1 then)."""
+    if not dp or dp <= 1:
+        return None
+    from .parallel.mesh import make_mesh
+
+    return make_mesh(n_data=dp,
+                     devices=None if device in (None, "cuda") else [device])
+
+
 @click.group()
 def cli():
     """illufly-tts-tpu, PyTorch/CUDA port: Chinese-first TTS service."""
@@ -47,8 +62,8 @@ def cli():
 @click.option("--zh-dict", default=None, help="custom zh pronunciation dict")
 @click.option("--en-dict", default=None, help="custom en pronunciation dict")
 @click.option("--dp", default=0, type=int,
-              help="data-parallel serving over N devices (not ported yet: "
-                   "0 or 1 = one device)")
+              help="data-parallel serving over N devices (0 = single "
+                   "device)")
 @click.option("--audio-wire", default=None,
               type=click.Choice(["mulaw24k"]),
               help="device->host wire codec for PCM outputs (mulaw24k: "
@@ -65,11 +80,6 @@ def serve(host, port, repo_id, voices_dir, device, batch_size, max_wait_time,
           chunk_size, output_dir, debug_output, zh_dict, en_dict, dp,
           audio_wire, british, frontend_workers):
     """Start the TTS HTTP service."""
-    if dp and dp > 1:
-        raise click.UsageError(
-            f"--dp {dp}: data-parallel serving is not ported yet; the port "
-            "serves on one device (omit --dp)"
-        )
     if frontend_workers and frontend_workers > 0:
         # pipeline construction (here or inside create_app) reads the env
         os.environ["TTS_FRONTEND_WORKERS"] = str(frontend_workers)
@@ -106,6 +116,16 @@ def serve(host, port, repo_id, voices_dir, device, batch_size, max_wait_time,
             "(%s) — JWTs are forgeable. Set FASTAPI_SECRET_KEY.", host,
         )
 
+    pipeline = None
+    mesh = _dp_mesh(dp, device)
+    if mesh is not None:
+        from .pipeline import CachedTTSPipeline
+
+        logger.info("data-parallel serving over %d devices", dp)
+        pipeline = CachedTTSPipeline(
+            repo_id=repo_id, voices_dir=voices_dir, device=device,
+            mesh=mesh, wire_format=audio_wire, british=british,
+        )
     cors_origins = os.environ.get("TTS_CORS_ORIGINS", "")
     app = create_app(
         repo_id=repo_id,
@@ -115,6 +135,7 @@ def serve(host, port, repo_id, voices_dir, device, batch_size, max_wait_time,
         max_wait_time=max_wait_time,
         chunk_size=chunk_size,
         output_dir=output_dir,
+        pipeline=pipeline,
         wire_format=audio_wire,
         british=british,
     )
@@ -466,8 +487,7 @@ def train_voice(data_dir, output, repo_id, steps, lr, batch_size, tokens,
               help="resume from the latest checkpoint in --checkpoint-dir")
 @click.option("--checkpoint-every", default=100, type=int)
 @click.option("--dp", default=0, type=int,
-              help="data-parallel over N devices (not ported yet: 0 or 1 = "
-                   "one device)")
+              help="data-parallel over N devices (0 = single device)")
 @click.option("--device", default=None, help=_DEVICE_HELP)
 @click.option("--tiny", is_flag=True,
               help="tiny model config (smoke runs / CI)")
@@ -487,11 +507,6 @@ def train(steps, batch_size, tokens, frames, lr, checkpoint_dir, resume,
     default, real speech data via --data; the reference ships no
     training code). The weights start from the port's seeded random init
     (``model/params.py::random_flax_params``), not flax's ``model.init``."""
-    if dp and dp > 1:
-        raise click.UsageError(
-            f"--dp {dp}: data-parallel training is not ported yet; the port "
-            "trains on one device (omit --dp)"
-        )
     from .engine.synthesizer import resolve_device
     from .model.config import KokoroConfig
     from .model.kokoro import KokoroModel
@@ -501,10 +516,13 @@ def train(steps, batch_size, tokens, frames, lr, checkpoint_dir, resume,
     cfg = _tiny_cfg() if tiny else KokoroConfig()
     model = KokoroModel(cfg)
     load_flax_params(model, random_flax_params(model, seed))
-    model.to(resolve_device(device))
+    mesh = _dp_mesh(dp, device)
+    model.to(resolve_device(device) if mesh is None
+             else mesh.data_devices[0])
     _, _, metrics = run_train(
         model, steps=steps, batch_size=batch_size, tokens=tokens,
-        frames=frames, learning_rate=lr, checkpoint_dir=checkpoint_dir,
+        frames=frames, learning_rate=lr, mesh=mesh,
+        checkpoint_dir=checkpoint_dir,
         resume=resume, checkpoint_every=checkpoint_every, seed=seed,
         data_dir=data_dir, adversarial=adversarial, disc_lr=disc_lr,
     )

@@ -19,7 +19,7 @@ A ``StageGraph`` is
   (``ops/stft.py::_table``), the SM count, the bfloat16 packed weights, the
   cuBLAS workspace of that stream;
 - **the graph**, captured on that stream into the one memory pool all of
-  the engine's graphs share (a private pool per graph would hold the
+  the replica's graphs share (a private pool per graph would hold the
   largest stage's intermediates once per key), under the engine's lock;
 - **its outputs**, which each run clones before the lock is released: the
   next replay of any graph in the shared pool may reuse their memory;
@@ -31,8 +31,10 @@ A ``StageGraph`` is
   by releasing the allocator's unused cached blocks; "before" is taken
   after doing the same, so that the difference is the capture's own.
 
-On the CPU there is no graph: ``run`` computes the stage eagerly, so the
-engine's warmed keys and their bookkeeping work the same there.
+Every step (warm pass, capture, replay) runs under its inputs' device, so
+that a replica on another card captures and replays there. On the CPU
+there is no graph: ``run`` computes the stage eagerly, so the engine's
+warmed keys and their bookkeeping work the same there.
 """
 from __future__ import annotations
 
@@ -91,26 +93,30 @@ class StageGraph:
                 fn(*inputs)
             self.warm_s = time.perf_counter() - t0
             return
-        self.static = tuple(x.clone() for x in inputs)
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            fn(*self.static)
-        # wait here, not under the lock: the capture begins by synchronizing
-        # the device, which would otherwise wait for this pass with the lock
-        stream.synchronize()
-        self.warm_s = time.perf_counter() - t0
-        graph = torch.cuda.CUDAGraph()
-        device = inputs[0].device
-        with lock:
-            t0 = time.perf_counter()
-            torch.cuda.empty_cache()  # as the capture's start does
-            self.memory["before"] = allocator_state(device)
-            with captured() as tally, torch.cuda.graph(
-                    graph, pool=pool, stream=stream,
-                    capture_error_mode="thread_local"):
-                outputs = tuple(fn(*self.static))
-            self.memory["after"] = allocator_state(device)
-            self.lock_s = time.perf_counter() - t0
+        self.device = device = inputs[0].device
+        # every step on the inputs' device (the kernels' C launches and the
+        # capture work on the runtime's current one)
+        with torch.cuda.device(device):
+            self.static = tuple(x.clone() for x in inputs)
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                fn(*self.static)
+            # wait here, not under the lock: the capture begins by
+            # synchronizing the device, which would otherwise wait for this
+            # pass with the lock
+            stream.synchronize()
+            self.warm_s = time.perf_counter() - t0
+            graph = torch.cuda.CUDAGraph()
+            with lock:
+                t0 = time.perf_counter()
+                torch.cuda.empty_cache()  # as the capture's start does
+                self.memory["before"] = allocator_state(device)
+                with captured() as tally, torch.cuda.graph(
+                        graph, pool=pool, stream=stream,
+                        capture_error_mode="thread_local"):
+                    outputs = tuple(fn(*self.static))
+                self.memory["after"] = allocator_state(device)
+                self.lock_s = time.perf_counter() - t0
         self.graph, self.outputs, self.launches = graph, outputs, tally
 
     def run(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
@@ -119,8 +125,9 @@ class StageGraph:
         CPU computed."""
         if self.graph is None:
             return tuple(self.fn(*inputs))
-        for static, x in zip(self.static, inputs):
-            static.copy_(x)
-        self.graph.replay()
-        add_launches(self.launches)
-        return tuple(out.clone() for out in self.outputs)
+        with torch.cuda.device(self.device):
+            for static, x in zip(self.static, inputs):
+                static.copy_(x)
+            self.graph.replay()
+            add_launches(self.launches)
+            return tuple(out.clone() for out in self.outputs)

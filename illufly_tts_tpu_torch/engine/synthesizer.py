@@ -27,6 +27,14 @@ the prepare per ``("prep", batch, tokens, frames)``, the window per
 ``("win", batch, frames, window, halo)`` (generator frames), one graph for
 every window position. ``load_params`` drops every graph.
 
+Data parallelism (``mesh``, ``parallel/mesh.py``) runs as the JAX engine's
+mesh does, from one process: one replica (``_Replica``: a compute model,
+its graphs, capture stream and pool) per 'data' device, the engine itself
+the first. A batch's bucket rounds to the axis; each replica runs stage A
+on its rows, the frame bucket is picked from every row's total (one for
+the batch, as one JAX program renders it), each replica runs stage B and
+copies its rows to the host, and ``collect`` concatenates them in order.
+
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a CUDA
 device and without that argument it raises. Parameters are float32
 (``self.model``, what ``save_params`` writes and ``load_params`` fills).
@@ -70,6 +78,7 @@ from ..model.params import (
 )
 from ..model.vocab import encode as encode_phonemes
 from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
+from ..parallel.mesh import make_mesh, shard_params
 from .graphs import StageGraph
 
 logger = logging.getLogger(__name__)
@@ -100,6 +109,25 @@ class _HostCopy:
         return self.host.numpy()
 
 
+class _Gathered:
+    """Host copies of each replica's shard: ``numpy()`` waits for all and
+    gives their rows concatenated in order."""
+
+    __slots__ = ("parts", "_value")
+
+    def __init__(self, parts: Sequence[_HostCopy]):
+        self.parts, self._value = tuple(parts), None
+
+    def numpy(self) -> np.ndarray:
+        if self._value is None:
+            self._value = np.concatenate([p.numpy() for p in self.parts])
+        return self._value
+
+
+def _gathered(parts: Sequence[_HostCopy]):
+    return parts[0] if len(parts) == 1 else _Gathered(parts)
+
+
 class DispatchHandle:
     """In-flight batch: stage-A outputs + the non-blocking frame-total
     copy (and, with ``keep_durations``, the durations' copy). ``d``/
@@ -110,7 +138,7 @@ class DispatchHandle:
         "n", "b_bucket", "t_bucket", "ids", "mask", "ref", "d",
         "pred_dur", "totals", "f_bucket", "device_audio", "audio",
         "fitted_totals", "fmt", "keep_durations", "host_pred_dur", "pitch",
-        "ts_ctx",
+        "ts_ctx", "shards",
     )
 
     def __init__(self, n, b_bucket, t_bucket, ids, mask, ref, d,
@@ -133,6 +161,9 @@ class DispatchHandle:
         self.keep_durations = False
         self.host_pred_dur = None       # _HostCopy of pred_dur[:n]
         self.ts_ctx = None  # pipeline-owned frontend context for timestamps
+        # under a mesh: each replica's handle of its rows, in row order
+        # (this handle then holds no tensors of its own)
+        self.shards: Optional[List["DispatchHandle"]] = None
 
 
 def stage_kind(key: tuple) -> str:
@@ -155,7 +186,186 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-class Synthesizer:
+class _Replica:
+    """One compute model on one device and the stages it runs there: its
+    serving keys' CUDA graphs (``_graphs``), captured on its own side
+    stream into its own memory pool, and their replay counts. A
+    ``Synthesizer`` is its own first replica; under a mesh it holds one
+    more per further 'data' device. Every replica captures and replays
+    under the engine's one lock."""
+
+    def __init__(self, config: KokoroConfig, device: torch.device, net,
+                 lock: threading.Lock):
+        self.config = config
+        self.device = device
+        self.net = net
+        self._fir_taps = torch.from_numpy(design_decimation_fir()).to(device)
+        # serving keys -> their stage's graph: (batch, tokens) for stage A,
+        # (batch, tokens, frames, fmt) for stage B (both warmed), and the
+        # windowed stream's ("prep", batch, tokens, frames) and ("win",
+        # batch, frames, window, halo) (at first use); the engine's one
+        # lock for every capture and replay (the replica's graphs share one
+        # memory pool, and each graph its static buffers), another for the
+        # first-use check
+        self._graphs: Dict[tuple, StageGraph] = {}
+        self._graph_lock = lock
+        self._first_use_lock = threading.Lock()
+        self.graph_replays: Counter = Counter()  # key -> replays
+        self._graph_pool = self._capture_stream = None
+        if device.type == "cuda":
+            with torch.cuda.device(device):
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            self._capture_stream = torch.cuda.Stream(device)
+
+    def _reset(self, net) -> None:
+        """Compute on ``net`` from now on: every graph is dropped (they
+        read the old weights' addresses), into a fresh pool. Hold the
+        engine's lock."""
+        self.net = net
+        self._graphs.clear()
+        if self._graph_pool is not None:
+            with torch.cuda.device(self.device):
+                self._graph_pool = torch.cuda.graph_pool_handle()
+
+    def _stage_a(self, ids, mask, ref_s, speed):
+        duration, d = self.net.encode_durations(ids, mask, ref_s, speed)
+        pred_dur = KokoroModel.quantize_durations(duration, mask)
+        return d, pred_dur, pred_dur.sum(dim=-1)
+
+    def _stage_b(self, ids, mask, d, pred_dur, ref_s, pitch, frames, fmt):
+        """-> (audio [B, F * 600] in ``fmt``'s type, or [B, F * 200] uint8
+        for mulaw8k; fmask [B, F])."""
+        fitted = _fit_durations(pred_dur, frames)
+        audio, fmask = self.net.decode_frames(
+            ids, mask, d, fitted, ref_s, frames, pcm16=(fmt == "pcm16"),
+            pitch=pitch,
+        )
+        if fmt in ("mulaw8k", "mulaw24k"):
+            # the pcm16 path's peak policy, then the decimating FIR (8 kHz
+            # only), then G.711 companding, all on the device
+            audio = peak_normalize(audio)
+            if fmt == "mulaw8k":
+                audio = resample_to_8k(audio, self._fir_taps)
+            audio = mulaw_encode(audio)
+        return audio, fmask
+
+    def _stage_fn(self, key: tuple):
+        """The stage a serving key runs: stage A for ``(batch, tokens)``,
+        -> (d, pred_dur, totals); stage B for ``(batch, tokens, frames,
+        fmt)``, -> (audio,); the stream's prepare for ``("prep", batch,
+        tokens, frames)``, (ids, mask, d, pred_dur, ref_s, pitch) -> (x,
+        f0_m, cum_rad, cur_mask); its window for ``("win", batch, frames,
+        window, halo)``, (x, f0_m, cum_rad, cur_mask, ref_s, start) ->
+        (audio,)."""
+        kind = stage_kind(key)
+        if kind == "a":
+            return self._stage_a
+        if kind == "prep":
+            frames = key[3]
+            return lambda ids, mask, d, pred_dur, ref_s, pitch: (
+                self.net.decode_prepare(
+                    ids, mask, d, _fit_durations(pred_dur, frames), ref_s,
+                    frames, pitch=pitch))
+        if kind == "win":
+            window, halo = key[3:]
+            return lambda *prep_ref_start: (self.net.decode_window(
+                *prep_ref_start, window, halo),)
+        frames, fmt = key[2:]
+        return lambda ids, mask, d, pred_dur, ref_s, pitch: self._stage_b(
+            ids, mask, d, pred_dur, ref_s, pitch, frames, fmt)[:1]
+
+    def _run_stage(self, key: tuple, inputs) -> tuple:
+        """The stage of ``key`` on ``inputs``: a warmed key's graph replays
+        (its outputs cloned under the lock); a stream key is captured at
+        its first use and replays from then on; any other key runs
+        eagerly."""
+        graph = self._graphs.get(key)
+        if graph is None and stage_kind(key) in ("prep", "win"):
+            graph = self._first_use(key, inputs)
+        if graph is None:
+            return tuple(self._stage_fn(key)(*inputs))
+        if graph.graph is None:
+            # the CPU: no static buffers to guard, so computed outside
+            # the lock, which only guards the count
+            out = graph.run(inputs)
+            with self._graph_lock:
+                self.graph_replays[key] += 1
+            return out
+        with self._graph_lock:
+            out = graph.run(inputs)
+            self.graph_replays[key] += 1
+        return out
+
+    def _capture(self, key: tuple, inputs, cpu_pass: bool = True
+                 ) -> StageGraph:
+        """Warm and capture ``key``'s stage on ``inputs`` and serve the key
+        from its graph from now on (on the CPU: one eager pass with
+        ``cpu_pass``, and the key is recorded)."""
+        with torch.inference_mode():
+            graph = StageGraph(self._stage_fn(key), inputs,
+                               self._graph_pool, self._capture_stream,
+                               self._graph_lock, cpu_pass=cpu_pass)
+        self._graphs[key] = graph
+        return graph
+
+    def _first_use(self, key: tuple, inputs) -> StageGraph:
+        """A windowed-stream key's graph, captured on ``inputs`` if this is
+        the key's first use (a capture that fails raises)."""
+        with self._first_use_lock:
+            graph = self._graphs.get(key)
+            if graph is None:
+                t0 = time.perf_counter()
+                graph = self._capture(key, inputs, cpu_pass=False)
+                logger.info("stream stage %s captured at first use in "
+                            "%.2fs (lock held %.3fs)", key,
+                            time.perf_counter() - t0, graph.lock_s)
+        return graph
+
+    def _zero_inputs(self, batch: int, tokens: int):
+        """Stage A's inputs as the JAX warmup makes them: zero ids and
+        voices, all-valid masks, neutral speeds."""
+        dev = self.device
+        return (torch.zeros((batch, tokens), dtype=torch.int64, device=dev),
+                torch.ones((batch, tokens), device=dev),
+                torch.zeros((batch, 2 * self.config.style_dim), device=dev),
+                torch.ones((batch,), device=dev))
+
+    def _compile_a(self, batch: int, tokens: int) -> float:
+        """Capture stage A at ``(batch, tokens)`` unless warmed; -> wall
+        seconds, logged (0 for a key warmed already)."""
+        if (batch, tokens) in self._graphs:
+            return 0.0
+        t0 = time.perf_counter()
+        graph = self._capture((batch, tokens),
+                              self._zero_inputs(batch, tokens))
+        dt = time.perf_counter() - t0
+        logger.info("stage A (b=%d, t=%d) on %s captured in %.2fs (lock "
+                    "held %.3fs)", batch, tokens, self.device, dt,
+                    graph.lock_s)
+        return dt
+
+    def _compile_b(self, batch: int, tokens: int, frames: int,
+                   fmt: str) -> float:
+        """Capture stage B at ``(batch, tokens, frames, fmt)`` unless
+        warmed, on inputs from an actual stage-A run; -> wall seconds,
+        logged."""
+        if (batch, tokens, frames, fmt) in self._graphs:
+            return 0.0
+        t0 = time.perf_counter()
+        ids, mask, ref, speed = self._zero_inputs(batch, tokens)
+        with torch.inference_mode():
+            d, pred_dur, _ = self._stage_a(ids, mask, ref, speed)
+        pitch = torch.ones((batch,), device=self.device)
+        graph = self._capture((batch, tokens, frames, fmt),
+                              (ids, mask, d, pred_dur, ref, pitch))
+        dt = time.perf_counter() - t0
+        logger.info("stage B (b=%d, t=%d, f=%d, %s) on %s captured in "
+                    "%.2fs (lock held %.3fs)", batch, tokens, frames, fmt,
+                    self.device, dt, graph.lock_s)
+        return dt
+
+
+class Synthesizer(_Replica):
     def __init__(
         self,
         config: Optional[KokoroConfig] = None,
@@ -167,12 +377,26 @@ class Synthesizer:
         frame_buckets: Sequence[int] = FRAME_BUCKETS,
         batch_buckets: Sequence[int] = BATCH_BUCKETS,
         repo_id: str = "",
+        mesh=None,
     ):
         """``params``: a flax-layout tree (``{"params": ...}``, numpy
         arrays), e.g. the JAX ``Synthesizer.params``; None draws the same
         random parameters the JAX engine draws for ``seed``. ``repo_id``
-        enables the offline HF-cache voice search of ``load_voice``."""
-        self.device = resolve_device(device)
+        enables the offline HF-cache voice search of ``load_voice``.
+
+        ``mesh`` (``parallel/mesh.make_mesh``, its 'model' axis 1): one
+        replica per 'data' device; ``device`` is then None or the mesh's
+        first device, where ``self.model`` lives."""
+        self.mesh = mesh
+        if mesh is None:
+            self.device = resolve_device(device)
+            mesh = make_mesh(n_data=1, devices=[self.device])
+        else:
+            first = mesh.data_devices[0]
+            if device is not None and torch.device(device) != first:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {first}")
+            self.device = resolve_device(first)
         self.config = config or KokoroConfig()
         check_dtype(self.config.dtype)
         with torch.device("meta"):
@@ -184,7 +408,15 @@ class Synthesizer:
             params = random_flax_params(model, seed)
         load_flax_params(model, params)
         self.model = model.to(self.device).eval().requires_grad_(False)
-        self.net = self._compute_model()
+        # the compute models, one per 'data' device: self.model itself
+        # where it computes (float32, the first device), else copies
+        self._mesh = mesh
+        nets = shard_params(self.model, mesh, self.config.dtype)
+        super().__init__(self.config, self.device, nets[0], threading.Lock())
+        # the replicas in row order: this engine first
+        self._replicas: List[_Replica] = [self] + [
+            _Replica(self.config, dev, net, self._graph_lock)
+            for dev, net in zip(mesh.data_devices[1:], nets[1:])]
         self.voices_dir = voices_dir
         self.repo_id = repo_id
         # pick() assumes ascending order
@@ -192,28 +424,12 @@ class Synthesizer:
         self.frame_buckets = tuple(sorted(frame_buckets))
         self.batch_buckets = tuple(sorted(batch_buckets))
         self.sample_rate = self.config.sample_rate
-        self._fir_taps = torch.from_numpy(design_decimation_fir()).to(
-            self.device)
         self._voices: Dict[str, np.ndarray] = {}  # host-side [L, 256]
         self._lock = threading.Lock()
-        # serving keys -> their stage's graph: (batch, tokens) for stage A,
-        # (batch, tokens, frames, fmt) for stage B (both warmed), and the
-        # windowed stream's ("prep", batch, tokens, frames) and ("win",
-        # batch, frames, window, halo) (at first use); one lock for every
-        # capture and replay (the graphs share one memory pool and each
-        # graph's static buffers), another for the first-use check
-        self._graphs: Dict[tuple, StageGraph] = {}
-        self._graph_lock = threading.Lock()
-        self._first_use_lock = threading.Lock()
         # a windowed stream renders one window ahead of the chunk it hands
         # over on the card, where a render is only enqueued; none on the
         # CPU, where it runs at once and would delay the chunk
         self._render_ahead = self.device.type == "cuda"
-        self.graph_replays: Counter = Counter()  # key -> replays
-        self._graph_pool = self._capture_stream = None
-        if self.device.type == "cuda":
-            self._graph_pool = torch.cuda.graph_pool_handle()
-            self._capture_stream = torch.cuda.Stream(self.device)
         # set by the first served batch; warmup_staged's background pass
         # waits on it. The warmup's throwaway calls mark their own thread
         # (``_throwaway``) so that their collect does not set it.
@@ -222,17 +438,11 @@ class Synthesizer:
         self.last_drain_s: Optional[float] = None
         self.last_warmup_phases: Optional[Dict[str, float]] = None
 
-    def _compute_model(self) -> KokoroModel:
-        """The model that computes: ``self.model`` in float32; in bfloat16 a
-        ``KokoroModel(config)`` filled from it (each parameter rounded to
-        nearest even, but the float32 islands ``KokoroModel`` keeps)."""
-        if self.config.dtype == torch.float32:
-            return self.model
-        with torch.device("meta"):
-            net = KokoroModel(self.config)
-        net = net.to_empty(device=self.device)
-        net.load_state_dict(self.model.state_dict())
-        return net.eval().requires_grad_(False)
+    @property
+    def params(self) -> dict:
+        """The float32 weights as a flax-layout tree of numpy arrays (the
+        JAX engine's ``params``)."""
+        return export_flax_params(self.model)
 
     def save_params(self, path: str) -> None:
         """Write the float32 weights as flax msgpack: the file the JAX
@@ -245,8 +455,9 @@ class Synthesizer:
         (.msgpack/.bin, e.g. from the JAX ``save_params``) or a torch
         Kokoro checkpoint (.pt/.pth) through the converter — the reference
         user's migration path (their HF checkpoint works directly). The
-        float32 parameters take the file; a bfloat16 engine then makes its
-        compute copy anew. Every warmed key's graph is dropped: warm again
+        float32 parameters take the file; every replica that is not
+        ``self.model`` (a bfloat16 engine's, a mesh's further ones) is made
+        anew from them. Every warmed key's graph is dropped: warm again
         after a load."""
         if path.endswith((".pt", ".pth")):
             tree = load_torch_checkpoint(path,
@@ -254,13 +465,10 @@ class Synthesizer:
         else:
             tree = flax_msgpack.load(path)
         with self._graph_lock:
-            # the graphs read the old weights' addresses (and a bfloat16
-            # engine makes a new compute model)
-            self._graphs.clear()
-            if self._graph_pool is not None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
-        load_flax_params(self.model, tree)
-        self.net = self._compute_model()
+            load_flax_params(self.model, tree)
+            for rep, net in zip(self._replicas, shard_params(
+                    self.model, self._mesh, self.config.dtype)):
+                rep._reset(net)
 
     # --- voices ---------------------------------------------------------------
 
@@ -408,75 +616,6 @@ class Synthesizer:
                              f"(the port renders {FORMATS})")
         return fmt
 
-    def _stage_a(self, ids, mask, ref_s, speed):
-        duration, d = self.net.encode_durations(ids, mask, ref_s, speed)
-        pred_dur = KokoroModel.quantize_durations(duration, mask)
-        return d, pred_dur, pred_dur.sum(dim=-1)
-
-    def _stage_b(self, ids, mask, d, pred_dur, ref_s, pitch, frames, fmt):
-        """-> (audio [B, F * 600] in ``fmt``'s type, or [B, F * 200] uint8
-        for mulaw8k; fmask [B, F])."""
-        fitted = _fit_durations(pred_dur, frames)
-        audio, fmask = self.net.decode_frames(
-            ids, mask, d, fitted, ref_s, frames, pcm16=(fmt == "pcm16"),
-            pitch=pitch,
-        )
-        if fmt in ("mulaw8k", "mulaw24k"):
-            # the pcm16 path's peak policy, then the decimating FIR (8 kHz
-            # only), then G.711 companding, all on the device
-            audio = peak_normalize(audio)
-            if fmt == "mulaw8k":
-                audio = resample_to_8k(audio, self._fir_taps)
-            audio = mulaw_encode(audio)
-        return audio, fmask
-
-    def _stage_fn(self, key: tuple):
-        """The stage a serving key runs: stage A for ``(batch, tokens)``,
-        -> (d, pred_dur, totals); stage B for ``(batch, tokens, frames,
-        fmt)``, -> (audio,); the stream's prepare for ``("prep", batch,
-        tokens, frames)``, (ids, mask, d, pred_dur, ref_s, pitch) -> (x,
-        f0_m, cum_rad, cur_mask); its window for ``("win", batch, frames,
-        window, halo)``, (x, f0_m, cum_rad, cur_mask, ref_s, start) ->
-        (audio,)."""
-        kind = stage_kind(key)
-        if kind == "a":
-            return self._stage_a
-        if kind == "prep":
-            frames = key[3]
-            return lambda ids, mask, d, pred_dur, ref_s, pitch: (
-                self.net.decode_prepare(
-                    ids, mask, d, _fit_durations(pred_dur, frames), ref_s,
-                    frames, pitch=pitch))
-        if kind == "win":
-            window, halo = key[3:]
-            return lambda *prep_ref_start: (self.net.decode_window(
-                *prep_ref_start, window, halo),)
-        frames, fmt = key[2:]
-        return lambda ids, mask, d, pred_dur, ref_s, pitch: self._stage_b(
-            ids, mask, d, pred_dur, ref_s, pitch, frames, fmt)[:1]
-
-    def _run_stage(self, key: tuple, inputs) -> tuple:
-        """The stage of ``key`` on ``inputs``: a warmed key's graph replays
-        (its outputs cloned under the lock); a stream key is captured at
-        its first use and replays from then on; any other key runs
-        eagerly."""
-        graph = self._graphs.get(key)
-        if graph is None and stage_kind(key) in ("prep", "win"):
-            graph = self._first_use(key, inputs)
-        if graph is None:
-            return tuple(self._stage_fn(key)(*inputs))
-        if graph.graph is None:
-            # the CPU: no static buffers to guard, so computed outside
-            # the lock, which only guards the count
-            out = graph.run(inputs)
-            with self._graph_lock:
-                self.graph_replays[key] += 1
-            return out
-        with self._graph_lock:
-            out = graph.run(inputs)
-            self.graph_replays[key] += 1
-        return out
-
     # --- synthesis -------------------------------------------------------------
 
     @torch.inference_mode()
@@ -510,7 +649,7 @@ class Synthesizer:
         # sequences longer than the largest bucket truncate (keep EOS=0)
         id_lists = [ids if len(ids) <= t_bucket else ids[: t_bucket - 1] + [0]
                     for ids in id_lists]
-        b_bucket = pick(self.batch_buckets, n)
+        b_bucket = self._batch_bucket(n)
 
         ids = np.zeros((b_bucket, t_bucket), np.int64)
         mask = np.zeros((b_bucket, t_bucket), np.float32)
@@ -529,27 +668,73 @@ class Synthesizer:
         # table) read as unk=0
         np.putmask(ids, ids >= self.config.albert.vocab_size, 0)
 
-        def put(a: np.ndarray) -> torch.Tensor:
-            t = torch.from_numpy(a)
-            if self.device.type != "cuda":
-                return t
-            # pinned + non-blocking: does not wait for earlier batches
-            return t.pin_memory().to(self.device, non_blocking=True)
-
-        ids_d, mask_d, ref_d = put(ids), put(mask), put(ref_s)
-        d, pred_dur, totals = self._run_stage(
-            (b_bucket, t_bucket), (ids_d, mask_d, ref_d, put(speed_arr)))
-        handle = DispatchHandle(
-            n=n, b_bucket=b_bucket, t_bucket=t_bucket, ids=ids_d,
-            mask=mask_d, ref=ref_d, d=d, pred_dur=pred_dur,
-            totals=_HostCopy(totals), fmt=fmt, pitch=put(pitch_arr),
-        )
+        arrays = (ids, mask, ref_s, speed_arr, pitch_arr)
+        rows = b_bucket // len(self._replicas)
+        shards = [
+            self._launch_stage_a(rep, min(max(n - r * rows, 0), rows),
+                                 t_bucket, fmt,
+                                 [a[r * rows:(r + 1) * rows] for a in arrays])
+            for r, rep in enumerate(self._replicas)]
+        if len(shards) == 1:
+            handle = shards[0]
+        else:
+            handle = DispatchHandle(
+                n=n, b_bucket=b_bucket, t_bucket=t_bucket, ids=None,
+                mask=None, ref=None, d=None, pred_dur=None,
+                totals=_Gathered([h.totals for h in shards]), fmt=fmt)
+            handle.shards = shards
         handle.keep_durations = keep_durations
         if keep_durations:
             # a stage-A output: copied beside the totals, so reading it
             # later never queues behind this batch's stage B
-            handle.host_pred_dur = _HostCopy(pred_dur[:n])
+            handle.host_pred_dur = _gathered([_HostCopy(h.pred_dur[: h.n])
+                                              for h in shards])
         return handle
+
+    def _batch_bucket(self, n: int) -> int:
+        """The batch bucket of ``n`` items. Under a mesh the batch divides
+        the 'data' axis: the bucket inventory is rounded per bucket to the
+        axis, as the JAX engine rounds it (not bucket-then-round, which
+        would inflate n=6 on a 6-way axis to 12): {1, 2, 4, 8} on a 6-way
+        axis -> {6, 12}."""
+        n_data = len(self._replicas)
+        if n_data == 1:
+            return pick(self.batch_buckets, n)
+        candidates = sorted({-(-b // n_data) * n_data
+                             for b in self.batch_buckets})
+        return next((c for c in candidates if c >= n), candidates[-1])
+
+    def _rows(self, batch: int) -> int:
+        """Rows each replica runs of a batch of ``batch`` items (rounded up
+        to the 'data' axis)."""
+        return -(-batch // len(self._replicas))
+
+    def _shards(self, handle: DispatchHandle) -> list:
+        """(replica, its handle) in row order: the engine and ``handle``
+        itself on one device."""
+        if handle.shards is None:
+            return [(self, handle)]
+        return list(zip(self._replicas, handle.shards))
+
+    def _launch_stage_a(self, rep: _Replica, n: int, t_bucket: int,
+                        fmt: str, arrays) -> DispatchHandle:
+        """``rep``'s stage A on its rows of the host arrays (ids, mask,
+        ref_s, speeds, pitches) -> its handle, with the frame totals' copy
+        to host started."""
+        def put(a: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if rep.device.type != "cuda":
+                return t
+            # pinned + non-blocking: does not wait for earlier batches
+            return t.pin_memory().to(rep.device, non_blocking=True)
+
+        ids, mask, ref, speed, pitch = map(put, arrays)
+        d, pred_dur, totals = rep._run_stage(
+            (ids.shape[0], t_bucket), (ids, mask, ref, speed))
+        return DispatchHandle(
+            n=n, b_bucket=ids.shape[0], t_bucket=t_bucket, ids=ids,
+            mask=mask, ref=ref, d=d, pred_dur=pred_dur,
+            totals=_HostCopy(totals), fmt=fmt, pitch=pitch)
 
     def _pick_f_bucket(self, handle: DispatchHandle) -> int:
         """Choose (and record on the handle) the frame bucket for this
@@ -567,26 +752,32 @@ class Synthesizer:
         return handle.f_bucket
 
     def _decode(self, handle: DispatchHandle) -> None:
-        """Run stage B into ``handle.device_audio`` unless it ran already,
-        and release the stage-A intermediates. Idempotent."""
-        if handle.device_audio is not None or handle.audio is not None:
+        """Run stage B into each shard's ``device_audio`` unless it ran
+        already, and release the stage-A intermediates. Idempotent. Every
+        replica renders at the one frame bucket of the whole batch."""
+        shards = self._shards(handle)
+        if handle.audio is not None or all(
+                sh.device_audio is not None for _, sh in shards):
             return
         f_bucket = self._pick_f_bucket(handle)
-        key = (handle.b_bucket, handle.t_bucket, f_bucket, handle.fmt)
         with torch.inference_mode():
-            (handle.device_audio,) = self._run_stage(key, (
-                handle.ids, handle.mask, handle.d, handle.pred_dur,
-                handle.ref, handle.pitch))
-        # stage-A intermediates are no longer needed
-        handle.d = handle.pred_dur = None
+            for rep, sh in shards:
+                key = (sh.b_bucket, sh.t_bucket, f_bucket, sh.fmt)
+                (sh.device_audio,) = rep._run_stage(key, (
+                    sh.ids, sh.mask, sh.d, sh.pred_dur, sh.ref, sh.pitch))
+                # stage-A intermediates are no longer needed
+                sh.d = sh.pred_dur = None
 
     def launch_decode(self, handle: DispatchHandle) -> DispatchHandle:
         """Pick the frame bucket, launch stage B and the non-blocking copy
-        of its whole output to host. Idempotent."""
+        of its whole output to host (each replica's shard). Idempotent."""
         if handle.audio is None:
             self._decode(handle)
-            handle.audio = _HostCopy(handle.device_audio)
-            handle.device_audio = None
+            shards = [sh for _, sh in self._shards(handle)]
+            handle.audio = _gathered([_HostCopy(sh.device_audio)
+                                      for sh in shards])
+            for sh in shards:
+                sh.device_audio = None
         return handle
 
     def _frame_samples(self, fmt: str) -> int:
@@ -649,8 +840,11 @@ class Synthesizer:
         """Slices of the batch render: the same stage B as ``collect``, so
         the chunks concatenate to its output bit for bit. Each chunk's
         slice is copied to host alone, the next one's copy starting before
-        the current chunk is handed over."""
-        if handle.audio is None:
+        the current chunk is handed over. Under a mesh the chunks are
+        slices of the gathered audio (one whole copy per replica)."""
+        if handle.shards is not None:
+            self.launch_decode(handle)
+        elif handle.audio is None:
             self._decode(handle)  # no whole copy: slices only
         spf = self._frame_samples(handle.fmt)
         max_total = int(handle.fitted_totals[: handle.n].max())
@@ -702,7 +896,8 @@ class Synthesizer:
         if exact:
             yield from self._stream_exact(handle, window_frames)
             return
-        if handle.d is None:
+        shards = self._shards(handle)
+        if any(sh.d is None for _, sh in shards):
             raise ValueError(
                 "handle was already decoded (launch_decode/collect "
                 "release the stage-A intermediates); stream_decode needs "
@@ -719,11 +914,13 @@ class Synthesizer:
                 f"window_frames {window_frames} + halo_frames {halo_frames} "
                 f"exceed the frame bucket {f_bucket}"
             )
+        # each replica prepares its rows and renders their windows; a
+        # chunk is the replicas' windows, rows in order
         with torch.inference_mode():
-            prep = self._run_stage(
-                ("prep", handle.b_bucket, handle.t_bucket, f_bucket),
-                (handle.ids, handle.mask, handle.d, handle.pred_dur,
-                 handle.ref, handle.pitch))
+            preps = [rep._run_stage(
+                ("prep", sh.b_bucket, sh.t_bucket, f_bucket),
+                (sh.ids, sh.mask, sh.d, sh.pred_dur, sh.ref, sh.pitch))
+                for rep, sh in shards]
         spf = self.config.samples_per_frame
         # windows work in generator frames (2 per model frame) of spf / 2
         # samples: the halo of 2 * halo_frames generator frames spans
@@ -732,27 +929,31 @@ class Synthesizer:
         ramp = np.linspace(0.0, 1.0, overlap, dtype=np.float32)[None, :]
         max_total = int(handle.fitted_totals[: handle.n].max())
         body = window_frames * spf
-        win_key = ("win", handle.b_bucket, f_bucket, 2 * window_frames,
-                   2 * halo_frames)
         # each window's start as a device scalar (generator frames), all
-        # made at once on the device
-        starts = torch.arange(0, 2 * max_total, 2 * window_frames,
-                              device=self.device)
+        # made at once on each replica's device
+        starts = [torch.arange(0, 2 * max_total, 2 * window_frames,
+                               device=rep.device) for rep, _ in shards]
+        n_windows = len(starts[0])
 
-        def render(k: int) -> _HostCopy:
+        def render(k: int):
+            copies = []
             with torch.inference_mode():
-                (audio,) = self._run_stage(win_key,
-                                           (*prep, handle.ref, starts[k]))
-            return _HostCopy(audio.float())  # [B, (window + halo) * spf]
+                for (rep, sh), prep, start in zip(shards, preps, starts):
+                    (audio,) = rep._run_stage(
+                        ("win", sh.b_bucket, f_bucket, 2 * window_frames,
+                         2 * halo_frames), (*prep, sh.ref, start[k]))
+                    # [B, (window + halo) * spf]
+                    copies.append(_HostCopy(audio.float()))
+            return _gathered(copies)
 
         # on the card, window k + 1's render and copy are enqueued before
         # chunk k is crossfaded and handed over
-        pending = render(0) if self._render_ahead and len(starts) else None
+        pending = render(0) if self._render_ahead and n_windows else None
         prev_tail: Optional[np.ndarray] = None
         for k, emitted in enumerate(range(0, max_total, window_frames)):
             if self._render_ahead:
                 ready = pending
-                pending = render(k + 1) if k + 1 < len(starts) else None
+                pending = render(k + 1) if k + 1 < n_windows else None
             else:
                 ready = render(k)
             chunk = ready.numpy()
@@ -816,74 +1017,21 @@ class Synthesizer:
             if fresh:
                 self._voices.pop(voice, None)
 
-    def _capture(self, key: tuple, inputs, cpu_pass: bool = True
-                 ) -> StageGraph:
-        """Warm and capture ``key``'s stage on ``inputs`` and serve the key
-        from its graph from now on (on the CPU: one eager pass with
-        ``cpu_pass``, and the key is recorded)."""
-        with torch.inference_mode():
-            graph = StageGraph(self._stage_fn(key), inputs,
-                               self._graph_pool, self._capture_stream,
-                               self._graph_lock, cpu_pass=cpu_pass)
-        self._graphs[key] = graph
-        return graph
-
-    def _first_use(self, key: tuple, inputs) -> StageGraph:
-        """A windowed-stream key's graph, captured on ``inputs`` if this is
-        the key's first use (a capture that fails raises)."""
-        with self._first_use_lock:
-            graph = self._graphs.get(key)
-            if graph is None:
-                t0 = time.perf_counter()
-                graph = self._capture(key, inputs, cpu_pass=False)
-                logger.info("stream stage %s captured at first use in "
-                            "%.2fs (lock held %.3fs)", key,
-                            time.perf_counter() - t0, graph.lock_s)
-        return graph
-
-    def _zero_inputs(self, batch: int, tokens: int):
-        """Stage A's inputs as the JAX warmup makes them: zero ids and
-        voices, all-valid masks, neutral speeds."""
-        dev = self.device
-        return (torch.zeros((batch, tokens), dtype=torch.int64, device=dev),
-                torch.ones((batch, tokens), device=dev),
-                torch.zeros((batch, 2 * self.config.style_dim), device=dev),
-                torch.ones((batch,), device=dev))
-
     def compile_stage_a(self, batch: int, tokens: int) -> float:
         """Capture stage A for ``(batch, tokens)`` (the JAX method's name:
-        here the serving key's graph); -> wall seconds, logged (0 for a
-        key warmed already)."""
-        if (batch, tokens) in self._graphs:
-            return 0.0
-        t0 = time.perf_counter()
-        graph = self._capture((batch, tokens),
-                              self._zero_inputs(batch, tokens))
-        dt = time.perf_counter() - t0
-        logger.info("stage A (b=%d, t=%d) captured in %.2fs (lock held "
-                    "%.3fs)", batch, tokens, dt, graph.lock_s)
-        return dt
+        here the serving key's graph), on every replica at its rows of the
+        batch; -> wall seconds, logged (0 for a key warmed already)."""
+        rows = self._rows(batch)
+        return sum(rep._compile_a(rows, tokens) for rep in self._replicas)
 
     def compile_stage_b(self, batch: int, tokens: int, frames: int,
                         fmt="pcm16") -> float:
         """Capture stage B for ``(batch, tokens, frames, fmt)`` on inputs
-        from an actual stage-A run, as the JAX method does; -> wall
-        seconds, logged."""
-        fmt = self._as_fmt(fmt)
-        if (batch, tokens, frames, fmt) in self._graphs:
-            return 0.0
-        t0 = time.perf_counter()
-        ids, mask, ref, speed = self._zero_inputs(batch, tokens)
-        with torch.inference_mode():
-            d, pred_dur, _ = self._stage_a(ids, mask, ref, speed)
-        pitch = torch.ones((batch,), device=self.device)
-        graph = self._capture((batch, tokens, frames, fmt),
-                              (ids, mask, d, pred_dur, ref, pitch))
-        dt = time.perf_counter() - t0
-        logger.info("stage B (b=%d, t=%d, f=%d, %s) captured in %.2fs "
-                    "(lock held %.3fs)", batch, tokens, frames, fmt, dt,
-                    graph.lock_s)
-        return dt
+        from an actual stage-A run, as the JAX method does, on every
+        replica at its rows of the batch; -> wall seconds, logged."""
+        fmt, rows = self._as_fmt(fmt), self._rows(batch)
+        return sum(rep._compile_b(rows, tokens, frames, fmt)
+                   for rep in self._replicas)
 
     def absorb_drain(self, batch: Optional[int] = None,
                      tokens: Optional[int] = None) -> float:
@@ -900,10 +1048,12 @@ class Synthesizer:
         warmed = [k for k in self._graphs if stage_kind(k) == "b"]
         if warmed:
             matching = [k for k in warmed
-                        if (batch is None or k[0] == batch)
+                        if (batch is None or k[0] == self._rows(batch))
                         and (tokens is None or k[1] == tokens)]
             key = max(matching or warmed)  # largest (b, t, f, fmt)
-            batch = batch if batch is not None else key[0]
+            # a key's batch is each replica's rows of it
+            batch = batch if batch is not None else key[0] * len(
+                self._replicas)
             tokens = tokens if tokens is not None else key[1]
             fmt = key[3]
         else:
@@ -957,9 +1107,10 @@ class Synthesizer:
         running eagerly. The serving deployments (HTTP, MCP) use this.
 
         ``parallel`` is kept for the JAX engine's callers, whose stages
-        compile in parallel: the captures here run one at a time on the
-        one card. The JAX engine's data-parallel branch (``mesh``) waits
-        for the port's data parallelism."""
+        compile in parallel: the captures here run one at a time. Under a
+        mesh each replica captures its own keys, at its rows of each batch
+        size (the JAX engine's mesh branch compiles through
+        ``synthesize_batch`` instead, at the frame bucket its data gives)."""
         del parallel
         t0 = time.perf_counter()
         if narrow:

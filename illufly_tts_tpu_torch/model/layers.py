@@ -262,10 +262,14 @@ class AdaSnakeResBlock(nn.Module):
         """conv's weight as the fused call takes it, [k, C_in, C_out]: a
         contiguous copy per call in float32 (as ever); in bfloat16 the
         stage-packed weights ``pack_weights`` the kernels read, made again
-        only when the weight changed (a load)."""
+        only when the weight changed (a load or an optimizer step), or at
+        every call where the weight trains (packed with autograd on, so
+        the gradient reaches it)."""
         w = conv.weight
         if w.dtype != torch.bfloat16:
             return w.permute(2, 1, 0).contiguous()
+        if w.requires_grad and torch.is_grad_enabled():
+            return pack_weights(w.permute(2, 1, 0))
         key = (w.data_ptr(), w._version)
         held = self._packed.get(conv)
         if held is None or held[0] != key:

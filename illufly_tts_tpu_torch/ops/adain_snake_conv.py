@@ -408,11 +408,15 @@ def _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
         scratch.append(torch.empty(
             _library().adain_snake_conv_split_words(c_in, c_out, kernel),
             dtype=torch.int32, device=x.device))
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = fn(x.data_ptr(), mask.data_ptr(), scale.data_ptr(),
-            shift.data_ptr(), alpha.data_ptr(), w.data_ptr(), b.data_ptr(),
-            y.data_ptr(), *(t.data_ptr() for t in scratch), batch, c_in,
-            c_out, length, kernel, dilation, *extra, stream)
+    # the C side launches on the runtime's current device and sets each
+    # kernel's shared-memory limit there: make it x's
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), mask.data_ptr(), scale.data_ptr(),
+                shift.data_ptr(), alpha.data_ptr(), w.data_ptr(),
+                b.data_ptr(), y.data_ptr(),
+                *(t.data_ptr() for t in scratch), batch, c_in, c_out,
+                length, kernel, dilation, *extra, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
     return y

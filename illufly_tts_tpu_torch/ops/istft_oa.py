@@ -141,9 +141,10 @@ def _launch(entry, inputs, batch: int, frames: int) -> torch.Tensor:
     """Run ``entry`` (a C entry point) on ``inputs`` -> audio [B, F * 5]."""
     dev = inputs[0].device
     out = torch.empty((batch, frames * HOP), dtype=torch.float32, device=dev)
-    rc = entry(*(t.data_ptr() for t in inputs), out.data_ptr(), batch,
-               frames, _tables().ctypes.data,
-               torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the C side launches on the current one
+        rc = entry(*(t.data_ptr() for t in inputs), out.data_ptr(), batch,
+                   frames, _tables().ctypes.data,
+                   torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"istft_oa kernel launch failed: cudaError {rc}")
     return out

@@ -51,6 +51,7 @@ class TTSPipeline:
         synthesizer: Optional[Synthesizer] = None,
         params_path: Optional[str] = None,
         fail_silent: bool = False,
+        mesh=None,
         wire_format: Optional[str] = None,
         british: bool = False,
         frontend_workers: Optional[int] = None,
@@ -76,9 +77,12 @@ class TTSPipeline:
         self.fail_silent = fail_silent
 
         # the synthesizer first: without CUDA and without device='cpu' it
-        # raises before the frontend loads its lexicons
+        # raises before the frontend loads its lexicons. With a mesh
+        # (data-parallel serving, parallel/mesh.py) the mesh's devices
+        # decide where it runs.
         self.synthesizer = synthesizer or Synthesizer(
-            voices_dir=voices_dir, device=device,
+            voices_dir=voices_dir, device=device if mesh is None else None,
+            mesh=mesh,
             repo_id="" if os.path.isfile(repo_id or "") else repo_id,
         )
         self.device = self.synthesizer.device

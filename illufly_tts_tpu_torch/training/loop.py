@@ -5,9 +5,14 @@
 A loop that distills against a frozen teacher (a deepcopy of the initial
 model, taken before any restore), so the loss is verifiably minimizable
 without external data; real data plugs in by yielding ``TrainBatch`` from
-any source, or through ``data_dir`` (``training/data.py``). The model
-trains in place on its own device. ``mesh`` (data parallelism) is not
-ported: passing one raises.
+any source, or through ``data_dir`` (``training/data.py``).
+
+The optimizer steps float32 master weights (``parallel/replicas.py``): a
+float32 model trains in place and is its own master; a bfloat16 model
+computes the steps in bfloat16, its float32 master is a copy, and the model
+is refreshed from it after every step. With a ``mesh`` one replica per
+'data' device runs its rows of each batch; the loss is the whole batch's,
+and the replicas' gradients are summed into the master's.
 """
 from __future__ import annotations
 
@@ -19,8 +24,9 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
+from ..model.config import check_dtype
 from ..model.kokoro import KokoroModel
-from ..model.params import trainable_parameters
+from ..parallel.replicas import Replicas
 from .checkpoint import latest_checkpoint, restore_train_state, save_train_state
 from .step import TrainBatch, adamw, make_gan_train_step, make_train_step
 
@@ -86,15 +92,6 @@ def synthetic_batches(model: KokoroModel, teacher: KokoroModel,
         yield TrainBatch(ids_t, mask_t, ref_t, dur_t, audio)
 
 
-def refuse_low_precision(model: KokoroModel, what: str) -> None:
-    """Raise for a model that computes in another dtype than float32."""
-    if model.config.dtype != torch.float32:
-        raise NotImplementedError(
-            f"{what}: a {model.config.dtype} model does not train; bf16 "
-            "training and its backward kernels are not ported (ROADMAP "
-            "queue 1, item 5): train the float32 model")
-
-
 def train(
     model: KokoroModel,
     steps: int,
@@ -117,8 +114,15 @@ def train(
     disc_lr: float = 2e-4,
     disc_kwargs: Optional[dict] = None,
 ):
-    """Run ``steps`` optimizer steps on ``model`` (in place) -> (model,
-    optimizer, metrics of the last step as floats).
+    """Run ``steps`` optimizer steps on ``model`` -> (the float32 master
+    model, optimizer, metrics of the last step as floats). The master is
+    ``model`` itself when it is float32; a bfloat16 ``model`` holds the
+    master's weights rounded after every step. Checkpoints hold the master.
+
+    ``mesh`` (``parallel/mesh.py``; its 'model' axis 1): the batch size
+    rounds up to a multiple of the 'data' axis, and a ``batches`` iterator
+    whose batch does not divide it raises ValueError, as the JAX trainer
+    does.
 
     ``adversarial=True`` adds the HiFi-GAN LSGAN objective: a MultiPeriod +
     MultiResolution discriminator (``HiFiGANDiscriminator(**disc_kwargs)``,
@@ -127,28 +131,35 @@ def train(
     players. The optimizers: the global-norm clip (the random-init
     generator's exp() magnitudes reach O(1e4); unclipped, the first
     waveform-gradient step NaNs the decoder), then AdamW as optax.adamw."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train(mesh=...): data parallelism is not ported; the port "
-            "trains on one device")
-    refuse_low_precision(model, "train")
+    check_dtype(model.config.dtype)
     dev = model_device(model)
+    replicas = Replicas(model, mesh)  # raises for a 'model' axis above 1
+    master = replicas.master
+    n_data = len(replicas.models)
+    if mesh is not None:
+        # the batch divides the data axis (as the serving engine rounds)
+        rounded = -(-batch_size // n_data) * n_data
+        if rounded != batch_size:
+            logger.info("batch_size %d -> %d (multiple of %d-way data axis)",
+                        batch_size, rounded, n_data)
+            batch_size = rounded
     # the distillation teacher is the INITIAL model, frozen: copied before
     # any checkpoint restore so resume continues the original objective
     # instead of distilling the student against itself
     teacher = (copy.deepcopy(model).requires_grad_(False)
                if batches is None and not data_dir else None)
     was_training = model.training
-    model.train()  # cuDNN's LSTM backward runs in training mode only
-    for m in (model, teacher):
+    replicas.train()  # cuDNN's LSTM backward runs in training mode only
+    for m in (*replicas.models, teacher):
         if m is not None:
             flatten_rnns(m)
-    optimizer = adamw(trainable_parameters(model), learning_rate)
+    optimizer = adamw(replicas.params, learning_rate)
     start_step = 0
     if resume and checkpoint_dir:
         path = latest_checkpoint(checkpoint_dir)
         if path:
-            start_step = restore_train_state(path, model, optimizer)
+            start_step = restore_train_state(path, master, optimizer)
+            replicas.sync()
             logger.info("resumed from %s (step %d)", path, start_step)
 
     if batches is None:
@@ -185,16 +196,16 @@ def train(
             if d_path:
                 restore_train_state(d_path, disc, d_optimizer)
                 logger.info("resumed discriminator from %s", d_path)
-        step_fn = make_gan_train_step(model, disc, optimizer, d_optimizer,
+        step_fn = make_gan_train_step(replicas, disc, optimizer, d_optimizer,
                                       num_frames=frames,
                                       max_grad_norm=max_grad_norm)
     else:
-        step_fn = make_train_step(model, optimizer, num_frames=frames,
+        step_fn = make_train_step(replicas, optimizer, num_frames=frames,
                                   spectral=bool(spectral),
                                   max_grad_norm=max_grad_norm)
 
     def save(step):
-        save_train_state(checkpoint_dir, step, model, optimizer)
+        save_train_state(checkpoint_dir, step, master, optimizer)
         if adversarial:
             save_train_state(f"{checkpoint_dir}/disc", step, disc,
                              d_optimizer)
@@ -203,7 +214,14 @@ def train(
     last_saved = -1
     t0 = time.perf_counter()
     for step in range(start_step, start_step + steps):
-        metrics = step_fn(next(batches).to(dev))
+        batch = next(batches)
+        if batch.input_ids.shape[0] % n_data:
+            # caller-supplied iterators bypass the batch_size rounding
+            raise ValueError(
+                f"batch dim {batch.input_ids.shape[0]} does not divide the "
+                f"{n_data}-way 'data' mesh axis; yield TrainBatch with a "
+                f"leading dim that is a multiple of {n_data}")
+        metrics = step_fn(batch.to(dev))
         if log_every and (step + 1) % log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             logger.info(
@@ -222,5 +240,6 @@ def train(
             last_saved = step + 1
     if checkpoint_dir and last_saved != start_step + steps:
         save(start_step + steps)
+    replicas.train(False)
     model.train(was_training)
-    return model, optimizer, {k: float(v) for k, v in metrics.items()}
+    return master, optimizer, {k: float(v) for k, v in metrics.items()}

@@ -14,6 +14,12 @@ gradients by ``max / ||g||`` only when ``||g|| >= max`` (not
 ``torch.nn.utils.clip_grad_norm_``'s ``max / (||g|| + 1e-6)``), then the
 optimizer (``torch.optim.AdamW`` set as ``optax.adamw``: betas (0.9, 0.999),
 eps 1e-8, weight decay 1e-4) steps.
+
+The steps take a float32 ``KokoroModel`` or ``Replicas``
+(``parallel/replicas.py``): the forward runs on each compute replica (its
+rows of the batch, gathered before the loss, so that the loss is the whole
+batch's), the replicas' gradients are summed into the float32 master
+weights, and the replicas take the stepped weights back.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Dict, Iterable, NamedTuple
 import torch
 
 from ..model.kokoro import KokoroModel
+from ..parallel.replicas import Replicas
 
 
 class TrainBatch(NamedTuple):
@@ -61,25 +68,37 @@ def clip_by_global_norm(params: Iterable[torch.nn.Parameter],
     return norm
 
 
-def teacher_forced_audio(model: KokoroModel, num_frames: int,
-                         batch: TrainBatch):
-    """The shared generator forward -> (audio [B, F * spf], sample mask
-    [B, F * spf], duration loss)."""
+def _outputs(model: KokoroModel, num_frames: int, batch: TrainBatch):
+    """One model's teacher-forced forward -> (durations [B, T], audio
+    [B, F * spf], frame mask [B, F])."""
     ones = torch.ones(batch.input_ids.shape[0], device=batch.mask.device)
     duration, d = model.encode_durations(batch.input_ids, batch.mask,
                                          batch.ref_s, ones)
-    denom = torch.clamp(batch.mask.sum(), min=1.0)
-    dur_loss = (torch.square(duration - batch.target_dur)
-                * batch.mask).sum() / denom
     teacher = torch.round(batch.target_dur * batch.mask).to(torch.int32)
     audio, fmask = model.decode_frames(batch.input_ids, batch.mask, d,
                                        teacher, batch.ref_s, num_frames)
+    return duration, audio, fmask
+
+
+def teacher_forced_audio(model, num_frames: int, batch: TrainBatch):
+    """The shared generator forward -> (audio [B, F * spf], sample mask
+    [B, F * spf], duration loss). ``model``: a ``KokoroModel``, or
+    ``Replicas``, whose replicas each run their rows of ``batch`` and whose
+    outputs are gathered first, so that the loss is the whole batch's."""
+    if isinstance(model, Replicas):
+        duration, audio, fmask = model.map(
+            lambda m, b: _outputs(m, num_frames, b), batch)
+    else:
+        duration, audio, fmask = _outputs(model, num_frames, batch)
+    denom = torch.clamp(batch.mask.sum(), min=1.0)
+    dur_loss = (torch.square(duration - batch.target_dur)
+                * batch.mask).sum() / denom
     sample_mask = fmask.repeat_interleave(model.config.samples_per_frame,
                                           dim=1)
     return audio, sample_mask, dur_loss
 
 
-def make_loss_fn(model: KokoroModel, num_frames: int, spectral: bool = False,
+def make_loss_fn(model, num_frames: int, spectral: bool = False,
                  mel_weight: float = 1.0, stft_weight: float = 0.5):
     """Teacher-forced loss, ``loss_fn(batch) -> (loss, metrics)``.
     ``spectral=False``: duration MSE + masked waveform L1 (the synthetic
@@ -113,27 +132,47 @@ def _detached(metrics: Dict[str, torch.Tensor], **more) -> dict:
     return {k: v.detach() for k, v in dict(metrics, **more).items()}
 
 
-def make_train_step(model: KokoroModel, optimizer: torch.optim.Optimizer,
+def _replicas(model) -> Replicas:
+    """``model`` as ``Replicas`` (a float32 ``KokoroModel`` is its own
+    master and only replica)."""
+    if isinstance(model, Replicas):
+        return model
+    if model.config.dtype != torch.float32:
+        raise ValueError(
+            f"a {model.config.dtype} model steps its float32 master "
+            "weights: pass Replicas(model) and an optimizer over "
+            "Replicas.params (train() does both)")
+    return Replicas(model)
+
+
+def make_train_step(model, optimizer: torch.optim.Optimizer,
                     num_frames: int, spectral: bool = False,
                     max_grad_norm: float = 1.0):
     """``train_step(batch) -> metrics`` (detached tensors): loss,
-    backward, the global-norm clip, the optimizer step."""
-    loss_fn = make_loss_fn(model, num_frames, spectral=spectral)
+    backward, the replicas' gradients reduced into the master weights, the
+    global-norm clip, the optimizer step, the replicas refreshed.
+    ``model``: a float32 ``KokoroModel`` or ``Replicas``; ``optimizer``
+    over the master's parameters."""
+    replicas = _replicas(model)
+    loss_fn = make_loss_fn(replicas, num_frames, spectral=spectral)
     params = [p for group in optimizer.param_groups for p in group["params"]]
 
     def train_step(batch: TrainBatch):
         optimizer.zero_grad(set_to_none=True)
+        replicas.zero_grad()
         loss, metrics = loss_fn(batch)
         loss.backward()
+        replicas.reduce_grads()
         clip_by_global_norm(params, max_grad_norm)
         optimizer.step()
+        replicas.sync()
         return _detached(metrics, loss=loss)
 
     return train_step
 
 
 def make_gan_train_step(
-    model: KokoroModel,
+    model,
     disc,
     g_optimizer: torch.optim.Optimizer,
     d_optimizer: torch.optim.Optimizer,
@@ -157,6 +196,7 @@ def make_gan_train_step(
         generator_adv_loss,
     )
 
+    model = _replicas(model)
     sr = model.config.sample_rate
     g_params = [p for g in g_optimizer.param_groups for p in g["params"]]
     d_params = [p for g in d_optimizer.param_groups for p in g["params"]]
@@ -177,6 +217,7 @@ def make_gan_train_step(
         d_optimizer.step()
         # --- G step against the refreshed D (HiFi-GAN order) ---
         g_optimizer.zero_grad(set_to_none=True)
+        model.zero_grad()
         disc.requires_grad_(False)
         try:
             audio, sample_mask, dur_loss = teacher_forced_audio(
@@ -194,8 +235,10 @@ def make_gan_train_step(
             loss.backward()
         finally:
             disc.requires_grad_(True)
+        model.reduce_grads()
         clip_by_global_norm(g_params, max_grad_norm)
         g_optimizer.step()
+        model.sync()
         return _detached({"dur_loss": dur_loss, "mel_l1": mel_loss,
                           "stft_loss": stft_loss, "adv_loss": adv,
                           "fm_loss": fm, "audio_loss": mel_loss},

@@ -8,7 +8,9 @@ kmodel.py:82-84) optimized by gradient descent against a few (wav,
 transcript) pairs. The model weights stay frozen: the style vector is the
 only tensor that requires a gradient, so on the card its gradient reaches
 it through the kernels' Functions (``ops/kernel_grad.py``: AdaIN ``fc(s)``
--> scale/shift of every fused conv) and the plain layers. The result saves
+-> scale/shift of every fused conv) and the plain layers. A bfloat16 model
+computes in bfloat16 on the float32 vector, as the JAX bfloat16 model
+casts it; the vector, its gradient and Adam stay float32. The result saves
 as a standard length-indexed ``[510, 1, 256]`` pack any surface loads like a
 shipped voice.
 """
@@ -20,13 +22,9 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from ..model.config import check_dtype
 from ..model.kokoro import KokoroModel
-from .loop import (
-    model_device,
-    random_token_batch,
-    refuse_low_precision,
-    render,
-)
+from .loop import model_device, random_token_batch, render
 from .step import TrainBatch, clip_by_global_norm, make_loss_fn
 
 logger = logging.getLogger(__name__)
@@ -54,7 +52,7 @@ def adapt_voice(
     is skipped (no update of the style or Adam's moments); the style
     returned is the one with the lowest loss seen, the style that loss was
     evaluated at."""
-    refuse_low_precision(model, "adapt_voice")
+    check_dtype(model.config.dtype)
     style_dim = 2 * model.config.style_dim
     dev = model_device(model)
     if init is not None:

@@ -66,8 +66,6 @@ from illufly_tts_tpu_torch.model.kokoro import KokoroModel, to_compute_dtype
 from illufly_tts_tpu_torch.model.params import load_flax_params
 from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
 from illufly_tts_tpu_torch.ops import istft_oa as oa
-from illufly_tts_tpu_torch.training.loop import train
-from illufly_tts_tpu_torch.training.voice_adapt import adapt_voice
 from tests.test_golden_audio import GOLDEN_DIR, SEED, TEXTS
 from tests.test_model import tiny_config
 from tests.test_parity_torch import small_config
@@ -184,10 +182,17 @@ def test_conv_wrappers_bf16_on_cpu_take_plain_path(name):
     w_p = asc.pack_weights(w)
     assert w_p.dtype == BF16 and w_p.is_contiguous()
     assert tuple(w_p.shape) == asc.packed_shape(7, c_in, c_out)
-    block = tl.AdaSnakeResBlock(c_in, 7, (3,), 8).bfloat16()
+    # a serving block (weights without gradients) packs once per version;
+    # a weight that trains is packed at every call, with autograd on
+    block = tl.AdaSnakeResBlock(c_in, 7, (3,), 8).bfloat16().requires_grad_(
+        False)
     held = block._weight(block.conv1_0)
     assert tuple(held.shape) == asc.packed_shape(7, c_in, c_in)
     assert block._weight(block.conv1_0) is held  # made once per version
+    block.requires_grad_(True)
+    trained = block._weight(block.conv1_0)
+    assert trained is not held and trained.grad_fn is not None
+    torch.testing.assert_close(trained, held, rtol=0, atol=0)
     before = dict(asc.launches), dict(asc.launches_bf16)
     out = getattr(asc, name)(x, mask, scale, shift, alpha, w_p, bias, 7, 3)
     as_is = getattr(asc, name)(x, mask, scale, shift, alpha, w, bias, 7, 3)
@@ -563,13 +568,3 @@ def test_float16_raises(make):
             Synthesizer(cfg, device="cpu")
         else:
             KokoroModel(cfg)
-
-
-@pytest.mark.parametrize("entry", ["train", "adapt_voice"])
-def test_bf16_training_raises(entry):
-    model = KokoroModel(dataclasses.replace(port_config(), dtype=BF16))
-    with pytest.raises(NotImplementedError, match="bf16 training"):
-        if entry == "train":
-            train(model, steps=1, batch_size=1, tokens=8, frames=8)
-        else:
-            adapt_voice(model, iter(()), steps=1)

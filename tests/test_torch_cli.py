@@ -6,9 +6,10 @@ nine commands. ``test_convert_roundtrip`` gets a port rewrite (the JAX case
 reads ``Synthesizer.params`` through ``jax.tree_util`` and runs without
 ``--device``, which the port reads as CUDA), and the slow-marked
 ``test_train_voice_end_to_end`` runs here at its tiny size, its pack
-loaded by the JAX engine. The port's own rules: ``--dp`` above 1 is a
-usage error (data parallelism is not ported), ``--device`` reaches the
-engine, and ``main()`` defaults to ``serve``."""
+loaded by the JAX engine. The port's own rules: ``--dp N`` builds an N-way
+'data' mesh (of the host's CUDA devices, here two CPU devices standing in)
+and fails as JAX's ``make_mesh`` does on a host with fewer devices,
+``--device`` reaches the engine, and ``main()`` defaults to ``serve``."""
 import subprocess
 import sys
 
@@ -52,17 +53,72 @@ def test_commands_not_ported_are_absent():
     assert set(jax_cli.commands) == set(COMMANDS)
 
 
-def test_serve_dp_above_one_is_a_usage_error():
-    result = CliRunner().invoke(port_main.cli, ["serve", "--dp", "2"])
-    assert result.exit_code == 2
-    assert "data-parallel serving is not ported yet" in result.output
+def _two_cpu_devices(monkeypatch):
+    """A host whose 'CUDA devices' are two CPU devices, for ``--dp 2``."""
+    from illufly_tts_tpu_torch.parallel import mesh
+
+    monkeypatch.setattr(mesh, "cuda_devices",
+                        lambda: [torch.device("cpu")] * 2)
 
 
-def test_train_dp_above_one_is_a_usage_error():
-    result = CliRunner().invoke(port_main.cli, ["train", "--dp", "2",
-                                                "--device", "cpu"])
-    assert result.exit_code == 2
-    assert "data-parallel training is not ported yet" in result.output
+@pytest.mark.parametrize("dp", ["1", "2-on-one-device", "2"])
+def test_serve_dp(dp, monkeypatch):
+    """``--dp 1`` serves on one device (``create_app`` builds its own
+    pipeline); ``--dp 2`` on a one-device host fails with the JAX
+    ``make_mesh`` assert's message; ``--dp 2`` over two devices hands
+    ``create_app`` a ``CachedTTSPipeline`` on a 2-way 'data' mesh."""
+    from aiohttp import web
+
+    from illufly_tts_tpu_torch import pipeline as pipeline_mod
+    from illufly_tts_tpu_torch.api import endpoints
+
+    apps, pipes = [], []
+    monkeypatch.setattr(endpoints, "create_app",
+                        lambda **kw: apps.append(kw) or web.Application())
+    monkeypatch.setattr(web, "run_app", lambda app, **kw: None)
+    monkeypatch.setattr(pipeline_mod, "CachedTTSPipeline",
+                        lambda **kw: pipes.append(kw) or "mesh pipeline")
+    args = ["serve", "--dp", dp[0], "--port", "0"]
+    if dp == "2":
+        _two_cpu_devices(monkeypatch)
+    else:
+        args += ["--device", "cpu"]
+    result = CliRunner().invoke(port_main.cli, args)
+    if dp == "2-on-one-device":
+        assert isinstance(result.exception, AssertionError), result.output
+        assert str(result.exception).startswith("(2, 1, 1)")
+        assert apps == [] and pipes == []
+        return
+    assert result.exit_code == 0, result.output
+    if dp == "1":
+        assert apps[0]["pipeline"] is None and apps[0]["device"] == "cpu"
+        assert pipes == []
+    else:
+        assert apps[0]["pipeline"] == "mesh pipeline"
+        mesh = pipes[0]["mesh"]
+        assert mesh.shape == {"data": 2, "model": 1}
+        assert mesh.data_devices == [torch.device("cpu")] * 2
+
+
+@pytest.mark.parametrize("dp", ["1", "2-on-one-device", "2"])
+def test_train_dp(dp, monkeypatch):
+    """``train --dp 1`` trains on one device; ``--dp 2`` on a one-device
+    host fails with the JAX ``make_mesh`` assert's message; over two
+    devices ``--dp 2`` trains on two replicas (the batch of 1 rounds up to
+    2)."""
+    args = ["train", "--tiny", "--dp", dp[0], "--steps", "1",
+            "--batch-size", "1", "--tokens", "16", "--frames", "8"]
+    if dp == "2":
+        _two_cpu_devices(monkeypatch)
+    else:
+        args += ["--device", "cpu"]
+    result = CliRunner().invoke(port_main.cli, args)
+    if dp == "2-on-one-device":
+        assert isinstance(result.exception, AssertionError), result.output
+        assert str(result.exception).startswith("(2, 1, 1)")
+        return
+    assert result.exit_code == 0, result.output
+    assert "done: {" in result.output and "'loss'" in result.output
 
 
 def test_convert_roundtrip_on_the_port(tmp_path):

@@ -259,7 +259,7 @@ def test_pipeline_device(monkeypatch):
 
     monkeypatch.setattr(pipeline_mod, "Synthesizer", tiny_synth)
     pipe = TTSPipeline(device="cpu", repo_id="org/name")
-    assert built == {"voices_dir": None, "device": "cpu",
+    assert built == {"voices_dir": None, "device": "cpu", "mesh": None,
                      "repo_id": "org/name"}
     assert pipe.device == torch.device("cpu")
     pipe.synthesizer.register_random_voice("v", seed=1)

@@ -512,8 +512,17 @@ def test_tables_made_while_serving_enter_a_training_graph():
 
 
 def test_train_with_a_mesh_raises():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        loop.train(torch.nn.Linear(1, 1), steps=1, mesh=object())
+    """A mesh whose 'model' axis exceeds 1 (tensor-parallel compute) is not
+    ported: ``train`` raises; a 'data' mesh trains
+    (``tests/test_torch_parallel.py``)."""
+    from illufly_tts_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(n_data=1, n_model=2,
+                     devices=[torch.device("cpu")] * 2)
+    model = KokoroModel(port_config())
+    with pytest.raises(NotImplementedError, match="'model' axis"):
+        loop.train(model, steps=1, batch_size=1, tokens=8, frames=8,
+                   mesh=mesh)
 
 
 def test_adversarial_train_checkpoints_and_resumes_both_players(step0,
