@@ -157,11 +157,30 @@ From the root of a checkout. It
    against the CPU's bf16 step; every Generator pass launching each kernel
    once per replica, and each kernel held against its plain version at the
    replicas' shapes.
+14. Tensor parallelism: the 'model' axis, its shards sharing cuda:0
+   (``make_mesh(1, 2, devices=[cuda:0] * 2)`` and ``make_mesh(2, 2,
+   devices=[cuda:0] * 4)``), under deterministic cuDNN. Both conv kernels,
+   f32 and bf16 forms, against their plain versions at a 2-way split's
+   shapes (B=8, C_in 256 -> C_out 128 and 128 -> 64, every (k, d) of the
+   Generator; phase 3's and phase 11's tolerances) and timed beside their
+   bounds and cuDNN; zh_1 and mixed_4 in every format through the 1 x 2
+   and 2 x 2 engines against the one-device engine (pcm16/f32 within the
+   golden gate, mu-law's distance printed), each fused step launched once
+   per shard and the head once per replica; a windowed stream (first use
+   and replayed, bitwise each other, within the golden gate of the
+   one-device stream); ``warmup`` of mixed_4's key on both meshes (replays
+   bitwise the eager render, pool bytes printed); a bf16 request on 1 x 2;
+   B=8 wall, eager and replayed, 1 x 2 against one device (for
+   information); ``train(mesh=<1 x 2>)`` step 0 against one device (each
+   loss within 1e-5 relative, phase 13's update check) and a bf16 step;
+   then each kernel against its plain version at the shapes the shards
+   gave it.
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's launches per
 phase; ``launches_replayed``: those of phase 12's batch replays;
 ``launches_stream_replayed``: those of its replayed windowed streams;
-``launches_mesh``: those of phase 13) and, last,
+``launches_mesh``: those of phase 13; ``launches_tp``: those of phase 14;
+``split_shapes``: the convs at phase 14's split shapes) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line;
 so does a host without CUDA, or a directory without the port's package.
@@ -3325,6 +3344,452 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
     return (out, launches, got16, conv_shapes, head_shapes, conv16, head16)
 
 
+# phase 14: tensor parallelism, the 'model' axis on the one card
+TP_REPS = 5  # timed B=8 renders per engine and mode, in turns
+# the fused convs at a 2-way split's shapes: (C_in, C_out = C_in / 2, L)
+# of the Generator's two stages at B=8 and frame bucket 512
+TP_CONV_SHAPES = ((256, 128, 10240), (128, 64, 61440))
+# train step 0 on a 1 x 2 mesh against one device: each loss, relative
+TP_STEP0_TOL = 1e-5
+
+
+def split_conv_inputs(torch, batch, c_in, c_out, length, kernel, seed):
+    """``conv_inputs`` at C_in, with w [k, C_in, C_out] and b [C_out]: a
+    column shard's operands."""
+    x, mask, scale, shift, alpha, _, _ = conv_inputs(
+        torch, batch, c_in, length, kernel, seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1000)
+    w = torch.randn((kernel, c_in, c_out), device="cuda",
+                    generator=gen) / math.sqrt(c_in * kernel)
+    return (x, mask, scale, shift, alpha, w,
+            0.1 * torch.randn(c_out, device="cuda", generator=gen))
+
+
+def as_bf16(asc, args):
+    x, mask, scale, shift, alpha, w, b = args
+    return x.bfloat16(), mask, scale, shift, alpha, asc.pack_weights(w), b
+
+
+def check_split_conv(torch, asc, name, shapes):
+    """Kernel ``name`` (an f32 form or a bf16 form) against its plain
+    version at each (B, C_in, C_out, L, k, d) -> max|kernel - plain|
+    (bf16: over max|plain|). f32 within CONV_TOL * (1 + max|plain|), bf16
+    within BF16_TOL of max|plain|, as phases 3 and 11 hold them."""
+    bf16 = name in BF16_CONV
+    fn = getattr(asc, BF16_CONV.get(name, name))
+    worst = 0.0
+    for i, (batch, c_in, c_out, length, k, d) in enumerate(shapes):
+        args = split_conv_inputs(torch, batch, c_in, c_out, length, k, 70 + i)
+        if bf16:
+            args = as_bf16(asc, args)
+        out = fn(*args, k, d)
+        torch.cuda.synchronize()
+        ref = asc.adain_snake_conv_plain(*args, k, d)
+        if out.shape != (batch, c_out, length) or out.dtype != ref.dtype:
+            fail(f"{name} at {shapes[i]}: {out.dtype} {tuple(out.shape)}")
+        err = float((out.float() - ref.float()).abs().max())
+        peak = float(ref.float().abs().max())
+        if bf16:
+            ok, err = err <= BF16_TOL * peak, err / max(peak, 1e-30)
+        else:
+            ok = err <= CONV_TOL * (1.0 + peak)
+        if not ok:
+            fail(f"{name} disagrees with plain at {shapes[i]}: {err}")
+        worst = max(worst, err)
+        del args, out, ref
+    log(f"  {name}: {len(shapes)} split shapes, max|kernel - plain| = "
+        f"{worst:.3e}" + (" of max|plain| (gate 2^-7)" if bf16 else
+                          f" (each within {CONV_TOL} * (1 + max|plain|))"))
+    return worst
+
+
+def time_split_conv(torch, F, asc, name, flush, shape, card, reps=20):
+    """Kernel ``name``, its plain version and cuDNN's conv alone (on an
+    activated input, in the form's dtype) at (B, C_in, C_out, L, k, d) ms,
+    beside the bound: 3 x 2 B L C_in C_out k / the TF32 peak for the f32
+    form (three TF32 products a multiply-add), 2 B L C_in C_out k / the
+    bf16 peak for the bf16 form, or the bytes over HBM, the larger."""
+    batch, c_in, c_out, length, k, d = shape
+    bf16 = name in BF16_CONV
+    args = split_conv_inputs(torch, batch, c_in, c_out, length, k, seed=99)
+    w_t = args[5].permute(2, 1, 0).contiguous()
+    h = torch.randn_like(args[0])
+    b = args[6]
+    if bf16:
+        args = as_bf16(asc, args)
+        h, w_t, b = h.bfloat16(), w_t.bfloat16(), b.bfloat16()
+    fn = getattr(asc, BF16_CONV.get(name, name))
+    pad = (k - 1) * d // 2
+    calls = {
+        "ms": lambda: fn(*args, k, d),
+        "plain_ms": lambda: asc.adain_snake_conv_plain(*args, k, d),
+        "library_ms": lambda: F.conv1d(h, w_t, b, padding=pad, dilation=d),
+    }
+    for call in calls.values():
+        call()
+    out = {key: cuda_ms(call, reps, flush) for key, call in calls.items()}
+    width = 2 if bf16 else 4
+    n_bytes = (batch * (c_in + c_out) * length * width + batch * length * 4
+               + k * c_in * c_out * width)
+    n_ops = 2 * batch * length * c_in * c_out * k
+    out["bound_ms"], out["bound_by"] = (
+        bound(n_bytes, n_ops, BF16_OPS_PER_S) if bf16
+        else bound(n_bytes, 3 * n_ops, TF32_OPS_PER_S))
+    out["shape"] = list(shape)
+    log(f"{name} at B={batch}, C_in={c_in} -> C_out={c_out}, L={length}, "
+        f"k={k}, d={d}: kernel {out['ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, cuDNN conv alone {out['library_ms']:.4f}"
+        f" ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
+        f"{out['bound_ms'] / out['ms']:.0%} of it reached; {card})")
+    return out
+
+
+def recorded_split(fn, name, seen):
+    """``fn`` (the f32 form ``name``'s wrapper) that also records each
+    call's (B, C_in, C_out, L, k, d) in ``seen``, under the bf16 form's
+    name for a bfloat16 x."""
+    import torch
+
+    bf16 = {plain: form for form, plain in BF16_CONV.items()}[name]
+
+    def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1):
+        seen[bf16 if x.dtype == torch.bfloat16 else name].add((
+            x.shape[0], x.shape[1], b.shape[0], x.shape[2], kernel,
+            dilation))
+        return fn(x, mask, scale, shift, alpha, w, b, kernel, dilation)
+    return call
+
+
+def tp_phase(torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa,
+             flush, conv_per_generator, card, failures, reset_counts,
+             check_wave, dev):
+    """Phase 14: tensor parallelism on the 'model' axis, the shards of a
+    group sharing the one card: 1 x 2 and 2 x 2 meshes over cuda:0. ->
+    (summary dict, f32 launches by kernel, bf16 launches by kernel, the
+    split-shape rows by kernel)."""
+    import copy
+    import dataclasses
+
+    from illufly_tts_tpu_torch.audio.telephony import mulaw_decode_np
+    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.parallel.mesh import compute_copy, make_mesh
+    from illufly_tts_tpu_torch.training import loop
+    from illufly_tts_tpu_torch.training import step as tstep
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "checks": {}}
+    launches = {"istft_oa": 0, **{name: 0 for name in CONV_KERNELS}}
+    launches16 = {"istft_head_bf16": 0, **{n: 0 for n in BF16_CONV}}
+    voice = "smoke_voice"
+
+    def check(label, ok):
+        out["checks"][label] = bool(ok)
+        if not ok:
+            failures.append(f"phase 14: {label}")
+        return ok
+
+    def counted(label, replicas, passes, bf16=False):
+        """The launches since the last reset against ``passes`` Generator
+        passes on each of ``replicas`` replicas: each fused step once per
+        shard (both meshes' 'model' axes are 2-way), the head once per
+        pass; no launch of the other dtype's forms."""
+        f32 = {"istft_oa": oa.launches, **asc.launches}
+        b16 = {"istft_head_bf16": oa.launches_bf16, **asc.launches_bf16}
+        got, other = (b16, f32) if bf16 else (f32, b16)
+        head = "istft_head_bf16" if bf16 else "istft_oa"
+        want = {name: replicas * passes * (1 if name == head
+                                           else 2 * conv_per_generator)
+                for name in got}
+        log(f"phase 14: {label}: {replicas} replicas x {passes} Generator "
+            f"passes, launches {got}")
+        if not (got == want and not any(other.values())):
+            log(f"phase 14: {label}: want {want} and none of {other}")
+        check(f"{label}: exact launches",
+              got == want and not any(other.values()))
+        for name, n in got.items():
+            (launches16 if bf16 else launches)[name] += n
+
+    def rms_over_scale(a, b):
+        a, b = a.astype(np.float64), b.astype(np.float64)
+        return float(np.sqrt(np.mean((a - b) ** 2))) / (
+            float(np.sqrt(np.mean(b ** 2))) + 1e-9)
+
+    # -- the kernels at the split shapes
+    t0 = time.perf_counter()
+    inventory = sorted({(k, d) for k in (3, 7, 11) for d in (1, 3, 5)})
+    shapes = [(8, c_in, c_out, length, k, d)
+              for c_in, c_out, length in TP_CONV_SHAPES
+              for k, d in inventory]
+    log("phase 14: fused conv kernels vs plain at C_in -> C_in / 2 (B=8, "
+        "the Generator's (k, d), odd rows masked after 2/3):")
+    errors = {name: check_split_conv(torch, asc, name, shapes)
+              for name in (*CONV_KERNELS, *BF16_CONV)}
+    rows = {}
+    for name in (*CONV_KERNELS, *BF16_CONV):
+        d = 5 if "carry" in name else 1
+        rows[name] = {"max_abs_err" if name in CONV_KERNELS
+                      else "err_over_peak": errors[name],
+                      "timed": [time_split_conv(
+                          torch, F, asc, name, flush,
+                          (8, c_in, c_out, length, 11, d), card)
+                          for c_in, c_out, length in TP_CONV_SHAPES]}
+    out["kernel_s"] = time.perf_counter() - t0
+
+    # -- serving on 1 x 2 and 2 x 2 meshes over cuda:0
+    torch.backends.cudnn.deterministic = True  # bitwise replays below
+    tree = export_flax_params(synth.model)  # phase 4's weights
+    mesh12 = make_mesh(1, 2, devices=[dev] * 2)
+    mesh22 = make_mesh(2, 2, devices=[dev] * 4)
+    single = Synthesizer(cfg, params=tree, device=dev)
+    e12 = Synthesizer(cfg, params=tree, mesh=mesh12)
+    e22 = Synthesizer(cfg, params=tree, mesh=mesh22)
+    engines = {"1x2": (e12, 1), "2x2": (e22, 2)}
+    for engine in (single, e12, e22):
+        engine.register_random_voice(voice, seed=0)
+    check("every replica's compute model is split in two",
+          all(len(leaf.shards) == 2 for e in (e12, e22)
+              for rep in e._replicas
+              for leaf in rep.net.split_leaves.values())
+          and len(e12.net.split_leaves) > 300)
+    seen = {name: set() for name in (*CONV_KERNELS, *BF16_CONV)}
+    for name in CONV_KERNELS:
+        setattr(layers, name, recorded_split(getattr(asc, name), name, seen))
+    served, eager = [], {}
+    try:
+        for req in ("zh_1", "mixed_4"):
+            texts = requests[req]
+            for fmt in FORMATS:
+                whole = single.collect(single.dispatch(
+                    texts, [voice] * len(texts), fmt=fmt))
+                for label, (engine, n_rep) in engines.items():
+                    reset_counts()
+                    h = engine.dispatch(texts, [voice] * len(texts), fmt=fmt)
+                    got = engine.collect(h)
+                    counted(f"{req}/{fmt} on {label}", n_rep, 1)
+                    per = 200 if fmt == "mulaw8k" else 600
+                    for i, clip in enumerate(got):
+                        check_wave(f"phase 14 {label} {req}/{fmt}[{i}]", clip,
+                                   int(h.fitted_totals[i]) * per)
+                    sizes = [a.size for a in got] == [a.size for a in whole]
+                    if fmt.startswith("mulaw"):
+                        rms = max(rms_over_scale(mulaw_decode_np(a),
+                                                 mulaw_decode_np(b))
+                                  for a, b in zip(got, whole))
+                        codes = max(int(np.abs(a.astype(np.int16) - b).max())
+                                    for a, b in zip(got, whole))
+                        check(f"{label} {req}/{fmt}: lengths of the "
+                              "one-device render", sizes)
+                    else:
+                        rms = max(rms_over_scale(a, b)
+                                  for a, b in zip(got, whole))
+                        codes = None
+                        check(f"{label} {req}/{fmt}: within the golden gate "
+                              "of the one-device render",
+                              sizes and rms < CPU_GPU_TOL)
+                    eager[label, req, fmt] = got
+                    served.append({"mesh": label, "request": req, "fmt": fmt,
+                                   "b_bucket": h.b_bucket,
+                                   "f_bucket": h.f_bucket,
+                                   "rms_over_scale": rms,
+                                   "max_code_diff": codes})
+                    log(f"phase 14: {req}/{fmt} on {label}: B bucket "
+                        f"{h.b_bucket}, F {h.f_bucket}; vs the one-device "
+                        f"render: rms/scale {rms:.3e} (limit {CPU_GPU_TOL} "
+                        f"for pcm16/f32)" + (
+                            f", codes at most {codes} apart"
+                            if codes is not None else ""))
+        out["serving"] = served
+
+        # -- a windowed stream on 1 x 2, first use and replayed
+        zh = requests["zh_1"]
+        streams = {}
+        for label in ("first use", "replayed"):
+            reset_counts()
+            h = e12.dispatch(zh, [voice], fmt="f32")
+            chunks = list(e12.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
+                                            exact=False))
+            # at first use the window's capture adds its warm pass
+            counted(f"windowed stream ({label}) on 1x2", 1,
+                    len(chunks) + (label == "first use"))
+            streams[label] = chunks
+        hs = single.dispatch(zh, [voice], fmt="f32")
+        ref = list(single.stream_decode(hs, STREAM_WINDOW, STREAM_HALO,
+                                        exact=False))
+        first, again = streams["first use"], streams["replayed"]
+        check("1x2 windowed stream replayed bitwise its first use",
+              all(a.tobytes() == b.tobytes() for a, b in zip(first, again)))
+        stream_rms = max(rms_over_scale(a, b) for a, b in zip(again, ref))
+        check("1x2 windowed stream within the golden gate of the one-device "
+              "stream", len(again) == len(ref) and stream_rms < CPU_GPU_TOL)
+        out["stream"] = {"chunks": len(again), "rms_over_scale": stream_rms}
+        log(f"phase 14: windowed stream of zh_1 on 1x2: {len(again)} chunks,"
+            f" replayed bitwise its first use; vs the one-device stream "
+            f"rms/scale {stream_rms:.3e}")
+
+        # -- warmup, then a replay bitwise the eager render, on both meshes
+        texts4 = requests["mixed_4"]
+        h = e12.dispatch(texts4, [voice] * 4)
+        e12.collect(h)
+        key = (h.t_bucket, h.f_bucket)
+        graphs = {}
+        for label, (engine, n_rep) in engines.items():
+            t0 = time.perf_counter()
+            engine.warmup(batch_sizes=(4,), token_sizes=(key[0],),
+                          frame_sizes=(key[1],), formats=("pcm16",))
+            warm_s = time.perf_counter() - t0
+            reset_counts()
+            got = engine.collect(engine.dispatch(texts4, [voice] * 4))
+            counted(f"mixed_4 replayed on {label}", n_rep, 1)
+            rows_each = 4 // n_rep
+            keys = [(rows_each, key[0]), (rows_each, *key, "pcm16")]
+            check(f"{label}: each replica replays its graphs",
+                  all(rep.graph_replays[k] == 1 for rep in engine._replicas
+                      for k in keys))
+            check(f"{label}: replay bitwise the eager render", all(
+                a.tobytes() == b.tobytes() for a, b in zip(
+                    got, eager[label, "mixed_4", "pcm16"])))
+            memory = {str(k): memory_growth(engine._replicas[0]._graphs[k]
+                                            .memory) for k in keys}
+            pools = [pool_bytes(torch, rep._graph_pool)
+                     for rep in engine._replicas]
+            graphs[label] = {"warmup_s": warm_s, "pool_bytes": pools,
+                             "capture_growth": memory}
+            log(f"phase 14: warmup of mixed_4's key on {label} in "
+                f"{warm_s:.2f} s, replays bitwise the eager render; pool "
+                f"bytes per replica {pools}; capture growth {memory}")
+        out["graphs"] = graphs
+
+        # -- one bf16 request on 1 x 2
+        e16 = Synthesizer(dataclasses.replace(cfg, dtype=torch.bfloat16),
+                          params=tree, mesh=mesh12)
+        e16.register_random_voice(voice, seed=0)
+        reset_counts()
+        h = e16.dispatch(zh, [voice], fmt="pcm16")
+        got16 = e16.collect(h)
+        counted("bf16 zh_1 on 1x2", 1, 1, bf16=True)
+        for i, clip in enumerate(got16):
+            check_wave(f"phase 14 bf16 1x2 zh_1[{i}]", clip,
+                       int(h.fitted_totals[i]) * 600)
+        del e16
+
+        # -- B=8 wall, eager and replayed, 1 x 2 against one device
+        b8 = requests["mixed_4"] * 2
+        walls = {}
+        order = [("one device", single), ("1x2", e12)]
+
+        def timed(mode):
+            for rep in range(TP_REPS):
+                for label, engine in order if rep % 2 == 0 else order[::-1]:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    engine.collect(engine.dispatch(b8, [voice] * 8))
+                    walls.setdefault(f"{label} {mode}", []).append(
+                        (time.perf_counter() - t0) * 1e3)
+
+        hb = single.dispatch(b8, [voice] * 8)
+        single.collect(hb)
+        timed("eager")
+        for engine in (single, e12):
+            engine.warmup(batch_sizes=(8,), token_sizes=(hb.t_bucket,),
+                          frame_sizes=(hb.f_bucket,), formats=("pcm16",))
+        timed("replayed")
+        out["b8_wall_ms"] = {k: statistics.median(v)
+                             for k, v in walls.items()}
+        out["b8_wall_ms_all"] = walls
+        log(f"phase 14: B=8 pcm16 (mixed_4 twice), host wall ms, median of "
+            f"{TP_REPS} in turns: {out['b8_wall_ms']} (deterministic cuDNN;"
+            f" for information) [{card}]")
+        engines.clear()
+        del e22
+
+        # -- training on 1 x 2: step 0 against one device, then bf16
+        init = copy.deepcopy(synth.model)
+        teacher = copy.deepcopy(init)
+        gen = loop.synthetic_batches(init, teacher, TRAIN["batch"],
+                                     TRAIN["tokens"], TRAIN["frames"], seed=0)
+        data = next(gen)
+        del teacher, gen
+
+        def run(model, batch, **kw):
+            seen_m = []
+            master, _, _ = loop.train(
+                model, steps=1, batch_size=batch.input_ids.shape[0],
+                tokens=TRAIN["tokens"], frames=TRAIN["frames"], log_every=1,
+                batches=iter([batch]),
+                on_metrics=lambda s, m: seen_m.append(m),
+                **kw)
+            return master, seen_m[0]
+
+        reset_counts()
+        t0 = time.perf_counter()
+        m_tp, tp_m = run(copy.deepcopy(init), data, mesh=mesh12)
+        torch.cuda.synchronize()
+        tp_step_s = time.perf_counter() - t0
+        counted("train(mesh=1x2), step 0", 1, 1)
+        reset_counts()
+        m_one, one_m = run(copy.deepcopy(init), data)
+        # the audio loss against the frozen teacher (the initial model,
+        # rendered on one device) is ~0 at step 0: it is held relative to
+        # the target's mean |amplitude|, the others to their own values
+        scale = float(data.target_audio.abs().mean())
+        rel = {key: abs(tp_m[key] - one_m[key]) / (
+            scale if key == "audio_loss" else abs(one_m[key]))
+            for key in ("loss", "dur_loss", "audio_loss")}
+        check(f"step 0 losses: 1x2 vs one device within {TP_STEP0_TOL} "
+              "relative", all(v <= TP_STEP0_TOL for v in rel.values()))
+        lr = 1e-4
+        diff, n_off, n_all = 0.0, 0, 0
+        with torch.no_grad():
+            for p, q, p0 in zip(m_tp.parameters(), m_one.parameters(),
+                                init.parameters()):
+                d = ((p - p0) - (q - p0)).abs() / lr
+                diff = max(diff, float(d.max()))
+                n_off += int((d > 1e-3).sum())
+                n_all += d.numel()
+        check("step 0 weights: 1x2 vs one device (phase 13's update check)",
+              diff <= 2.002 and n_off <= 0.01 * n_all)
+        del m_tp, m_one
+        small = tstep.TrainBatch(*(t[:2] for t in data))
+        reset_counts()
+        m16 = compute_copy(init, torch.bfloat16, dev)
+        master16, seen16 = run(m16, small, mesh=mesh12)
+        counted("bf16 train(mesh=1x2), B=2", 1, 1, bf16=True)
+        check("bf16 1x2 step: finite loss, float32 master",
+              math.isfinite(seen16["loss"]) and all(
+                  p.dtype == torch.float32 for p in master16.parameters()))
+        out["training"] = {"step0_1x2": tp_m, "step0_one_device": one_m,
+                           "step0_rel": rel, "update_max_diff_lr": diff,
+                           "update_entries_off": n_off, "entries": n_all,
+                           "step0_1x2_s": tp_step_s, "bf16_1x2": seen16}
+        log(f"phase 14: train(mesh=1x2) at B={TRAIN['batch']}, tokens "
+            f"{TRAIN['tokens']}, frames {TRAIN['frames']}: step 0 vs one "
+            f"device, relative {rel} (limit {TP_STEP0_TOL}); updates differ "
+            f"by at most {diff:.3f} lr, {n_off} of {n_all} entries by more "
+            f"than 1e-3 lr; bf16 step on 1x2 loss {seen16['loss']:.5f} "
+            f"({card})")
+        del init, master16, m16, single, e12, order
+    finally:
+        unrecord(layers, vocoder, asc, oa)
+        torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()  # the phase's engines and their graph pools
+
+    # -- the kernels against their plain versions at the shapes the
+    # tensor-parallel engines and trainer gave them
+    log("phase 14: kernels vs plain at the shapes the shards gave them:")
+    for name, got in seen.items():
+        err = check_split_conv(torch, asc, name, sorted(got))
+        key = "max_abs_err" if name in CONV_KERNELS else "err_over_peak"
+        rows[name][key] = max(rows[name][key], err)
+        rows[name]["shapes_seen"] = len(got)
+    check("the shards ran the fused kernels at C_out = C / 2",
+          all(any(c_out * 2 == c_in for _, c_in, c_out, *_ in got)
+              for got in seen.values()))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 in {out['phase_s']:.1f} s")
+    return out, launches, launches16, rows
+
+
 def main() -> None:
     import torch
 
@@ -3721,6 +4186,12 @@ def main() -> None:
         bf16_rows["istft_head_bf16"]["max_abs_err"], check_head_bf16(
             torch, oa, [(b, f, False) for b, f in sorted(mesh_head16)]))
 
+    # ---- 14. tensor parallelism: shards on the 'model' axis ---------------
+    tp, tp_launches, tp_bf16, tp_rows = tp_phase(
+        torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa, flush,
+        conv_per_generator, card, failures, reset_counts, check_wave,
+        torch.device("cuda", 0))
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -3821,6 +4292,16 @@ def main() -> None:
         # phase 13: serving, graphs, streams, HTTP and training on the
         # replicas (f32 forms); bf16 training (bf16 forms)
         row["launches_mesh"] = {**mesh_launches, **mesh_bf16}[row["name"]]
+        # phase 14: serving, streams, graphs and training on 'model'
+        # shards (f32 forms), a bf16 request and step (bf16 forms); the
+        # convs' times at the split shapes C_in -> C_in / 2
+        row["launches_tp"] = {**tp_launches, **tp_bf16}[row["name"]]
+        split = tp_rows.get(row["name"])
+        if split:
+            row["split_shapes"] = split
+            key = ("max_abs_err" if row["name"] in CONV_KERNELS
+                   else "err_over_peak")
+            row[key] = max(row[key], split[key])
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"requests_wall_ms": timings,
                     "stream_first_chunk_ms": first_ms,
@@ -3833,6 +4314,7 @@ def main() -> None:
     log(json.dumps({"bf16": bf16}))
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"mesh": mesh}))
+    log(json.dumps({"tensor_parallel": tp}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -9,7 +9,9 @@ without that flag the engine raises. ``serve --dp N`` and ``train --dp N``
 (N > 1) run one replica per device of an N-way 'data' mesh
 (``parallel/mesh.py``) over the host's CUDA devices, or over ``--device``
 alone where it names one; too few devices fail as the JAX CLI's
-``make_mesh`` assert does."""
+``make_mesh`` assert does. As in the JAX CLI, no flag sets a 'model'
+axis: a tensor-parallel mesh is built in Python
+(``Synthesizer(mesh=make_mesh(n_data, n_model))``, ``train(mesh=...)``)."""
 from __future__ import annotations
 
 import logging

@@ -34,6 +34,11 @@ the first. A batch's bucket rounds to the axis; each replica runs stage A
 on its rows, the frame bucket is picked from every row's total (one for
 the batch, as one JAX program renders it), each replica runs stage B and
 copies its rows to the host, and ``collect`` concatenates them in order.
+With a 'model' axis above 1 each replica's compute model is
+tensor-parallel over its row of the mesh (``parallel/tensor.py``); a row of
+one card captures and replays graphs as one device does, and a row that
+spans cards raises NotImplementedError where a graph would be captured
+(``torch.cuda.graph`` records one device's stream).
 
 The engine runs on CUDA unless ``device="cpu"`` is passed; without a CUDA
 device and without that argument it raises. Parameters are float32
@@ -300,7 +305,15 @@ class _Replica:
                  ) -> StageGraph:
         """Warm and capture ``key``'s stage on ``inputs`` and serve the key
         from its graph from now on (on the CPU: one eager pass with
-        ``cpu_pass``, and the key is recorded)."""
+        ``cpu_pass``, and the key is recorded). A compute model whose
+        tensor-parallel shards span cards raises NotImplementedError."""
+        spanned = {p.device for p in self.net.parameters()}
+        if self.device.type == "cuda" and len(spanned) > 1:
+            raise NotImplementedError(
+                f"stage {key}: a CUDA graph of a tensor-parallel group over "
+                f"{sorted(map(str, spanned))}; a capture records one "
+                "device's stream, so a group that spans cards runs eagerly "
+                "only (ROADMAP §3)")
         with torch.inference_mode():
             graph = StageGraph(self._stage_fn(key), inputs,
                                self._graph_pool, self._capture_stream,
@@ -384,9 +397,10 @@ class Synthesizer(_Replica):
         random parameters the JAX engine draws for ``seed``. ``repo_id``
         enables the offline HF-cache voice search of ``load_voice``.
 
-        ``mesh`` (``parallel/mesh.make_mesh``, its 'model' axis 1): one
-        replica per 'data' device; ``device`` is then None or the mesh's
-        first device, where ``self.model`` lives."""
+        ``mesh`` (``parallel/mesh.make_mesh``): one replica per 'data'
+        index, tensor-parallel over the index's row of devices where the
+        'model' axis exceeds 1; ``device`` is then None or the mesh's first
+        device, where ``self.model`` lives."""
         self.mesh = mesh
         if mesh is None:
             self.device = resolve_device(device)
@@ -408,8 +422,9 @@ class Synthesizer(_Replica):
             params = random_flax_params(model, seed)
         load_flax_params(model, params)
         self.model = model.to(self.device).eval().requires_grad_(False)
-        # the compute models, one per 'data' device: self.model itself
-        # where it computes (float32, the first device), else copies
+        # the compute models, one per 'data' index: self.model itself
+        # where it computes (float32, the first device, no 'model' axis),
+        # else copies
         self._mesh = mesh
         nets = shard_params(self.model, mesh, self.config.dtype)
         super().__init__(self.config, self.device, nets[0], threading.Lock())
@@ -1197,9 +1212,15 @@ class Synthesizer(_Replica):
             self.synthesize_batch([fake] * bmax, ["__warmup__"] * bmax,
                                   fmt=formats[0])
         priority_s = time.perf_counter() - t0
+        first_run_s = time.perf_counter() - t1
+        # the port's names, and the JAX engine's (rounded as it rounds
+        # them) for the consumers that read those: its ahead-of-time
+        # compile is the capture here, its first execution the first run
         self.last_warmup_phases = {
             "capture_s": capture_s,
-            "first_run_s": time.perf_counter() - t1,
+            "first_run_s": first_run_s,
+            "aot_s": round(capture_s, 1),
+            "load_exec_s": round(first_run_s, 1),
         }
 
         def rest():

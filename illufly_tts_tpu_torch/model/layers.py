@@ -230,7 +230,13 @@ class AdaSnakeResBlock(nn.Module):
     bfloat16; the moments, the folded scale/shift, the alphas and the conv
     biases float32 (``keep_f32``); the conv weights bfloat16, held
     stage-packed as the kernels read them (``pack_weights``), made once per
-    weight."""
+    weight.
+
+    Under tensor parallelism (``parallel/tensor.py``) the convs are
+    column-parallel and the alphas split: the moments, the AdaIN fold and
+    the gathered alphas stay whole on x's device, and each conv shard runs
+    the fused call at its C_out / n_model output channels on its own
+    device."""
 
     def __init__(self, channels: int, kernel: int, dilations: Sequence[int],
                  style_dim: int):
@@ -246,7 +252,8 @@ class AdaSnakeResBlock(nn.Module):
                             Conv1d(channels, channels, kernel, dilation=d))
             self.add_module(f"adain2_{j}", AdaIN1d(style_dim, channels))
             self.add_module(f"conv2_{j}", Conv1d(channels, channels, kernel))
-        # conv -> (weight version, its stage-packed bfloat16 weights)
+        # conv (or conv shard) -> (weight version, its stage-packed
+        # bfloat16 weights)
         self._packed = {}
 
     def keep_f32(self) -> None:
@@ -288,13 +295,21 @@ class AdaSnakeResBlock(nn.Module):
         def step(fused, h, j, n):
             adain = getattr(self, f"adain{n}_{j}")
             conv = getattr(self, f"conv{n}_{j}")
+            alpha = getattr(self, f"alpha{n}_{j}")
+            if isinstance(alpha, nn.Module):  # split: gathered here
+                alpha = alpha(h.device)
             gamma, beta = _wide(adain.fc(s)).chunk(2, dim=1)
             scale, shift = fold_adain(*instance_moments(h, kernel_mask),
                                       gamma, beta)
-            return fused(h, kernel_mask, scale, shift,
-                         getattr(self, f"alpha{n}_{j}").reshape(-1),
-                         self._weight(conv), conv.bias, conv.kernel_size[0],
-                         conv.dilation[0])
+            inputs = (h, kernel_mask, scale, shift, alpha.reshape(-1))
+            # a column-parallel conv (parallel/tensor.py): each shard runs
+            # the fused call on its device at its output channels, from the
+            # whole input; the slices are gathered on h's device
+            parts = [fused(*(t.to(c.weight.device) for t in inputs),
+                           self._weight(c), c.bias, c.kernel_size[0],
+                           c.dilation[0]).to(h.device)
+                     for c in getattr(conv, "shards", (conv,))]
+            return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
         for j in range(len(self.dilations)):
             h = step(adain_snake_conv_carry, x, j, 1)

@@ -12,14 +12,18 @@ itself:
   into equal shards (``batch_sharding(mesh).place``), each replica runs its
   shard on its own device, and the results are gathered (``gather``);
 - tensor parallelism over 'model': ``param_spec``/``param_shardings`` name
-  the last-dim split of the wide matmuls and decoder convs as the JAX rules
-  do, but no compute runs split yet: a mesh whose 'model' axis exceeds 1
-  raises where parameters or batches would be placed on it.
+  the last-dim split of the wide matmuls and convs as the JAX rules do, and
+  each 'data' index holds one tensor-parallel group, the row
+  ``mesh.devices[d, :]``: its replica's activations live on the row's first
+  device, and each split leaf is held as one slice per device of the row
+  and computed column-parallel or gathered at use (``parallel/tensor.py``).
 
 A mesh's devices are ``torch.device``s. Unlike a JAX mesh, which holds
 each chip once, the list may repeat a device: ``make_mesh(n_data=8,
-devices=[torch.device("cpu")] * 8)`` is an 8-way axis on the CPU, and
-``devices=[torch.device("cuda:0")] * 2`` two replicas on one card.
+devices=[torch.device("cpu")] * 8)`` is an 8-way axis on the CPU,
+``devices=[torch.device("cuda:0")] * 2`` two replicas on one card, and
+``make_mesh(2, 2, devices=[torch.device("cuda:0")] * 4)`` two replicas of
+two shards each on it.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import torch
 
 from ..model.kokoro import KokoroModel
 from ..model.params import flax_shapes
+from .tensor import split_leaf, tensor_parallel
 
 AXES = ("data", "model")
 
@@ -60,6 +65,12 @@ class Mesh:
     def data_devices(self) -> List[torch.device]:
         """One device per 'data' index (the first along 'model')."""
         return list(self.devices[:, 0])
+
+    @property
+    def groups(self) -> List[List[torch.device]]:
+        """One tensor-parallel group per 'data' index: its row of devices
+        along 'model'."""
+        return [list(row) for row in self.devices]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, devices={self.devices.ravel().tolist()})"
@@ -122,37 +133,34 @@ def param_spec(path: str, shape) -> PartitionSpec:
 @dataclasses.dataclass(frozen=True)
 class NamedSharding:
     """``jax.sharding.NamedSharding``: ``spec`` over ``mesh``. ``place``
-    puts a tensor on the mesh's 'data' devices."""
+    puts a tensor on the mesh's devices."""
 
     mesh: Mesh
     spec: PartitionSpec
 
-    def place(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """``x`` on each 'data' device: rows split into equal consecutive
-        shards for ``P("data")``, whole for ``P()``. A leading dimension
-        that does not divide the axis raises ValueError, as JAX's
-        ``device_put`` does."""
-        if "model" in self.spec:
-            check_data_mesh(self.mesh)
+    def place(self, x: torch.Tensor) -> list:
+        """``x`` per 'data' index: rows split into equal consecutive
+        shards for ``P("data")``, whole for ``P()``, on the index's first
+        device. Where the spec names 'model' at a dimension, each entry is
+        instead the list of its consecutive slices along that dimension,
+        slice ``i`` on the group's device ``i``. A dimension that does not
+        divide its axis raises ValueError, as JAX's ``device_put`` does."""
         devices = self.mesh.data_devices
-        if not self.spec or self.spec[0] is None:
-            return [x.to(dev, non_blocking=True) for dev in devices]
-        n = len(devices)
-        if x.shape[0] % n:
-            raise ValueError(
-                f"leading dim {x.shape[0]} does not divide the {n}-way "
-                "'data' mesh axis")
-        return [part.to(dev, non_blocking=True)
-                for part, dev in zip(x.chunk(n), devices)]
-
-
-def check_data_mesh(mesh: Mesh) -> None:
-    """Raise NotImplementedError for a 'model' axis above 1."""
-    if mesh.shape["model"] > 1:
-        raise NotImplementedError(
-            f"a mesh with a {mesh.shape['model']}-way 'model' axis: "
-            "tensor-parallel compute is not ported (ROADMAP queue 1, item "
-            "7); param_spec and param_shardings name its splits")
+        rows = [x] * len(devices)
+        if self.spec and self.spec[0] == "data":
+            n = len(devices)
+            if x.shape[0] % n:
+                raise ValueError(
+                    f"leading dim {x.shape[0]} does not divide the {n}-way "
+                    "'data' mesh axis")
+            rows = list(x.chunk(n))
+        if "model" not in self.spec:
+            return [r.to(dev, non_blocking=True)
+                    for r, dev in zip(rows, devices)]
+        dim = self.spec.index("model")
+        return [[part.to(dev, non_blocking=True) for part, dev in zip(
+            split_leaf(r, dim, len(group)), group)]
+            for r, group in zip(rows, self.mesh.groups)]
 
 
 def batch_sharding(mesh: Mesh) -> NamedSharding:
@@ -181,18 +189,21 @@ def param_shardings(model, mesh: Mesh) -> dict:
 def shard_params(model, mesh: Mesh, dtype: Optional[torch.dtype] = None
                  ) -> list:
     """The port's placement of ``model`` (a ``KokoroModel``) on the mesh:
-    one replica per 'data' device, computing in ``dtype`` (default
+    one compute model per 'data' index, computing in ``dtype`` (default
     ``model.config.dtype``) and filled from ``model``'s weights (a
-    bfloat16 replica keeps ``KokoroModel``'s float32 islands). A replica on
+    bfloat16 one keeps ``KokoroModel``'s float32 islands). With a 'model'
+    axis above 1 each is tensor-parallel over its group
+    (``tensor_parallel``); a split dimension the axis does not divide
+    raises ValueError, as JAX's ``shard_params`` does. A 1-device group on
     ``model``'s own device and dtype is ``model`` itself for the first
-    'data' device; every other is a copy, in eval mode without gradients.
-    A 'model' axis above 1 raises."""
-    check_data_mesh(mesh)
+    'data' index; every other compute model is a copy, in eval mode
+    without gradients."""
     dtype = dtype or model.config.dtype
     home = next(model.parameters()).device
-    return [model if i == 0 and dev == home and model.config.dtype == dtype
-            else compute_copy(model, dtype, dev)
-            for i, dev in enumerate(mesh.data_devices)]
+    return [model if i == 0 and group == [home]
+            and model.config.dtype == dtype
+            else tensor_parallel(compute_copy(model, dtype, group[0]), group)
+            for i, group in enumerate(mesh.groups)]
 
 
 def compute_copy(model, dtype: torch.dtype, device) -> torch.nn.Module:

@@ -6,19 +6,26 @@ it at every use (flax's ``param_dtype`` float32, ``dtype`` bfloat16), and
 under a mesh GSPMD runs the step over the batch's shards and reduces the
 gradients. The port's counterpart is ``Replicas``:
 
-- ``master``: a float32 ``KokoroModel``, the weights the optimizer steps,
-  the clip reads and checkpoints hold;
-- ``models``: one compute model per 'data' device of the mesh (one without
-  a mesh), in the config's dtype. A float32 model on one device is its own
-  master and only replica: nothing is copied and the step is the plain one.
-  A bfloat16 model is the first replica, and its master a float32 copy;
+- ``master``: a float32 ``KokoroModel``, whole on the mesh's first device:
+  the weights the optimizer steps, the clip reads and checkpoints hold. The
+  optimizer's state is whole too (JAX splits adamw's ``mu``/``nu`` as it
+  splits the parameters: memory only, the same function);
+- ``models``: one compute model per 'data' index of the mesh (one without
+  a mesh), in the config's dtype, tensor-parallel over the index's group
+  where the 'model' axis exceeds 1 (``parallel/tensor.py``). A float32
+  model on one device is its own master and only replica: nothing is
+  copied and the step is the plain one. A bfloat16 model is the first
+  replica on a 'data'-only mesh, and its master a float32 copy;
 - ``map``: a function of (model, batch) run on each replica's rows of the
   batch, its outputs gathered row-wise onto the master's device, so that a
   loss computed on them is the whole batch's and one ``backward`` reaches
   every replica;
 - ``reduce_grads``: each replica's gradients summed into the master's, in
-  float32; ``sync``: the master's weights copied back into every replica
-  (rounded to bfloat16 where the replica computes in it).
+  float32, a split leaf's shard gradients concatenated first; ``sync``: the
+  master's weights copied back into every replica (each shard its slice,
+  rounded to bfloat16 where the replica computes in it), and into
+  ``model`` where it is neither master nor replica (a bfloat16 model on a
+  'model' axis).
 """
 from __future__ import annotations
 
@@ -30,10 +37,15 @@ from ..model.params import trainable_parameters
 from .mesh import (
     Mesh,
     batch_sharding,
-    check_data_mesh,
     compute_copy,
     gather,
     make_mesh,
+)
+from .tensor import (
+    SplitLeaf,
+    gather_leaf,
+    split_leaf,
+    tensor_parallel,
 )
 
 
@@ -44,7 +56,6 @@ class Replicas:
         home = next(model.parameters()).device
         self.mesh = mesh if mesh is not None else make_mesh(
             n_data=1, devices=[home])
-        check_data_mesh(self.mesh)
         self.config = model.config
         self.dtype = model.config.dtype
         if self.dtype == torch.float32:
@@ -53,13 +64,34 @@ class Replicas:
             self.master = compute_copy(model, torch.float32, home)
         self.devices = self.mesh.data_devices
         self.models: List[torch.nn.Module] = [
-            model if i == 0 and dev == home
-            else compute_copy(self.master, self.dtype, dev)
-            for i, dev in enumerate(self.devices)]
+            model if i == 0 and group == [home]
+            else tensor_parallel(compute_copy(self.master, self.dtype,
+                                              group[0]), group)
+            for i, group in enumerate(self.mesh.groups)]
+        # the caller's model, kept in step where it is no replica
+        self._own = (model if model is not self.master
+                     and model not in self.models else None)
         self.params = trainable_parameters(self.master)
+        names = {id(p): name for name, p in self.master.named_parameters()}
         self._replica_params = [
-            None if m is self.master else trainable_parameters(m)
+            None if m is self.master else self._leaves(
+                m, [names[id(p)] for p in self.params])
             for m in self.models]
+
+    @staticmethod
+    def _leaves(net, names) -> list:
+        """Per trainable name: ``net``'s parameter, or its ``SplitLeaf``
+        where ``net`` is tensor-parallel; each set to train."""
+        split = getattr(net, "split_leaves", {})
+        if not split:
+            params = trainable_parameters(net)
+        else:
+            own = dict(net.named_parameters())
+            params = [split.get(name) or own[name] for name in names]
+        for leaf in params:
+            for p in (leaf.shards if isinstance(leaf, SplitLeaf) else [leaf]):
+                p.requires_grad_(True)
+        return params
 
     @property
     def device(self) -> torch.device:
@@ -89,23 +121,43 @@ class Replicas:
     @torch.no_grad()
     def reduce_grads(self) -> None:
         """The master's gradient of each trainable parameter: the sum of
-        the replicas' (float32, on the master's device). A parameter no
-        replica reached keeps none."""
+        the replicas' (float32, on the master's device), a split leaf's
+        being the concatenation of its shards'. A parameter no replica
+        reached keeps none."""
         for i, p in enumerate(self.params):
             total = p.grad
-            for rp in self._replica_params:
-                if rp is None or rp[i].grad is None:
+            for leaves in self._replica_params:
+                if leaves is None:
                     continue
-                g = rp[i].grad.to(p.device, torch.float32)
+                leaf = leaves[i]
+                split = isinstance(leaf, SplitLeaf)
+                parts = leaf.shards if split else [leaf]
+                if parts[0].grad is None:
+                    continue
+                g = (gather_leaf([s.grad for s in parts], leaf.dim, p.device)
+                     if split else leaf.grad).to(p.device, torch.float32)
                 total = g if total is None else total + g
-                rp[i].grad = None
+                for s in parts:
+                    s.grad = None
             p.grad = total
 
     @torch.no_grad()
     def sync(self) -> None:
-        """Copy the master's weights into every other replica."""
-        for m in self.models:
-            if m is self.master:
+        """Copy the master's trainable weights into every other replica
+        (each shard of a split leaf its slice) and into the caller's model
+        where it is no replica. The bridge's zeros (``bias_hh_l0``) stay
+        as they are."""
+        for leaves in self._replica_params:
+            if leaves is None:
                 continue
-            for dst, src in zip(m.parameters(), self.master.parameters()):
+            for src, leaf in zip(self.params, leaves):
+                if isinstance(leaf, SplitLeaf):
+                    for part, dst in zip(split_leaf(
+                            src, leaf.dim, len(leaf.shards)), leaf.shards):
+                        dst.copy_(part)
+                else:
+                    leaf.copy_(src)
+        if self._own is not None:
+            for dst, src in zip(self._own.parameters(),
+                                self.master.parameters()):
                 dst.copy_(src)

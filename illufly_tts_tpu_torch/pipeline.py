@@ -78,8 +78,8 @@ class TTSPipeline:
 
         # the synthesizer first: without CUDA and without device='cpu' it
         # raises before the frontend loads its lexicons. With a mesh
-        # (data-parallel serving, parallel/mesh.py) the mesh's devices
-        # decide where it runs.
+        # (data- and tensor-parallel serving, parallel/mesh.py) the mesh's
+        # devices decide where it runs.
         self.synthesizer = synthesizer or Synthesizer(
             voices_dir=voices_dir, device=device if mesh is None else None,
             mesh=mesh,

@@ -11,8 +11,10 @@ The optimizer steps float32 master weights (``parallel/replicas.py``): a
 float32 model trains in place and is its own master; a bfloat16 model
 computes the steps in bfloat16, its float32 master is a copy, and the model
 is refreshed from it after every step. With a ``mesh`` one replica per
-'data' device runs its rows of each batch; the loss is the whole batch's,
-and the replicas' gradients are summed into the master's.
+'data' index runs its rows of each batch, tensor-parallel over the index's
+row of devices where the 'model' axis exceeds 1; the loss is the whole
+batch's, and the replicas' gradients (a split leaf's shards concatenated)
+are summed into the master's.
 """
 from __future__ import annotations
 
@@ -119,10 +121,13 @@ def train(
     ``model`` itself when it is float32; a bfloat16 ``model`` holds the
     master's weights rounded after every step. Checkpoints hold the master.
 
-    ``mesh`` (``parallel/mesh.py``; its 'model' axis 1): the batch size
-    rounds up to a multiple of the 'data' axis, and a ``batches`` iterator
-    whose batch does not divide it raises ValueError, as the JAX trainer
-    does.
+    ``mesh`` (``parallel/mesh.py``): the batch size rounds up to a
+    multiple of the 'data' axis, and a ``batches`` iterator whose batch
+    does not divide it raises ValueError, as the JAX trainer does; a
+    'model' axis above 1 splits ``param_spec``'s leaves over each row of
+    the mesh (``parallel/tensor.py``), the master and the optimizer's
+    state staying whole on the first device. The discriminator of
+    ``adversarial=True`` runs on the first device.
 
     ``adversarial=True`` adds the HiFi-GAN LSGAN objective: a MultiPeriod +
     MultiResolution discriminator (``HiFiGANDiscriminator(**disc_kwargs)``,
@@ -133,7 +138,7 @@ def train(
     waveform-gradient step NaNs the decoder), then AdamW as optax.adamw."""
     check_dtype(model.config.dtype)
     dev = model_device(model)
-    replicas = Replicas(model, mesh)  # raises for a 'model' axis above 1
+    replicas = Replicas(model, mesh)
     master = replicas.master
     n_data = len(replicas.models)
     if mesh is not None:

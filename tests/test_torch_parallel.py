@@ -160,17 +160,6 @@ def test_shardings_place_rows_and_replicas():
             torch.testing.assert_close(p, q, rtol=0, atol=0)
 
 
-def test_model_axis_raises():
-    mesh = cpu_mesh(2, 2)
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        Synthesizer(config=port_config(), mesh=mesh, **BUCKETS)
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        port_mesh.shard_params(KokoroModel(port_config()), mesh)
-    with pytest.raises(NotImplementedError, match="'model' axis"):
-        port_mesh.NamedSharding(mesh, port_mesh.P(None, "model")).place(
-            torch.zeros(4, 2))
-
-
 # ---- serving ------------------------------------------------------------------
 
 @pytest.fixture(scope="module")

@@ -512,15 +512,17 @@ def test_tables_made_while_serving_enter_a_training_graph():
 
 
 def test_train_with_a_mesh_raises():
-    """A mesh whose 'model' axis exceeds 1 (tensor-parallel compute) is not
-    ported: ``train`` raises; a 'data' mesh trains
-    (``tests/test_torch_parallel.py``)."""
+    """A mesh whose 'model' axis does not divide a split dimension (the
+    decoder's 1090-channel pool at 4) raises ValueError before any step,
+    as JAX's ``shard_params`` does; 'data' and 'model' meshes that divide
+    train (``tests/test_torch_parallel.py``,
+    ``tests/test_torch_tensor_parallel.py``)."""
     from illufly_tts_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(n_data=1, n_model=2,
-                     devices=[torch.device("cpu")] * 2)
+    mesh = make_mesh(n_data=1, n_model=4,
+                     devices=[torch.device("cpu")] * 4)
     model = KokoroModel(port_config())
-    with pytest.raises(NotImplementedError, match="'model' axis"):
+    with pytest.raises(ValueError, match="divisible by 4"):
         loop.train(model, steps=1, batch_size=1, tokens=8, frames=8,
                    mesh=mesh)
 

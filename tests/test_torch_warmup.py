@@ -166,7 +166,10 @@ def test_warmup_staged_pins_then_restores_as_jax(narrow, jax_synth,
     s = _port()
     pri_s, thread = s.warmup_staged(defer_background=120.0, **kw)
     assert pri_s > 0.0 and set(s.last_warmup_phases) == {
-        "capture_s", "first_run_s"}
+        "capture_s", "first_run_s", "aot_s", "load_exec_s"}
+    phases = s.last_warmup_phases
+    assert phases["aot_s"] == round(phases["capture_s"], 1)
+    assert phases["load_exec_s"] == round(phases["first_run_s"], 1)
     assert _inventory(s) == jax_pinned == ((2,), (32,), (64,))
     assert set(s._graphs) == {(2, 32), (2, 32, 64, "pcm16")}
     assert "__warmup__" not in s._voices
