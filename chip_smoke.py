@@ -107,7 +107,9 @@ From the root of a checkout. It
 12. warms the engine as CUDA graphs (``Synthesizer.warmup``), under cuDNN's
    deterministic algorithms: phase 4's engine captures phase 4's three keys
    in the four formats (3 stage-A and 12 stage-B graphs; each capture's
-   seconds, the allocator's growth and the graph pool's bytes printed),
+   seconds, the allocator's growth and the graph pool's bytes printed; a
+   call that brings a larger key rebuilds the pool, its keys and lock time
+   printed),
    then serves the same requests again: every key replays, the audio is
    bitwise equal to the
    same engine's eager render before the warmup, the launches are exact with
@@ -153,7 +155,8 @@ From the root of a checkout. It
    one-device step on the same batch (phase 10's loss tolerances; each
    weight's update within two steps of lr, at most 1% of entries off by
    1e-3 lr: Adam's first step is the gradient's sign), then a step after a
-   resume; a bfloat16 ``train`` on float32 masters (B=2, 2 steps), step 0
+   resume; a bfloat16 ``train`` whose float32 master starts from the
+   float32 weights (``master=``; B=2, 2 steps), step 0
    against the CPU's bf16 step; every Generator pass launching each kernel
    once per replica, and each kernel held against its plain version at the
    replicas' shapes.
@@ -174,13 +177,25 @@ From the root of a checkout. It
    information); ``train(mesh=<1 x 2>)`` step 0 against one device (each
    loss within 1e-5 relative, phase 13's update check) and a bf16 step;
    then each kernel against its plain version at the shapes the shards
-   gave it.
+   gave it;
+15. measures the graph pool (``pool_phase``; ``scripts/graph_pool.py``
+   runs it alone, on any checkout's engine), under deterministic cuDNN: a
+   fresh engine's ``warmup()`` with the JAX engine's default arguments (4
+   stage-A and 48 stage-B keys; each capture's growth in capture order,
+   the pool's bytes, the wall time; a B=1 and a B=4 request replayed
+   bitwise equal to their eager renders with exact launches), then two
+   windowed streams' first use on it, at (4, 256, 4096) and (1, 32, 1024)
+   (each stream key's growth); and the largest key captured alone in a
+   fresh engine beside its stage run eagerly and captured by hand from an
+   emptied cache (allocated peak, reserved growth, segments).
 
 It prints a ``{"kernels": [...]}`` JSON line (each kernel's launches per
 phase; ``launches_replayed``: those of phase 12's batch replays;
 ``launches_stream_replayed``: those of its replayed windowed streams;
 ``launches_mesh``: those of phase 13; ``launches_tp``: those of phase 14;
-``split_shapes``: the convs at phase 14's split shapes) and, last,
+``launches_pool``: those of phase 15's two replays;
+``split_shapes``: the convs at phase 14's split shapes), each phase's
+summary as a JSON line (phase 15's ``{"pool": ...}``) and, last,
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line;
 so does a host without CUDA, or a directory without the port's package.
@@ -255,6 +270,14 @@ ZH = "ni→xau↓ma, tsʰɤ↘ʂɨ↘i↗kɤ↘tʰəst."
 MIXED = "tʰjɛn→tʃʰi↘tʃən→pu↗tsʰwo↘. hello wɝld."
 EN = "ðɪs ɪz ə smˈoʊk tˈɛst ʌv ðə pˈɔɹt."
 FORMATS = ("pcm16", "f32", "mulaw8k", "mulaw24k")
+# the three requests of phase 4 on: latency (B=1), mixed (B=4), throughput
+# (B=8, T 256, F 4096)
+REQUESTS = {
+    "zh_1": [ZH],
+    "mixed_4": [ZH, MIXED, EN, ZH + " " + EN],
+    "long_8": [" ".join([ZH, MIXED, ZH, MIXED, ZH]),
+               " ".join([EN, MIXED, EN, ZH])] * 4,
+}
 STREAM_WINDOW, STREAM_HALO = 64, 16   # model frames
 
 # phase 7, text in: the scheduler's tasks as (user, sequence_id, text,
@@ -2312,6 +2335,7 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
     out["captures"], out["warmup_s"] = [], {}
     for name, (b, t, f) in keys.items():
         before = set(synth._graphs)
+        rebuilt = synth.last_recapture
         out["warmup_s"][name] = synth.warmup(
             batch_sizes=(b,), token_sizes=(t,), frame_sizes=(f,),
             formats=FORMATS, narrow=False)
@@ -2327,6 +2351,15 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
                 f"capture {g.lock_s:.3f} s; {len(g.launches)} kernels, "
                 f"{sum(g.launches.values())} launches a replay; "
                 f"{memory_growth(g.memory)}")
+        if synth.last_recapture is not rebuilt:
+            rebuilt = synth.last_recapture
+            out.setdefault("recaptures", {})[name] = {
+                "keys": [list(k) for k in rebuilt["keys"]],
+                "lock_s": rebuilt["lock_s"]}
+            log(f"  the pool was rebuilt for {name}'s larger keys: "
+                f"{len(rebuilt['keys'])} graphs captured again, largest "
+                f"first ({rebuilt['keys'][:3]} ...), the lock held "
+                f"{rebuilt['lock_s']:.2f} s")
         log(f"warmup {name} (B={b}, T={t}, F={f}, {len(FORMATS)} formats): "
             f"{out['warmup_s'][name]:.2f} s; graph pool reserved "
             f"{(pool or 0) / 2**30:.2f} GiB (None: {pool is None}), all "
@@ -2337,6 +2370,14 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
     check(f"{len(batch_keys)} batch graphs, want 3 stage A + 12 stage B",
           len(batch_keys) == 3 + 3 * len(FORMATS))
     out["pool_reserved_bytes"] = pool_bytes(torch, synth._graph_pool)
+    # the last call rebuilt the pool largest first: the other keys fit in
+    # the blocks of its largest capture
+    largest = max(g.memory["after"]["reserved_bytes"]
+                  - g.memory["before"]["reserved_bytes"]
+                  for g in synth._graphs.values() if g.memory)
+    check(f"the pool ({out['pool_reserved_bytes']} bytes) exceeds 1.05x its "
+          f"largest capture's growth ({largest})",
+          (out["pool_reserved_bytes"] or 0) <= 1.05 * largest)
 
     # -- the same requests replayed: bitwise, exact launches, replay counts
     reset_counts()
@@ -3120,8 +3161,9 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
         for i, c in enumerate(again):
             check(f"windowed chunk {i} finite, not silent",
                   np.isfinite(c).all() and float(np.abs(c).max()) > 1e-4)
+        pools = [pool_bytes(torch, rep._graph_pool) for rep in e2._replicas]
         out["graphs"] = {"warmup_s": warm_s, "keys": [list(k) for k in keys],
-                         "stream_chunks": len(again),
+                         "pool_bytes": pools, "stream_chunks": len(again),
                          "stream_first_use_ms": streams["first use"][1],
                          "stream_replayed_ms": streams["replayed"][1]}
         log(f"phase 13: warmup of mixed_4's key on 2 replicas in {warm_s:.2f}"
@@ -3129,7 +3171,7 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
             f"(F {streams['replayed'][2]}): {len(again)} chunks, first use "
             f"{streams['first use'][1]:.1f} ms, replayed "
             f"{streams['replayed'][1]:.1f} ms, bitwise the one-device "
-            f"engine's ({card})")
+            f"engine's; pool bytes per replica {pools} ({card})")
 
         # -- text in: the scheduler and create_app over TTSPipeline(mesh=)
         pipe = frozen_frontend(CachedTTSPipeline)(mesh=mesh2)
@@ -3295,7 +3337,7 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
         small = [tstep.TrainBatch(*(t[:2] for t in b)) for b in data]
         reset_counts()
         m16 = compute_copy(init, torch.bfloat16, dev)
-        master16, seen16 = run(m16, small)
+        master16, seen16 = run(m16, small, master=init)
         got16 = bf16_counts()
         want16 = {"istft_head_bf16": 2,
                   **{n: conv_per_generator * 2 for n in BF16_CONV}}
@@ -3333,7 +3375,8 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
                                            "audio_loss": a16},
         "cpu_f32": {"dur_loss": d32, "audio_loss": a32},
         "cpu_mean_abs_bf16_minus_f32_audio": spread, "launches": got16}
-    log(f"phase 13: bf16 train() on float32 masters, B=2, 2 steps: losses "
+    log(f"phase 13: bf16 train() on a float32 master from the float32 "
+        f"weights, B=2, 2 steps: losses "
         f"{out['bf16_training']['losses']}; step 0 card vs CPU bf16: "
         f"dur_loss {card16['dur_loss']:.5f} vs {d16:.5f} (CPU f32 {d32:.5f}),"
         f" audio_loss {card16['audio_loss']:.5f} vs {a16:.5f} (CPU f32 "
@@ -3753,7 +3796,7 @@ def tp_phase(torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa,
         small = tstep.TrainBatch(*(t[:2] for t in data))
         reset_counts()
         m16 = compute_copy(init, torch.bfloat16, dev)
-        master16, seen16 = run(m16, small, mesh=mesh12)
+        master16, seen16 = run(m16, small, mesh=mesh12, master=init)
         counted("bf16 train(mesh=1x2), B=2", 1, 1, bf16=True)
         check("bf16 1x2 step: finite loss, float32 master",
               math.isfinite(seen16["loss"]) and all(
@@ -3788,6 +3831,251 @@ def tp_phase(torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa,
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"phase 14 in {out['phase_s']:.1f} s")
     return out, launches, launches16, rows
+
+
+# phase 15: the graph pool. The largest key of ``warmup()``'s defaults
+# (B 1 and 4, T 64 and 256, every frame bucket, pcm16), and a smaller
+# request of them (B=1, T 64) besides long_8's first four texts (B=4, T
+# 256, F 4096)
+POOL_LARGEST = (4, 256, 4096, "pcm16")
+# the pool of that inventory against the largest key's captured alone, and
+# a first-use stream key's growth of a pool warmed at or above its (B, F)
+POOL_OVER_LARGEST = 1.15
+STREAM_KEY_GROWTH = 64 * 2 ** 20
+
+
+def pool_phase(torch, np, cfg, requests, card, failures):
+    """Phase 15: the graph pool's size, under deterministic cuDNN. (a) a
+    fresh engine's ``warmup()`` with the JAX engine's default arguments:
+    each capture's growth in capture order, the pool's bytes, the wall
+    time, and two requests of warmed keys replayed bitwise equal to their
+    eager renders before the warmup, with exact launches; (c) then two
+    windowed streams' first use on that engine, at (4, 256, 4096) and at
+    zh_1's (1, 32, 1024) (a replayed zh_1 stream bitwise its first use),
+    with each stream key's growth; (b) ``POOL_LARGEST`` captured alone in
+    a fresh engine, beside the same stage run eagerly and captured by hand
+    from an emptied cache: the allocated peak, the reserved growth and the
+    segments of each. Runs on any checkout's engine
+    (``scripts/graph_pool.py --package-root``). -> summary."""
+    from illufly_tts_tpu_torch.engine.synthesizer import (
+        Synthesizer,
+        stage_kind,
+    )
+    from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
+    from illufly_tts_tpu_torch.ops import istft_oa as oa
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "cudnn_deterministic": True}
+    torch.backends.cudnn.deterministic = True
+    net = cfg.istftnet
+    conv_per_generator = len(net.upsample_rates) * (
+        3 + sum(len(d) for d in net.resblock_dilation_sizes))
+    mib = 2 ** 20
+
+    def check(label, ok):
+        if not ok:
+            failures.append(f"phase 15: {label}")
+        return ok
+
+    def launches():
+        return {"istft_oa": oa.launches, "istft_head_bf16": oa.launches_bf16,
+                **asc.launches, **asc.launches_bf16}
+
+    def growth(memory):
+        if "before" not in memory:
+            return None
+        return {key: memory["after"][key] - memory["before"][key]
+                for key in ("reserved_bytes", "allocated_bytes", "segments")}
+
+    def pool_segments(pool):
+        return sorted((seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                       if tuple(seg.get("segment_pool_id", ())) == tuple(pool)),
+                      reverse=True)
+
+    # -- (a) warmup() with the JAX engine's default arguments
+    torch.cuda.empty_cache()
+    synth = Synthesizer(cfg, seed=0)
+    synth.register_random_voice("smoke_voice", seed=0)
+    probes = {"b1": [MIXED], "b4": requests["long_8"][:4]}
+    eager, keys = {}, {}
+    for name, texts in probes.items():
+        h = synth.dispatch(texts, ["smoke_voice"] * len(texts), fmt="pcm16")
+        eager[name] = synth.collect(h)
+        keys[name] = (h.b_bucket, h.t_bucket, h.f_bucket, "pcm16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    synth.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    n_a = sum(stage_kind(k) == "a" for k in synth._graphs)
+    check(f"warmup(): {n_a} stage-A and {len(synth._graphs) - n_a} stage-B "
+          "graphs, want 4 and 48", (n_a, len(synth._graphs)) == (4, 52))
+    captures = [{"key": list(k), "capture_s": g.lock_s, "warm_pass_s": g.warm_s,
+                 "growth": growth(g.memory)} for k, g in synth._graphs.items()]
+    pool = pool_bytes(torch, synth._graph_pool)
+    grew = [c for c in captures
+            if c["growth"] and c["growth"]["reserved_bytes"]]
+    out["default_warmup"] = {
+        "seconds": warm_s, "pool_bytes": pool, "captures": captures,
+        "capture_order": [c["key"] for c in captures],
+        "reserved_bytes": torch.cuda.memory_reserved(),
+        "recapture": getattr(synth, "last_recapture", None)}
+    log(f"phase 15 (a): warmup() with the JAX defaults on a fresh engine: "
+        f"{len(captures)} graphs in {warm_s:.2f} s, captured in the order "
+        f"{[tuple(c['key']) for c in captures[:3]]} ...; pool "
+        f"{(pool or 0) / mib:.0f} MiB, {len(grew)} captures grew it: "
+        + "; ".join(f"{tuple(c['key'])} +{c['growth']['reserved_bytes'] / mib:.0f}"
+                    f" MiB ({c['growth']['segments']} segments)" for c in grew)
+        + f"; all reserved {torch.cuda.memory_reserved() / mib:.0f} MiB "
+        f"({card})")
+    out["launches"] = {}  # of the two replays, by kernel
+    for name, texts in probes.items():
+        reset = dict(synth.graph_replays)
+        for table in (asc.launches, asc.launches_bf16):
+            for kernel in table:
+                table[kernel] = 0
+        oa.launches = oa.launches_bf16 = 0
+        got = synth.collect(synth.dispatch(texts, ["smoke_voice"] * len(texts),
+                                           fmt="pcm16"))
+        want = {name_: 0 for name_ in launches()}
+        want.update({"istft_oa": 1, "adain_snake_conv": conv_per_generator,
+                     "adain_snake_conv_carry": conv_per_generator})
+        grown = {k: n - reset.get(k, 0)
+                 for k, n in synth.graph_replays.items() if n != reset.get(k, 0)}
+        out[f"replay_{name}"] = {
+            "key": list(keys[name]), "replays": {str(k): n for k, n in grown.items()},
+            "bitwise_equal": check(
+                f"{name} {keys[name]}: the replay differs from its eager "
+                "render", len(got) == len(eager[name]) and all(
+                    a.tobytes() == b.tobytes() for a, b in zip(got, eager[name]))),
+            "launches": launches()}
+        check(f"{name}: launches {launches()}, want {want}", launches() == want)
+        for kernel, n in launches().items():
+            out["launches"][kernel] = out["launches"].get(kernel, 0) + n
+        check(f"{name}: replays {grown}, want stage A and {keys[name]} once",
+              grown.get(keys[name]) == 1 and grown.get(keys[name][:2]) == 1)
+    log(f"phase 15 (a): {', '.join(f'{n} {keys[n]}' for n in probes)} "
+        f"replayed bitwise equal to their eager renders: "
+        f"{[out[f'replay_{n}']['bitwise_equal'] for n in probes]}, exact "
+        f"launches")
+
+    # -- (c) first-use windowed streams on the warmed engine
+    out["stream_first_use"] = {}
+    for name, texts in (("b4_f4096", requests["long_8"][:4]),
+                        ("zh_1", requests["zh_1"])):
+        h = synth.dispatch(texts, ["smoke_voice"] * len(texts), fmt="f32")
+
+        def run(h=h):
+            gen = synth.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
+                                      exact=False)
+            chunks = list(gen) if len(texts) == 1 else [next(gen)]
+            gen.close()
+            return chunks
+
+        chunks, use = first_use(synth, run, f"phase 15 (c) windowed {name}",
+                                card)
+        check(f"windowed {name}: chunks finite", all(
+            np.isfinite(c).all() for c in chunks))
+        use["growth"] = {key: growth(v) for key, v in use["keys"].items()}
+        check(f"windowed {name}: a first-use key grew the pool past "
+              f"{STREAM_KEY_GROWTH // mib} MiB: {use['growth']}", all(
+                  g["reserved_bytes"] <= STREAM_KEY_GROWTH
+                  for g in use["growth"].values() if g))
+        use["bucket"] = [h.b_bucket, h.t_bucket, h.f_bucket]
+        out["stream_first_use"][name] = use
+        log(f"phase 15 (c): windowed {name} {tuple(use['bucket'])} at first "
+            f"use after the warmup: " + "; ".join(
+                f"{key} +{g['reserved_bytes'] / mib:.0f} MiB in "
+                f"{g['segments']} segments" for key, g in use["growth"].items()
+                if g) + f" ({card})")
+        if len(texts) == 1:
+            again = list(synth.stream_decode(synth.dispatch(
+                texts, ["smoke_voice"], fmt="f32"), STREAM_WINDOW,
+                STREAM_HALO, exact=False))
+            check("windowed zh_1: the replayed stream differs from its first "
+                  "use", len(again) == len(chunks) and all(
+                      a.tobytes() == b.tobytes() for a, b in zip(again, chunks)))
+    out["pool_bytes_after_streams"] = pool_bytes(torch, synth._graph_pool)
+    del synth
+    torch.cuda.empty_cache()
+
+    # -- (b) the largest key alone; its stage eager and captured by hand
+    engine = Synthesizer(cfg, seed=0)
+    b, t, f, fmt = POOL_LARGEST
+    ids, mask, ref, speed = engine._zero_inputs(b, t)
+    with torch.inference_mode():
+        d, pred_dur, _ = engine._stage_a(ids, mask, ref, speed)
+    inputs = (ids, mask, d, pred_dur, ref, torch.ones((b,), device="cuda"))
+    fn = engine._stage_fn(POOL_LARGEST)
+
+    def measured(run):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_stats()
+        result = run()
+        torch.cuda.synchronize()
+        after = torch.cuda.memory_stats()
+        row = {key: after[f"{key}.all.current"] - before[f"{key}.all.current"]
+               for key in ("reserved_bytes", "allocated_bytes", "segment")}
+        row["allocated_peak"] = (after["allocated_bytes.all.peak"]
+                                 - before["allocated_bytes.all.current"])
+        row["requested_peak"] = (
+            after.get("requested_bytes.all.peak", 0)
+            - before.get("requested_bytes.all.current", 0))
+        row["inactive_split_bytes"] = after["inactive_split_bytes.all.current"]
+        row["alloc_retries"] = after["num_alloc_retries"]
+        return result, row
+
+    with torch.inference_mode():
+        fn(*inputs)  # builds, tables
+        _, eager_row = measured(lambda: fn(*inputs))
+        by_hand = torch.cuda.CUDAGraph()
+        hand_pool = torch.cuda.graph_pool_handle()
+
+        def capture():
+            with torch.cuda.graph(by_hand, pool=hand_pool,
+                                  capture_error_mode="thread_local"):
+                return fn(*inputs)
+
+        held, hand_row = measured(capture)
+        hand_row["pool_segments"] = pool_segments(hand_pool)
+        del held, by_hand
+    torch.cuda.empty_cache()
+    engine.compile_stage_b(b, t, f, fmt)
+    alone = growth(engine._graphs[POOL_LARGEST].memory)
+    alone["pool_bytes"] = pool_bytes(torch, engine._graph_pool)
+    alone["pool_segments"] = pool_segments(engine._graph_pool)
+    out["largest_alone"] = {"key": list(POOL_LARGEST), "engine": alone,
+                            "eager": eager_row, "captured_by_hand": hand_row}
+    log(f"phase 15 (b): {POOL_LARGEST} captured alone: +"
+        f"{alone['reserved_bytes'] / mib:.0f} MiB in {alone['segments']} "
+        f"segments (pool {(alone['pool_bytes'] or 0) / mib:.0f} MiB); its "
+        f"stage eager from an emptied cache: allocated peak "
+        f"{eager_row['allocated_peak'] / mib:.0f} MiB, reserved +"
+        f"{eager_row['reserved_bytes'] / mib:.0f} MiB in "
+        f"{eager_row['segment']} segments; captured by hand: allocated peak "
+        f"{hand_row['allocated_peak'] / mib:.0f} MiB, reserved +"
+        f"{hand_row['reserved_bytes'] / mib:.0f} MiB in "
+        f"{hand_row['segment']} segments ({card})")
+    log(f"phase 15 (b): segments MiB, engine pool "
+        f"{[round(x / mib) for x in alone['pool_segments']]}; by hand "
+        f"{[round(x / mib) for x in hand_row['pool_segments']]}; inactive "
+        f"split MiB eager {eager_row['inactive_split_bytes'] / mib:.0f}, by "
+        f"hand {hand_row['inactive_split_bytes'] / mib:.0f}")
+    default = out["default_warmup"]["pool_bytes"] or 0
+    out["default_over_largest"] = default / max(alone["reserved_bytes"], 1)
+    check(f"the default inventory's pool is {out['default_over_largest']}x "
+          f"the largest key's alone, want <= {POOL_OVER_LARGEST}",
+          out["default_over_largest"] <= POOL_OVER_LARGEST)
+    log(f"phase 15: the default inventory's pool is "
+        f"{out['default_over_largest']:.3f}x the largest key's alone")
+    del engine, fn, inputs
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"phase 15 in {out['seconds']:.1f} s ({card})")
+    return out
 
 
 def main() -> None:
@@ -3905,13 +4193,7 @@ def main() -> None:
     net = cfg.istftnet
     conv_per_generator = len(net.upsample_rates) * (
         3 + sum(len(d) for d in net.resblock_dilation_sizes))  # 24
-    long_zh = " ".join([ZH, MIXED, ZH, MIXED, ZH])
-    long_en = " ".join([EN, MIXED, EN, ZH])
-    requests = {
-        "zh_1": [ZH],
-        "mixed_4": [ZH, MIXED, EN, ZH + " " + EN],
-        "long_8": [long_zh, long_en] * 4,
-    }
+    requests = REQUESTS
     failures = []
     conv_shapes, head_shapes = record_shapes(layers, vocoder, asc, oa)
 
@@ -4192,6 +4474,9 @@ def main() -> None:
         conv_per_generator, card, failures, reset_counts, check_wave,
         torch.device("cuda", 0))
 
+    # ---- 15. the graph pool ---------------------------------------------------
+    pool = pool_phase(torch, np, cfg, requests, card, failures)
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -4296,6 +4581,8 @@ def main() -> None:
         # shards (f32 forms), a bf16 request and step (bf16 forms); the
         # convs' times at the split shapes C_in -> C_in / 2
         row["launches_tp"] = {**tp_launches, **tp_bf16}[row["name"]]
+        # phase 15: the two replays of the default inventory's keys
+        row["launches_pool"] = pool["launches"][row["name"]]
         split = tp_rows.get(row["name"])
         if split:
             row["split_shapes"] = split
@@ -4315,6 +4602,7 @@ def main() -> None:
     log(json.dumps({"graphs": graphs}))
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"tensor_parallel": tp}))
+    log(json.dumps({"pool": pool}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

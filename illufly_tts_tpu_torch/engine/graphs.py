@@ -20,7 +20,11 @@ A ``StageGraph`` is
   cuBLAS workspace of that stream;
 - **the graph**, captured on that stream into the one memory pool all of
   the replica's graphs share (a private pool per graph would hold the
-  largest stage's intermediates once per key), under the engine's lock;
+  largest stage's intermediates once per key), under the engine's lock.
+  ``capture`` also captures it again, on the same static inputs and with
+  no warm pass, into a new pool: the engine rebuilds a replica's pool
+  largest key first when a warmup brings a key larger than every key the
+  pool holds (``engine/synthesizer.py::_Replica._warm``);
 - **its outputs**, which each run clones before the lock is released: the
   next replay of any graph in the shared pool may reuse their memory;
 - **its launches** of each hand-written kernel, which the capture tallied
@@ -38,7 +42,7 @@ warmed keys and their bookkeeping work the same there.
 """
 from __future__ import annotations
 
-import threading
+import os
 import time
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -59,6 +63,27 @@ def add_launches(tally: Dict[str, int], times: int = 1) -> None:
             asc.count_launch(name, n * times)
 
 
+_EXPANDABLE = False  # set once per process
+
+
+def expandable_segments() -> None:
+    """Let the CUDA caching allocator grow a segment in place
+    (``expandable_segments``) instead of adding a fixed segment for each
+    request that no free block holds, segments that never merge: a stage
+    then reserves about its allocated peak, captured into a pool as run
+    eagerly (1.07x where fixed segments reserved 1.43x, PERF.md §6). Once
+    per process, from the first engine on a card, unless
+    ``PYTORCH_CUDA_ALLOC_CONF`` names the option; segments made before
+    keep their kind."""
+    global _EXPANDABLE
+    if _EXPANDABLE:
+        return
+    _EXPANDABLE = True
+    if "expandable_segments" not in os.environ.get("PYTORCH_CUDA_ALLOC_CONF",
+                                                   ""):
+        torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+
+
 def allocator_state(device) -> Dict[str, int]:
     """The caching allocator's reserved and allocated bytes and its
     segment count on ``device``, all pools together."""
@@ -74,16 +99,13 @@ class StageGraph:
     on the host from its inputs' values)."""
 
     def __init__(self, fn: Callable, inputs: Sequence[torch.Tensor],
-                 pool=None, stream: Optional[torch.cuda.Stream] = None,
-                 lock: Optional[threading.Lock] = None,
+                 stream: Optional[torch.cuda.Stream] = None,
                  cpu_pass: bool = True):
-        """Warm ``fn`` once on ``inputs``, then (on CUDA) capture it on
-        ``stream`` into ``pool`` while holding ``lock``. A capture that
-        fails raises. On the CPU the warm pass runs only with
-        ``cpu_pass`` (a key captured at its first use runs at once
-        anyway)."""
+        """Warm ``fn`` once on ``inputs``: on CUDA on ``stream``, on static
+        copies of them, then ``capture``; on the CPU only with ``cpu_pass``
+        (a key captured at its first use runs at once anyway)."""
         self.fn = fn
-        self.graph = None
+        self.graph = self.outputs = self.static = None
         self.launches: Dict[str, int] = {}
         self.lock_s = 0.0  # seconds the capture held the lock
         self.memory: Dict[str, Dict[str, int]] = {}
@@ -94,6 +116,7 @@ class StageGraph:
             self.warm_s = time.perf_counter() - t0
             return
         self.device = device = inputs[0].device
+        self.stream = stream
         # every step on the inputs' device (the kernels' C launches and the
         # capture work on the runtime's current one)
         with torch.cuda.device(device):
@@ -105,18 +128,35 @@ class StageGraph:
             # synchronizing the device, which would otherwise wait for this
             # pass with the lock
             stream.synchronize()
-            self.warm_s = time.perf_counter() - t0
-            graph = torch.cuda.CUDAGraph()
-            with lock:
-                t0 = time.perf_counter()
-                torch.cuda.empty_cache()  # as the capture's start does
-                self.memory["before"] = allocator_state(device)
-                with captured() as tally, torch.cuda.graph(
-                        graph, pool=pool, stream=stream,
-                        capture_error_mode="thread_local"):
-                    outputs = tuple(fn(*self.static))
-                self.memory["after"] = allocator_state(device)
-                self.lock_s = time.perf_counter() - t0
+        self.warm_s = time.perf_counter() - t0
+
+    def release(self) -> None:
+        """Drop the graph and its outputs: their blocks go back to the
+        pool, which returns to the device once no graph uses it (at the
+        next ``torch.cuda.empty_cache``)."""
+        self.graph = self.outputs = None
+
+    def capture(self, pool) -> None:
+        """Capture the stage into ``pool`` on its static inputs, replacing
+        the graph it held (a re-capture into a rebuilt pool): no warm pass
+        again, since the first made what a capture may not. Records the
+        capture's seconds (``lock_s``), the allocator's state and the
+        launch tally. A capture that fails raises. Hold the engine's
+        lock. On the CPU there is nothing to capture."""
+        if self.static is None:
+            return
+        self.release()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()  # as the capture's start does
+            self.memory["before"] = allocator_state(self.device)
+            with captured() as tally, torch.cuda.graph(
+                    graph, pool=pool, stream=self.stream,
+                    capture_error_mode="thread_local"):
+                outputs = tuple(self.fn(*self.static))
+            self.memory["after"] = allocator_state(self.device)
+            self.lock_s = time.perf_counter() - t0
         self.graph, self.outputs, self.launches = graph, outputs, tally
 
     def run(self, inputs: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:

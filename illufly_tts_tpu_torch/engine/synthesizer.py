@@ -27,6 +27,18 @@ the prepare per ``("prep", batch, tokens, frames)``, the window per
 ``("win", batch, frames, window, halo)`` (generator frames), one graph for
 every window position. ``load_params`` drops every graph.
 
+A replica's graphs share one memory pool, which keeps its blocks while the
+graphs live; a capture reuses the pool's free blocks and grows the pool
+only for what they cannot hold. So the pool is held at about the largest
+key's footprint (``footprint``), as a compiled XLA program holds code and
+not its working set: ``warmup`` captures largest first, and a warmup that
+brings a key larger than every key the pool holds drops the pool and
+captures the union again, largest first (``_Replica._warm``). A stream key
+captured at its first use goes into the pool as it stands. An engine on a
+card makes the allocator's segments expandable
+(``graphs.expandable_segments``), so that a key's capture reserves about
+its allocated peak.
+
 Data parallelism (``mesh``, ``parallel/mesh.py``) runs as the JAX engine's
 mesh does, from one process: one replica (``_Replica``: a compute model,
 its graphs, capture stream and pool) per 'data' device, the engine itself
@@ -84,7 +96,7 @@ from ..model.params import (
 from ..model.vocab import encode as encode_phonemes
 from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
 from ..parallel.mesh import make_mesh, shard_params
-from .graphs import StageGraph
+from .graphs import StageGraph, expandable_segments
 
 logger = logging.getLogger(__name__)
 
@@ -180,6 +192,29 @@ def stage_kind(key: tuple) -> str:
     return "a" if len(key) == 2 else "b"
 
 
+def footprint(key: tuple) -> tuple:
+    """A serving key's size in the order a replica's pool is built in:
+    first the model frames its stage runs through the Generator, which
+    holds most of a stage's memory (stage B: batch x frames; a window:
+    batch x its window and halos), then the frames it runs before the
+    Generator (stage B and the stream's prepare: batch x frames), then its
+    tokens (stage B and the prepare: tokens; stage A: batch x tokens).
+    Larger first is stage B in descending batch x frames, then tokens;
+    stage A in descending batch x tokens, after every other stage."""
+    kind = stage_kind(key)
+    if kind == "a":
+        batch, tokens = key
+        return (0, 0, batch * tokens)
+    if kind == "win":  # generator frames, 2 per model frame
+        _, batch, _, window, halo = key
+        return (batch * (window + 2 * halo) // 2, 0, 0)
+    if kind == "prep":
+        _, batch, tokens, frames = key
+        return (0, batch * frames, tokens)
+    batch, tokens, frames = key[:3]
+    return (batch * frames, batch * frames, tokens)
+
+
 def resolve_device(device=None) -> torch.device:
     """``device`` or CUDA; raises when CUDA is asked for and absent."""
     dev = torch.device(device if device is not None else "cuda")
@@ -216,6 +251,9 @@ class _Replica:
         self._graph_lock = lock
         self._first_use_lock = threading.Lock()
         self.graph_replays: Counter = Counter()  # key -> replays
+        # the last rebuild of the pool by ``_warm``: its keys in capture
+        # order and the seconds it held the lock
+        self.last_recapture: Optional[Dict] = None
         self._graph_pool = self._capture_stream = None
         if device.type == "cuda":
             with torch.cuda.device(device):
@@ -301,11 +339,14 @@ class _Replica:
             self.graph_replays[key] += 1
         return out
 
-    def _capture(self, key: tuple, inputs, cpu_pass: bool = True
-                 ) -> StageGraph:
+    def _capture(self, key: tuple, inputs, cpu_pass: bool = True,
+                 capture: bool = True) -> StageGraph:
         """Warm and capture ``key``'s stage on ``inputs`` and serve the key
         from its graph from now on (on the CPU: one eager pass with
-        ``cpu_pass``, and the key is recorded). A compute model whose
+        ``cpu_pass``, and the key is recorded); the capture holds the
+        engine's lock and goes into the pool as it is then.
+        ``capture=False`` only warms: the key is neither captured nor
+        recorded (``_recapture`` does both). A compute model whose
         tensor-parallel shards span cards raises NotImplementedError."""
         spanned = {p.device for p in self.net.parameters()}
         if self.device.type == "cuda" and len(spanned) > 1:
@@ -316,10 +357,68 @@ class _Replica:
                 "only (ROADMAP §3)")
         with torch.inference_mode():
             graph = StageGraph(self._stage_fn(key), inputs,
-                               self._graph_pool, self._capture_stream,
-                               self._graph_lock, cpu_pass=cpu_pass)
-        self._graphs[key] = graph
+                               self._capture_stream, cpu_pass=cpu_pass)
+            if capture:
+                with self._graph_lock:
+                    graph.capture(self._graph_pool)
+                    self._graphs[key] = graph
         return graph
+
+    def _warm(self, keys: Sequence[tuple]) -> int:
+        """Capture the stage-A and stage-B ``keys`` not warmed yet, largest
+        first (``footprint``; equal ones in the given order), so that each
+        smaller key reuses the blocks the larger ones left free in the
+        pool. When the largest exceeds every key the pool holds, the pool
+        is rebuilt instead (``_recapture``). -> keys captured."""
+        new = sorted((k for k in dict.fromkeys(keys) if k not in self._graphs),
+                     key=footprint, reverse=True)
+        if not new:
+            return 0
+        held = max(map(footprint, self._graphs), default=None)
+        if held is None or footprint(new[0]) <= held:
+            for key in new:
+                self._capture_key(key)
+            return len(new)
+        # every warm pass first, outside the lock
+        self._recapture({key: self._capture(key, self._warm_inputs(key),
+                                            capture=False) for key in new})
+        return len(new)
+
+    def _recapture(self, fresh: Dict[tuple, StageGraph]) -> None:
+        """Rebuild the pool with the held keys and ``fresh`` (warmed, not
+        captured), all under the engine's lock: the held graphs are dropped
+        and the pool released before the first capture, so that the card
+        never holds the old pool and the new one; then every key is
+        captured into a new pool on its static inputs, largest first.
+        Replay counts carry over. A capture that fails raises, and the keys
+        left without a graph leave ``_graphs`` (they run eagerly, a stream
+        key is captured again at its next use)."""
+        with self._graph_lock:
+            t0 = time.perf_counter()
+            stages = {**self._graphs, **fresh}
+            for graph in self._graphs.values():
+                graph.release()
+            if self._graph_pool is not None:
+                with torch.cuda.device(self.device):
+                    torch.cuda.empty_cache()
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+            order = sorted(stages, key=footprint, reverse=True)
+            try:
+                with torch.inference_mode():
+                    for key in order:
+                        stages[key].capture(self._graph_pool)
+                        self._graphs[key] = stages[key]
+            except BaseException:
+                if self._graph_pool is not None:
+                    for key in [k for k, g in self._graphs.items()
+                                if g.graph is None]:
+                        del self._graphs[key]
+                raise
+            lock_s = time.perf_counter() - t0
+        self.last_recapture = {"keys": order, "lock_s": lock_s}
+        logger.info("pool on %s rebuilt for a larger key: %d graphs "
+                    "captured again, largest first, the lock held %.2fs: %s",
+                    self.device, len(order), lock_s, order)
 
     def _first_use(self, key: tuple, inputs) -> StageGraph:
         """A windowed-stream key's graph, captured on ``inputs`` if this is
@@ -343,38 +442,30 @@ class _Replica:
                 torch.zeros((batch, 2 * self.config.style_dim), device=dev),
                 torch.ones((batch,), device=dev))
 
-    def _compile_a(self, batch: int, tokens: int) -> float:
-        """Capture stage A at ``(batch, tokens)`` unless warmed; -> wall
-        seconds, logged (0 for a key warmed already)."""
-        if (batch, tokens) in self._graphs:
-            return 0.0
-        t0 = time.perf_counter()
-        graph = self._capture((batch, tokens),
-                              self._zero_inputs(batch, tokens))
-        dt = time.perf_counter() - t0
-        logger.info("stage A (b=%d, t=%d) on %s captured in %.2fs (lock "
-                    "held %.3fs)", batch, tokens, self.device, dt,
-                    graph.lock_s)
-        return dt
-
-    def _compile_b(self, batch: int, tokens: int, frames: int,
-                   fmt: str) -> float:
-        """Capture stage B at ``(batch, tokens, frames, fmt)`` unless
-        warmed, on inputs from an actual stage-A run; -> wall seconds,
-        logged."""
-        if (batch, tokens, frames, fmt) in self._graphs:
-            return 0.0
-        t0 = time.perf_counter()
+    def _warm_inputs(self, key: tuple):
+        """A stage-A or stage-B key's capture inputs: stage A's as the JAX
+        warmup makes them, stage B's from an actual stage-A run on
+        those."""
+        batch, tokens = key[:2]
         ids, mask, ref, speed = self._zero_inputs(batch, tokens)
+        if stage_kind(key) == "a":
+            return ids, mask, ref, speed
         with torch.inference_mode():
             d, pred_dur, _ = self._stage_a(ids, mask, ref, speed)
         pitch = torch.ones((batch,), device=self.device)
-        graph = self._capture((batch, tokens, frames, fmt),
-                              (ids, mask, d, pred_dur, ref, pitch))
+        return ids, mask, d, pred_dur, ref, pitch
+
+    def _capture_key(self, key: tuple) -> float:
+        """Capture a stage-A or stage-B key unless warmed; -> wall seconds,
+        logged (0 for a key warmed already)."""
+        if key in self._graphs:
+            return 0.0
+        t0 = time.perf_counter()
+        graph = self._capture(key, self._warm_inputs(key))
         dt = time.perf_counter() - t0
-        logger.info("stage B (b=%d, t=%d, f=%d, %s) on %s captured in "
-                    "%.2fs (lock held %.3fs)", batch, tokens, frames, fmt,
-                    self.device, dt, graph.lock_s)
+        logger.info("stage %s %s on %s captured in %.2fs (lock held "
+                    "%.3fs)", stage_kind(key).upper(), key, self.device, dt,
+                    graph.lock_s)
         return dt
 
 
@@ -411,6 +502,8 @@ class Synthesizer(_Replica):
                 raise ValueError(f"device {device} is not the mesh's first "
                                  f"device {first}")
             self.device = resolve_device(first)
+        if self.device.type == "cuda":
+            expandable_segments()
         self.config = config or KokoroConfig()
         check_dtype(self.config.dtype)
         with torch.device("meta"):
@@ -1037,7 +1130,8 @@ class Synthesizer(_Replica):
         here the serving key's graph), on every replica at its rows of the
         batch; -> wall seconds, logged (0 for a key warmed already)."""
         rows = self._rows(batch)
-        return sum(rep._compile_a(rows, tokens) for rep in self._replicas)
+        return sum(rep._capture_key((rows, tokens))
+                   for rep in self._replicas)
 
     def compile_stage_b(self, batch: int, tokens: int, frames: int,
                         fmt="pcm16") -> float:
@@ -1045,7 +1139,7 @@ class Synthesizer(_Replica):
         from an actual stage-A run, as the JAX method does, on every
         replica at its rows of the batch; -> wall seconds, logged."""
         fmt, rows = self._as_fmt(fmt), self._rows(batch)
-        return sum(rep._compile_b(rows, tokens, frames, fmt)
+        return sum(rep._capture_key((rows, tokens, frames, fmt))
                    for rep in self._replicas)
 
     def absorb_drain(self, batch: Optional[int] = None,
@@ -1122,10 +1216,18 @@ class Synthesizer(_Replica):
         running eagerly. The serving deployments (HTTP, MCP) use this.
 
         ``parallel`` is kept for the JAX engine's callers, whose stages
-        compile in parallel: the captures here run one at a time. Under a
-        mesh each replica captures its own keys, at its rows of each batch
-        size (the JAX engine's mesh branch compiles through
-        ``synthesize_batch`` instead, at the frame bucket its data gives)."""
+        compile in parallel: the captures here run one at a time, largest
+        first (stage B in descending batch x frames, then tokens, then
+        the order of ``formats``; then stage A in descending batch x
+        tokens), so that each smaller key reuses the pool's free blocks.
+        A warmup that brings a key larger than every key a replica's pool
+        holds rebuilds that pool under the engine's lock: the held graphs
+        are dropped and all of them captured again with the new ones,
+        largest first (``_Replica._recapture``; serving waits meanwhile).
+        Under a mesh each replica captures its own keys, at its rows of
+        each batch size, into its own pool (the JAX engine's mesh branch
+        compiles through ``synthesize_batch`` instead, at the frame bucket
+        its data gives)."""
         del parallel
         t0 = time.perf_counter()
         if narrow:
@@ -1136,17 +1238,14 @@ class Synthesizer(_Replica):
                 self.frame_buckets, frame_pref)
             self.batch_buckets = tuple(sorted(set(batch_sizes)))
         frames = tuple(frame_sizes or self.frame_buckets)
+        fmts = [self._as_fmt(fmt) for fmt in formats]
+        rows = [self._rows(b) for b in batch_sizes]
         keys = 0
-        for b in batch_sizes:
-            for t in token_sizes:
-                self.compile_stage_a(b, t)
-                keys += 1
-        for b in batch_sizes:
-            for t in token_sizes:
-                for f in frames:
-                    for fmt in formats:
-                        self.compile_stage_b(b, t, f, fmt)
-                        keys += 1
+        for rep in self._replicas:
+            keys += rep._warm(
+                [(b, t) for b in rows for t in token_sizes]
+                + [(b, t, f, fmt) for b in rows for t in token_sizes
+                   for f in frames for fmt in fmts])
         dt = time.perf_counter() - t0
         logger.info("warmup: %d graphs captured in %.1fs", keys, dt)
         if absorb:

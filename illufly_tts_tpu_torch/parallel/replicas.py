@@ -15,7 +15,10 @@ gradients. The port's counterpart is ``Replicas``:
   where the 'model' axis exceeds 1 (``parallel/tensor.py``). A float32
   model on one device is its own master and only replica: nothing is
   copied and the step is the plain one. A bfloat16 model is the first
-  replica on a 'data'-only mesh, and its master a float32 copy;
+  replica on a 'data'-only mesh, and its master float32: filled from the
+  float32 weights where the caller gives them (``master=``, as the JAX
+  trainer steps its float32 ``params``), else a copy of the model's own
+  (rounded to bfloat16 but for its float32 islands);
 - ``map``: a function of (model, batch) run on each replica's rows of the
   batch, its outputs gathered row-wise onto the master's device, so that a
   loss computed on them is the whole batch's and one ``backward`` reaches
@@ -33,7 +36,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from ..model.params import trainable_parameters
+from ..model.params import load_flax_params, trainable_parameters
 from .mesh import (
     Mesh,
     batch_sharding,
@@ -50,18 +53,30 @@ from .tensor import (
 
 
 class Replicas:
-    def __init__(self, model, mesh: Optional[Mesh] = None):
+    def __init__(self, model, mesh: Optional[Mesh] = None, master=None):
         """``model``: a ``KokoroModel`` (float32 or bfloat16) on the mesh's
-        first device; ``mesh``: None for ``model``'s device alone."""
+        first device; ``mesh``: None for ``model``'s device alone.
+        ``master``: the float32 weights a bfloat16 model's master starts
+        from, a float32 ``KokoroModel`` (copied) or a flax-layout tree;
+        every replica, ``model`` among them, then computes on them rounded.
+        None: the master is a copy of ``model``'s own weights. A float32
+        model is its own master and takes none (ValueError)."""
         home = next(model.parameters()).device
         self.mesh = mesh if mesh is not None else make_mesh(
             n_data=1, devices=[home])
         self.config = model.config
         self.dtype = model.config.dtype
         if self.dtype == torch.float32:
+            if master is not None:
+                raise ValueError("a float32 model is its own master: load "
+                                 "the weights into it instead")
             self.master = model
+        elif isinstance(master, torch.nn.Module):
+            self.master = compute_copy(master, torch.float32, home)
         else:
             self.master = compute_copy(model, torch.float32, home)
+            if master is not None:
+                load_flax_params(self.master, master)
         self.devices = self.mesh.data_devices
         self.models: List[torch.nn.Module] = [
             model if i == 0 and group == [home]
@@ -77,6 +92,8 @@ class Replicas:
             None if m is self.master else self._leaves(
                 m, [names[id(p)] for p in self.params])
             for m in self.models]
+        if master is not None:
+            self.sync()
 
     @staticmethod
     def _leaves(net, names) -> list:

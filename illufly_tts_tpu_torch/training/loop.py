@@ -9,8 +9,9 @@ any source, or through ``data_dir`` (``training/data.py``).
 
 The optimizer steps float32 master weights (``parallel/replicas.py``): a
 float32 model trains in place and is its own master; a bfloat16 model
-computes the steps in bfloat16, its float32 master is a copy, and the model
-is refreshed from it after every step. With a ``mesh`` one replica per
+computes the steps in bfloat16, its float32 master starts from the float32
+weights given as ``master`` (else from a copy of the model's own), and the
+model is refreshed from it after every step. With a ``mesh`` one replica per
 'data' index runs its rows of each batch, tensor-parallel over the index's
 row of devices where the 'model' axis exceeds 1; the loss is the whole
 batch's, and the replicas' gradients (a split leaf's shards concatenated)
@@ -115,11 +116,19 @@ def train(
     adversarial: bool = False,
     disc_lr: float = 2e-4,
     disc_kwargs: Optional[dict] = None,
+    master=None,
 ):
     """Run ``steps`` optimizer steps on ``model`` -> (the float32 master
     model, optimizer, metrics of the last step as floats). The master is
     ``model`` itself when it is float32; a bfloat16 ``model`` holds the
     master's weights rounded after every step. Checkpoints hold the master.
+
+    ``master``: for a bfloat16 ``model``, the float32 weights its master
+    starts from (a float32 ``KokoroModel`` or a flax-layout tree), as the
+    JAX ``train`` steps its float32 ``params`` and computes in bfloat16;
+    ``model`` is set to them rounded before the first step. None: the
+    master starts from ``model``'s own weights, already rounded to
+    bfloat16 (``Replicas``). A float32 ``model`` takes none.
 
     ``mesh`` (``parallel/mesh.py``): the batch size rounds up to a
     multiple of the 'data' axis, and a ``batches`` iterator whose batch
@@ -138,7 +147,7 @@ def train(
     waveform-gradient step NaNs the decoder), then AdamW as optax.adamw."""
     check_dtype(model.config.dtype)
     dev = model_device(model)
-    replicas = Replicas(model, mesh)
+    replicas = Replicas(model, mesh, master=master)
     master = replicas.master
     n_data = len(replicas.models)
     if mesh is not None:

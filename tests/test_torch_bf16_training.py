@@ -5,9 +5,11 @@ bfloat16 training, on the CPU.
 The JAX trainer keeps float32 parameters and computes in bfloat16 (flax's
 ``param_dtype``/``dtype``). The port steps float32 master weights
 (``parallel/replicas.py``) and computes on a bfloat16 copy. Both start from
-the JAX random init of ``small_config`` (the port's bfloat16 model holds it
-rounded, but for its float32 islands; its master is that, exactly) on the
-step-0 batch of ``tests/test_torch_training.py``.
+the JAX random init of ``small_config`` on the step-0 batch of
+``tests/test_torch_training.py``. Given those float32 weights
+(``train(..., master=)``), the port's master starts from them, as JAX's
+``params`` do; without them it starts from the bfloat16 model's own, which
+holds them rounded but for its float32 islands.
 
 Tolerances follow ``tests/test_torch_bf16.py``: the port's bfloat16
 against JAX's bfloat16 within twice JAX's own bfloat16-vs-float32 distance
@@ -212,6 +214,69 @@ def test_bf16_train_step_on_float32_masters(jax_side):
     for p, m in zip(model.parameters(), master.parameters()):
         torch.testing.assert_close(p, m.to(p.dtype), rtol=0, atol=0)
     after = leaves(export_flax_params(master))
+    opt = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(LR))
+    flat_p = ravel_pytree(params)[0]
+    updates = {}
+    for name in ("f32", "bf16"):
+        flat_g, unravel = ravel_pytree(j[name]["tree"])
+        upd, _ = opt.update(flat_g, opt.init(flat_p), flat_p)
+        updates[name] = _flat(leaves(unravel(upd))) / LR
+    ours = _flat({k: after[k] - before[k] for k in after}) / LR
+    n_ours = int((np.abs(ours - updates["bf16"]) > 1e-3).sum())
+    n_theirs = int((np.abs(updates["bf16"] - updates["f32"]) > 1e-3).sum())
+    assert n_theirs > 0 and n_ours <= RATIO * n_theirs, (n_ours, n_theirs)
+    assert np.isfinite(metrics["loss"])
+
+
+def _float32_source(kind, jcfg, params):
+    if kind == "model":
+        model = KokoroModel(port_config(jcfg))
+        load_flax_params(model, params)
+        return model
+    return params if kind == "tree" else None
+
+
+@pytest.mark.parametrize("source", [None, "tree", "model"])
+def test_bf16_master_starts_from_float32_weights(jax_side, source):
+    """At learning rate 0 ``train`` returns the master as it started:
+    given the float32 weights (a flax tree or a float32 model), exactly
+    them, and the bfloat16 model holds them rounded; without them, the
+    bfloat16 model's own weights, rounded from them."""
+    jcfg, params, arrays, _ = jax_side
+    model = _bf16_model(jcfg, params)
+    rounded = leaves(export_flax_params(model))
+    master, _, metrics = loop.train(
+        model, steps=1, frames=FRAMES, learning_rate=0.0, log_every=0,
+        batches=iter([port_batch(arrays)]),
+        master=_float32_source(source, jcfg, params))
+    want = rounded if source is None else leaves(params)
+    got = leaves(export_flax_params(master))
+    assert got.keys() == want.keys()
+    for name in want:
+        np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert any(not np.array_equal(rounded[k], leaves(params)[k])
+               for k in rounded)
+    for p, m in zip(model.parameters(), master.parameters()):
+        torch.testing.assert_close(p, m.to(p.dtype), rtol=0, atol=0)
+    assert np.isfinite(metrics["loss"])
+
+
+def test_bf16_master_source_refused_for_float32():
+    model = KokoroModel(port_config())
+    with pytest.raises(ValueError, match="its own master"):
+        Replicas(model, master=export_flax_params(model))
+
+
+def test_bf16_train_step_from_float32_weights(jax_side):
+    """One ``train`` step from the float32 weights (``master=``) against
+    JAX's bfloat16 step from the same ``params``: the update's entries that
+    differ are at most twice as many as between JAX's bfloat16 and float32
+    updates (the rule of ``test_bf16_train_step_on_float32_masters``)."""
+    jcfg, params, arrays, j = jax_side
+    master, _, metrics = loop.train(
+        _bf16_model(jcfg, params), steps=1, frames=FRAMES, learning_rate=LR,
+        log_every=0, batches=iter([port_batch(arrays)]), master=params)
+    before, after = leaves(params), leaves(export_flax_params(master))
     opt = optax.chain(optax.clip_by_global_norm(1.0), optax.adamw(LR))
     flat_p = ravel_pytree(params)[0]
     updates = {}
