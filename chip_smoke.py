@@ -16,13 +16,23 @@ From the root of a checkout. It
    each column tile, and the carry kernel's walking chunks beside one-tile
    chunks; the iSTFT kernel's two entries, the head from conv_post's raw
    output and the polar one, at the timed and stream-window shapes, beside
-   the eager route the head replaced and ``torch.istft``);
+   the eager route the head replaced and ``torch.istft``; the AdaIN
+   statistics pass, ``adain_fold`` (the masked instance moments and the
+   AdaIN fold, f32 and bf16 x; its moments-only form, which ``AdaIN1d``
+   takes, at the same shapes), within ``ADAIN_TOL`` of its plain version's
+   peak and bitwise repeatable at ragged, unmasked and all-zero masks, timed
+   at ``ADAIN_TIMED`` beside its byte bound and ``torch.var_mean``; at the
+   end of the run it is held to its plain version again at every shape the
+   main path gave it);
 4. drives the batch path — ``Synthesizer.synthesize_batch`` and
    ``dispatch -> launch_decode -> collect`` at the full ``KokoroConfig()``
    with seeded random weights and a random voice — on three requests in
    pcm16, f32, mulaw8k and mulaw24k, and checks lengths, finiteness,
    non-silence and that every kernel ran as often as each stage B runs it
-   (the iSTFT kernel once per Generator pass);
+   (the iSTFT kernel once per Generator pass, each fused conv form once a
+   residual step, the AdaIN pass once per AdaIN: 70 a stage B, of which a
+   windowed stream's prepare runs 22 and each window 48:
+   ``kernel_launches``);
 5. drives the streaming path: exact streams concatenate bit for bit to
    ``collect()``; a windowed stream's first use captures its prepare and
    window graphs (its time and each capture's warm pass and lock time on
@@ -78,7 +88,10 @@ From the root of a checkout. It
    kernels (``ops/kernel_grad.py``) against those through the plain
    versions (every leaf within ``GRAD_TOL``; the Generator's resblock convs,
    alphas and AdaIN fcs non-zero; the noise blocks, whose output a silent
-   harmonic source leaves to rounding, plain in both passes: ``NOISE_BLOCK``;
+   harmonic source leaves to rounding, their convs and AdaIN passes plain
+   in both passes: ``NOISE_BLOCK``; the F0/N towers' and the trunk's
+   ``AdaIN1d`` moments plain in both passes: ``gradient_passes``; the
+   Generator's other AdaIN passes through the kernel;
    ``scripts/grad_check_repeat.py`` repeats this comparison),
    forward/backward ms per step and each kernel's backward recompute at the
    training shape, one adversarial step,
@@ -179,7 +192,7 @@ From the root of a checkout. It
    then each kernel against its plain version at the shapes the shards
    gave it;
 15. measures the graph pool (``pool_phase``; ``scripts/graph_pool.py``
-   runs it alone, on any checkout's engine), under deterministic cuDNN: a
+   runs it alone), under deterministic cuDNN: a
    fresh engine's ``warmup()`` with the JAX engine's default arguments (4
    stage-A and 48 stage-B keys; each capture's growth in capture order,
    the pool's bytes, the wall time; a B=1 and a B=4 request replayed
@@ -189,8 +202,9 @@ From the root of a checkout. It
    fresh engine beside its stage run eagerly and captured by hand from an
    emptied cache (allocated peak, reserved growth, segments).
 
-It prints a ``{"kernels": [...]}`` JSON line (each kernel's launches per
-phase; ``launches_replayed``: those of phase 12's batch replays;
+It prints a ``{"kernels": [...]}`` JSON line (one row per kernel form,
+``adain_fold`` and ``adain_fold_bf16`` among them; each kernel's launches
+per phase; ``launches_replayed``: those of phase 12's batch replays;
 ``launches_stream_replayed``: those of its replayed windowed streams;
 ``launches_mesh``: those of phase 13; ``launches_tp``: those of phase 14;
 ``launches_pool``: those of phase 15's two replays;
@@ -251,7 +265,8 @@ DEGENERATE = r"\.conv1(_\d)?\.bias$|\.noise_conv_\d\."
 # kernels against cuDNN's in that branch, not the kernels' gradients
 # (tests/test_torch_training.py::test_noise_blocks_set_the_gradient_spread;
 # scripts/grad_check_repeat.py reports both comparisons on the card). So
-# both gradient passes run the noise blocks' fused convs plain.
+# both gradient passes run the noise blocks' fused convs and AdaIN passes
+# plain.
 NOISE_BLOCK = "noise_res_"
 
 # phase 11, bf16: each bf16 form against its plain bf16 version, max
@@ -330,6 +345,49 @@ TIMED = {"batch": 8, "channels": 128, "length": 61440, "kernel": 11,
 # the two stages of a B=1 stream window (64 + 2 * 16 frames)
 MORE_SHAPES = ((8, 256, 10240, 11, None), (1, 256, 1920, 7, 3),
                (1, 128, 11520, 11, 5))
+# the AdaIN statistics pass (ops/adain_moments.py): scale and shift, and the
+# moments-only form's mean and rstd, each within 1e-5 of their largest
+# magnitude of the plain version's (both sum in float32, in other orders)
+ADAIN_TOL = 1e-5
+# its launches per stage B besides the Generator's two a fused step: the
+# AdaIN1d's of the F0/N towers (2 towers x 3 blocks x 2) and of the decoder
+# trunk (5 blocks x 2), which a windowed stream runs once, in its prepare
+ADAIN_FRONT = 22
+# its timed shapes (B, C, L, x dtype): b8's second stage, bench.py's two
+# stages (bf16), zh_1's second stage (F 1024), a B=1 stream window's first
+# stage, long_8's second stage (F 4096)
+ADAIN_TIMED = ((8, 128, 61440, "float32"), (32, 128, 61440, "bfloat16"),
+               (32, 256, 10240, "bfloat16"), (1, 128, 122880, "float32"),
+               (1, 256, 1920, "float32"), (8, 128, 491520, "float32"))
+# (B, C, L, x dtype, mask kind) of each call the main path made, recorded
+# by ``record_shapes`` (phases 4-5, 7, 8, 10, 11 and 13); ``main`` holds
+# the pass against its plain version at each
+ADAIN_SEEN = set()
+
+
+def kernel_launches(name, conv_per_generator, passes, fronts=None,
+                    skipped=0):
+    """Launches of kernel ``name`` (either form) in ``passes`` Generator
+    passes, each ``skipped`` fused steps of each form short (phase 10's
+    plain noise blocks), and ``fronts`` runs of the F0/N towers and the
+    decoder trunk (one a pass where None; a windowed stream runs them in
+    its prepare stage): the iSTFT head once a pass, each fused conv form
+    once a step, the AdaIN pass twice a step and ``ADAIN_FRONT`` times a
+    front."""
+    if "istft" in name:
+        return passes
+    steps = (conv_per_generator - skipped) * passes
+    if name.startswith("adain_fold"):
+        return 2 * steps + ADAIN_FRONT * (passes if fronts is None
+                                          else fronts)
+    return steps
+
+
+def first_use_fronts(summary):
+    """The fronts a windowed stream's first use ran (``first_use``'s
+    summary): the prepare's replay, and its warm pass where the prepare's
+    key was captured then."""
+    return 1 + sum("'prep'" in key for key in summary["keys"])
 
 
 def fail(msg: str) -> None:
@@ -661,6 +719,149 @@ def time_tile_lens(torch, asc, flush, shape, bf16=False):
     return {"shape": list(shape), "ms_by_tile_len": out}
 
 
+def adain_inputs(torch, batch, channels, length, dtype, seed,
+                 mask="ragged"):
+    """x [B, C, L] in ``dtype``, the mask [B, L] (``ragged``: row i keeps
+    L - i L / (B + 1) columns, the last row of a batch above 1 none;
+    ``zero``: all zero; ``none``: no mask), gamma and beta [B, C] as the
+    halves of one fc output [B, 2C], as the layers hand them over."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(batch, channels, length, device="cuda", generator=gen)
+         * 1.5 + 0.3).to(getattr(torch, dtype))
+    m = None
+    if mask != "none":
+        keep = [length - i * length // (batch + 1) for i in range(batch)]
+        if batch > 1:
+            keep[-1] = 0
+        m = (torch.arange(length, device="cuda")[None, :]
+             < torch.tensor(keep, device="cuda")[:, None]).float()
+        if mask == "zero":
+            m.zero_()
+    style = 0.3 * torch.randn(batch, 2 * channels, device="cuda",
+                              generator=gen)
+    return (x, m, *style.chunk(2, dim=1))
+
+
+def check_adain(torch, am, cases):
+    """The AdaIN pass vs its plain version at each (B, C, L, x dtype, mask
+    kind), the fold and the moments-only form -> (max error over the
+    output's peak, max abs error), over scale, shift, mean and rstd; two
+    launches must agree bitwise, and an all-zero mask row must give shift =
+    beta and mean = 0 exactly."""
+    worst, worst_abs = 0.0, 0.0
+    for i, (batch, channels, length, dtype, mask) in enumerate(cases):
+        args = adain_inputs(torch, batch, channels, length, dtype, i, mask)
+        for style, parts in ((args[2:], ("scale", "shift")),
+                             ((None, None), ("mean", "rstd"))):
+            got = am.adain_fold(*args[:2], *style)
+            again = am.adain_fold(*args[:2], *style)
+            torch.cuda.synchronize()
+            ref = am.adain_fold_plain(*args[:2], *style)
+            for part, g, a, r in zip(parts, got, again, ref):
+                if g.shape != (batch, channels) or g.dtype != torch.float32:
+                    fail(f"adain_fold {part}: {tuple(g.shape)} {g.dtype}")
+                if not torch.equal(g, a):
+                    fail(f"adain_fold {part}: two launches differ at "
+                         f"{cases[i]}")
+                err = float((g - r).abs().max())
+                over = err / max(float(r.abs().max()), 1e-30)
+                if not over <= ADAIN_TOL:
+                    fail(f"adain_fold {part} disagrees with plain at "
+                         f"{cases[i]}: {over} of its peak > {ADAIN_TOL}")
+                worst, worst_abs = max(worst, over), max(worst_abs, err)
+            zero_rows = ([batch - 1] if mask == "ragged" and batch > 1 else
+                         range(batch) if mask == "zero" else [])
+            for row in zero_rows:
+                if parts[0] == "scale" and not torch.equal(got[1][row],
+                                                           args[3][row]):
+                    fail(f"adain_fold: an all-zero mask row's shift is not "
+                         f"beta at {cases[i]}")
+                if parts[0] == "mean" and got[0][row].any():
+                    fail(f"adain_fold: an all-zero mask row's mean is not 0 "
+                         f"at {cases[i]}")
+            del got, again, ref
+        del args
+    log(f"  adain_fold: {len(cases)} shapes, the fold and the moments, "
+        f"max|kernel - plain| / max|plain| = {worst:.3e} (limit "
+        f"{ADAIN_TOL}), max abs {worst_abs:.3e}; two launches bitwise equal "
+        "at each")
+    return worst, worst_abs
+
+
+def time_adain(torch, am, flush, shape, card, reps=20):
+    """The AdaIN pass (both launches), its plain version and
+    ``torch.var_mean`` (the unmasked moments alone, one call) ms at (B, C,
+    L, x dtype), ragged mask, beside its bound: x, the mask, gamma and beta
+    read once, scale and shift written once, over HBM; its f32 operations
+    (x m, two sums, the centered square, its weight and its sum: 7 an
+    element) over the f32 CUDA-core rate."""
+    batch, channels, length, dtype = shape
+    x, m, gamma, beta = adain_inputs(torch, batch, channels, length, dtype,
+                                     seed=99)
+    calls = {
+        "ms": lambda: am.adain_fold(x, m, gamma, beta),
+        "plain_ms": lambda: am.adain_fold_plain(x, m, gamma, beta),
+        "library_ms": lambda: torch.var_mean(x, dim=-1, correction=0),
+    }
+    for call in calls.values():
+        call()
+    out = {key: cuda_ms(call, reps, flush) for key, call in calls.items()}
+    n_bytes = (x.numel() * x.element_size() + m.numel() * 4
+               + 4 * gamma.numel() * 4)
+    out["bound_ms"], out["bound_by"] = bound(n_bytes, 7 * x.numel())
+    out["bound_share"] = out["bound_ms"] / out["ms"]
+    out["shape"] = [batch, channels, length, dtype]
+    log(f"adain_fold at B={batch}, C={channels}, L={length}, {dtype}: "
+        f"kernel {out['ms']:.4f} ms ({out['bound_share']:.2f} of its bound "
+        f"{out['bound_ms']:.4f} ms, {out['bound_by']}), plain "
+        f"{out['plain_ms']:.4f} ms, torch.var_mean (unmasked, no fold) "
+        f"{out['library_ms']:.4f} ms ({card})")
+    del x, m, gamma, beta
+    return out
+
+
+def adain_phase(torch, am, flush, card):
+    """Phase 3, the AdaIN pass: held against its plain version at the
+    timed shapes, ragged, unmasked and all-zero masks and short and ragged
+    L, then timed at ``ADAIN_TIMED``. -> {form: kernels-line row}."""
+    t0 = time.perf_counter()
+    log("adain_fold kernel vs plain (ragged masks, the last row of each "
+        "batch masked whole):")
+    cases = [(*shape, "ragged") for shape in ADAIN_TIMED] + [
+        (8, 128, 61440, "float32", "none"),
+        (32, 128, 61440, "bfloat16", "none"),
+        (3, 128, 1000, "float32", "ragged"),     # L shorter than a chunk
+        (2, 64, 37, "bfloat16", "ragged"),
+        (2, 256, 4097, "float32", "zero"),      # one element past a chunk
+        (3, 512, 8193, "bfloat16", "ragged"),
+        (1, 256, 1920, "bfloat16", "none"),
+    ]
+    err, err_abs = check_adain(torch, am, cases)
+    rows = {}
+    for name, dtype in (("adain_fold", "float32"),
+                        ("adain_fold_bf16", "bfloat16")):
+        timed = [time_adain(torch, am, flush, shape, card, reps=10)
+                 for shape in ADAIN_TIMED if shape[3] == dtype]
+        rows[name] = {"err_over_peak": err, "max_abs_err": err_abs,
+                      **{key: timed[0][key] for key in (
+                          "ms", "plain_ms", "library_ms", "bound_ms",
+                          "bound_by", "bound_share", "shape")},
+                      "more_shapes": timed[1:]}
+    log(f"adain_fold checked and timed in {time.perf_counter() - t0:.1f} s "
+        f"({card})")
+    return rows
+
+
+def recorded_fold(fn, shapes):
+    """The AdaIN pass ``fn`` that also records each call's (B, C, L, x
+    dtype, mask kind)."""
+    def call(x, mask, gamma, beta):
+        shapes.add((*x.shape, str(x.dtype).split(".")[-1],
+                    "none" if mask is None else "ragged"))
+        return fn(x, mask, gamma, beta)
+    return call
+
+
 def recorded(fn, shapes):
     """``fn`` that also records each call's (B, C_in, L, k, d)."""
     def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1):
@@ -679,18 +880,25 @@ def recorded_head(fn, shapes):
 
 def record_shapes(layers, vocoder, asc, oa):
     """Route the Generator's kernel calls through recorders -> (conv shapes
-    by kernel, head shapes); ``unrecord`` routes them back."""
+    by kernel, head shapes), the AdaIN pass's shapes into ``ADAIN_SEEN``;
+    ``unrecord`` routes them back."""
+    from illufly_tts_tpu_torch.ops import adain_moments as am
+
     conv_shapes = {name: set() for name in CONV_KERNELS}
     for name in CONV_KERNELS:  # the blocks call through the module names
         setattr(layers, name, recorded(getattr(asc, name), conv_shapes[name]))
+    layers.adain_fold = recorded_fold(am.adain_fold, ADAIN_SEEN)
     head_shapes = set()
     vocoder.istft_head = recorded_head(oa.istft_head, head_shapes)
     return conv_shapes, head_shapes
 
 
 def unrecord(layers, vocoder, asc, oa):
+    from illufly_tts_tpu_torch.ops import adain_moments as am
+
     for name in CONV_KERNELS:
         setattr(layers, name, getattr(asc, name))
+    layers.adain_fold = am.adain_fold
     vocoder.istft_head = oa.istft_head
 
 
@@ -809,6 +1017,7 @@ def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
     import asyncio
     import tempfile
 
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.pipeline import MAX_PHONEMES
     from illufly_tts_tpu_torch.runtime.scheduler import (
         TaskStatus,
@@ -841,16 +1050,17 @@ def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
 
     def reset():
         oa.launches = 0
-        for name in asc.launches:
-            asc.launches[name] = 0
+        for table in (asc.launches, am.launches):
+            for name in table:
+                table[name] = 0
         passes.clear()
         dispatched.clear()
 
-    def counts(label, generator_passes):
-        got = {"istft_oa": oa.launches, **asc.launches}
-        want = {"istft_oa": generator_passes,
-                **{name: conv_per_generator * generator_passes
-                   for name in asc.launches}}
+    def counts(label, generator_passes, fronts=None):
+        got = {"istft_oa": oa.launches, **asc.launches, **am.launches}
+        want = {name: kernel_launches(name, conv_per_generator,
+                                      generator_passes, fronts)
+                for name in got}
         log(f"{label}: {generator_passes} Generator passes, launches {got}")
         if got != want:
             failures.append(f"{label}: launches {got}, want {want}")
@@ -1009,14 +1219,14 @@ def serving_phase(torch, np, synth, pipe, frontend, oa, asc,
         (_, _, h), = dispatched
         windows = -(-int(h.fitted_totals[0]) // STREAM_WINDOW)
         counts(f"windowed stream, first use ({windows} windows)",
-               windows + 1)
+               windows + 1, first_use_fronts(stream_first_use))
         reset()
         chunks, first_chunk_ms, stream_ms = stream()
         (ipa_list, _, h), = dispatched
         total = int(h.fitted_totals[0])
         windows = -(-total // STREAM_WINDOW)
         stream_launches = counts(f"windowed stream ({windows} windows)",
-                                 windows)
+                                 windows, 1)
         if ipa_list != [expected_ipa(STREAM_TEXT)]:
             failures.append("the stream's IPA differs from the table's")
         check_wave("windowed stream", np.concatenate(chunks), total * 600)
@@ -1117,6 +1327,7 @@ def http_phase(torch, np, synth, pipe, oa, asc, conv_per_generator, card,
     from illufly_tts_tpu_torch.audio import flac as flac_mod
     from illufly_tts_tpu_torch.client.mcp_client import TTSMcpClient
     from illufly_tts_tpu_torch.mcp.server import ManagerBackend, MCPServer
+    from illufly_tts_tpu_torch.ops import adain_moments as am
 
     voice = "smoke_voice"
     zh, mixed, speech, streamed = (TASKS[0][2], TASKS[2][2], TASKS[3][2],
@@ -1162,15 +1373,15 @@ def http_phase(torch, np, synth, pipe, oa, asc, conv_per_generator, card,
 
     def reset():
         oa.launches = 0
-        for name in asc.launches:
-            asc.launches[name] = 0
+        for table in (asc.launches, am.launches):
+            for name in table:
+                table[name] = 0
         passes.clear()
 
     def check_launches(label, want_passes):
-        got = {"istft_oa": oa.launches, **asc.launches}
-        want = {"istft_oa": want_passes,
-                **{name: conv_per_generator * want_passes
-                   for name in asc.launches}}
+        got = {"istft_oa": oa.launches, **asc.launches, **am.launches}
+        want = {name: kernel_launches(name, conv_per_generator, want_passes)
+                for name in got}
         if len(passes) != want_passes or got != want:
             failures.append(f"{label}: {len(passes)} Generator passes, "
                             f"launches {got}, want {want}")
@@ -1408,6 +1619,7 @@ def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
     import shutil
     import tempfile
 
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.training import loop
     from illufly_tts_tpu_torch.training import step as tstep
     from illufly_tts_tpu_torch.training.voice_adapt import (
@@ -1437,9 +1649,10 @@ def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
                    on_metrics=lambda step, m: seen.append(m), **kw)
         return seen
 
-    def counted(label, generator_passes, skipped=0):
+    def counted(label, generator_passes, skipped=0, fronts=None):
         passes[label] = generator_passes
-        got = check_counts(f"training: {label}", generator_passes, skipped)
+        got = check_counts(f"training: {label}", generator_passes, skipped,
+                           fronts)
         for name, n in got.items():
             out["launches"][name] = out["launches"].get(name, 0) + n
 
@@ -1501,17 +1714,18 @@ def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
     lap("step 0 on the CPU")
 
     # (c) one batch's gradients through the kernels and through the plain
-    # versions, at the trained weights (the noise blocks plain in both)
+    # versions, at the trained weights (the noise blocks and the front's
+    # AdaIN1d moments plain in both)
     skipped = noise_block_convs(model)
 
     def between():
-        counted("gradients through the kernels", 1, skipped)
+        counted("gradients through the kernels", 1, skipped, fronts=0)
         reset_counts()
 
     reset_counts()
     through, plain = gradient_passes(torch, model, first, frames, layers,
                                      vocoder, asc, oa, between=between)
-    plain_counts = {"istft_oa": oa.launches, **asc.launches}
+    plain_counts = {"istft_oa": oa.launches, **asc.launches, **am.launches}
     log(f"training: gradients through the plain versions, launches "
         f"{plain_counts}")
     if any(plain_counts.values()):
@@ -1520,7 +1734,9 @@ def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
     failures.extend(f"training: {msg}" for msg in wrong)
     g = out["gradients"]
     log(f"training: gradients through the kernels vs the plain versions "
-        f"(the noise blocks' {skipped} convs of each form plain in both), "
+        f"(the noise blocks' {skipped} convs of each form and their AdaIN "
+        f"passes, and the F0/N towers' and the trunk's AdaIN1d moments, "
+        f"plain in both), "
         f"{g['leaves']} leaves: worst relative L2 {g['worst_rel_l2']:.3e} "
         f"({g['worst_leaf']}; limit {GRAD_TOL}), median "
         f"{g['median_rel_l2']:.3e}; {g['resblock_leaves_checked_nonzero']} "
@@ -1554,7 +1770,7 @@ def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
         f"(CUDA events, median of 3; {card})")
     model.zero_grad(set_to_none=True)
     out["recompute"] = time_recompute(torch, asc, oa, flush, conv_shapes,
-                                      head_shapes, card)
+                                      head_shapes, card, cfg)
     lap("step and recompute timing")
 
     # (e) one adversarial step (the full HiFiGANDiscriminator)
@@ -1641,25 +1857,30 @@ def training_phase(torch, np, synth, cfg, layers, vocoder, asc, oa, flush,
 
 def noise_block_convs(model):
     """Fused conv launches of each form in one Generator pass's noise
-    blocks (one a dilation)."""
+    blocks (one a dilation; the AdaIN pass twice that)."""
     return sum(len(block.dilations) for name, block in
                model.decoder.generator.named_children()
                if name.startswith(NOISE_BLOCK))
 
 
 def plain_noise_blocks(layers, asc, model):
-    """Run the Generator's noise blocks' fused convs through the plain
-    version, whatever ``layers`` holds elsewhere: forward hooks that swap
-    the module's names around each noise block. -> the hook handles."""
+    """Run the Generator's noise blocks' fused convs and AdaIN passes
+    through their plain versions, whatever ``layers`` holds elsewhere:
+    forward hooks that swap the module's names around each noise block. ->
+    the hook handles."""
+    from illufly_tts_tpu_torch.ops import adain_moments as am
+
     saved = {}
+    plain = {**{name: asc.adain_snake_conv_plain for name in CONV_KERNELS},
+             "adain_fold": am.adain_fold_plain}
 
     def enter(block, args):
-        for name in CONV_KERNELS:
+        for name, fn in plain.items():
             saved[name] = getattr(layers, name)
-            setattr(layers, name, asc.adain_snake_conv_plain)
+            setattr(layers, name, fn)
 
     def leave(block, args, output):
-        for name in CONV_KERNELS:
+        for name in plain:
             setattr(layers, name, saved[name])
 
     handles = []
@@ -1679,13 +1900,29 @@ def far_target(torch, batch):
         < 0.5, -1.0, 1.0) * 10.0 * float(batch.target_audio.abs().max()))
 
 
+# Phase 10's two gradient passes take the F0/N towers' and the decoder
+# trunk's AdaIN1d moments plain in both (``front_plain``: the AdaIN pass's
+# moments-only form), so that the front's forward is the same in both, as
+# it was before the AdaIN pass had a kernel. The
+# leaves just ahead of those instance norms (pool biases, the 1-channel
+# f0_conv/n_conv and the projections feeding them) have gradients that the
+# norms cancel to near zero; with the front's moments through the kernel
+# they read the moments' rounding: 2 of 60 runs above GRAD_TOL (1.595e-2
+# at predictor.n_1.pool.bias, 2.032e-2 at decoder.f0_conv.weight), 0 of 60
+# on the tree before the kernel (scripts/grad_check_repeat.py's
+# front_kernel comparison; PERF.md §6). The Generator's AdaIN passes go
+# through the kernel in the first pass; step 0 against the CPU holds the
+# front's kernel launches in training.
 def gradient_passes(torch, model, batch, frames, layers, vocoder, asc, oa,
-                    between=None, noise_blocks_plain=True):
+                    between=None, noise_blocks_plain=True, front_plain=True):
     """Phase 10 (c): one batch's gradients through the kernels (as
     ``layers`` and ``vocoder`` hold them), then through the plain versions,
     against ``far_target``; with ``noise_blocks_plain`` the noise
-    blocks run plain in both passes (``NOISE_BLOCK``). ``between()`` runs
-    between the passes. -> (through, plain): {leaf: gradient}."""
+    blocks run plain in both passes (``NOISE_BLOCK``), with
+    ``front_plain`` the F0/N towers' and the trunk's ``AdaIN1d`` moments
+    (see above). ``between()`` runs between the passes. ->
+    (through, plain): {leaf: gradient}."""
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.training import step as tstep
 
     far = far_target(torch, batch)
@@ -1700,14 +1937,23 @@ def gradient_passes(torch, model, batch, frames, layers, vocoder, asc, oa,
                 for name, p in model.named_parameters() if p.grad is not None}
 
     hooks = plain_noise_blocks(layers, asc, model) if noise_blocks_plain else []
+    held = layers.adain_fold
+    if front_plain:  # AdaIN1d takes the moments-only form, gamma None
+        def fold(x, mask, gamma, beta):
+            return (am.adain_fold_plain if gamma is None else held)(
+                x, mask, gamma, beta)
+        layers.adain_fold = fold
     try:
         through = grads()
         if between is not None:
             between()
-        saved = ({name: getattr(layers, name) for name in CONV_KERNELS},
+        plain_fns = {**{name: asc.adain_snake_conv_plain
+                        for name in CONV_KERNELS},
+                     "adain_fold": am.adain_fold_plain}
+        saved = ({name: getattr(layers, name) for name in plain_fns},
                  vocoder.istft_head)
-        for name in CONV_KERNELS:
-            setattr(layers, name, asc.adain_snake_conv_plain)
+        for name, fn in plain_fns.items():
+            setattr(layers, name, fn)
         vocoder.istft_head = oa.istft_head_plain
         try:
             plain = grads()
@@ -1716,6 +1962,7 @@ def gradient_passes(torch, model, batch, frames, layers, vocoder, asc, oa,
                 setattr(layers, name, fn)
             vocoder.istft_head = saved[1]
     finally:
+        layers.adain_fold = held
         for handle in hooks:
             handle.remove()
     model.zero_grad(set_to_none=True)
@@ -1758,11 +2005,30 @@ def compare_gradients(through, plain):
     return summary, wrong
 
 
-def time_recompute(torch, asc, oa, flush, conv_shapes, head_shapes, card):
+def time_recompute(torch, asc, oa, flush, conv_shapes, head_shapes, card,
+                   cfg):
     """Each kernel's backward at its largest training shape (the plain
-    version recomputed and differentiated, ``ops/kernel_grad.py``), beside
-    its forward launch, CUDA-event medians. -> {kernel: row}."""
+    version recomputed and differentiated, ``ops/kernel_grad.py``; the
+    AdaIN pass's at the Generator's last stage), beside its forward launch,
+    CUDA-event medians. -> {kernel: row}."""
+    from illufly_tts_tpu_torch.ops import adain_moments as am
+
     rows = {}
+    net = cfg.istftnet
+    length = TRAIN["frames"] * 2 * math.prod(net.upsample_rates)
+    channels = net.upsample_initial_channel // 2 ** len(net.upsample_rates)
+    x, m, gamma, beta = adain_inputs(torch, TRAIN["batch"], channels, length,
+                                     "float32", seed=7)
+    inputs = [t.requires_grad_() for t in (x, gamma, beta)]
+    scale, shift = am.adain_fold(x, m, gamma, beta)
+    g = torch.randn_like(scale)
+    rows["adain_fold"] = {
+        "shape": [TRAIN["batch"], channels, length],
+        "forward_ms": cuda_ms(lambda: am.adain_fold(x, m, gamma, beta), 10,
+                              flush),
+        "backward_recompute_ms": cuda_ms(
+            lambda: torch.autograd.grad((scale, shift), inputs, (g, g),
+                                        retain_graph=True), 10, flush)}
     for name in CONV_KERNELS:
         b, c, length, k, d = max(conv_shapes[name], key=lambda s: (
             s[0] * s[1] * s[2] * s[3], s[4]))  # the most work, widest d
@@ -1932,10 +2198,12 @@ def time_head_bf16(torch, oa, flush, card):
 
 def bf16_counts():
     """The bf16 forms' launch counts (the wrappers' own counters)."""
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
     from illufly_tts_tpu_torch.ops import istft_oa as oa
 
-    return {"istft_head_bf16": oa.launches_bf16, **asc.launches_bf16}
+    return {"istft_head_bf16": oa.launches_bf16, **asc.launches_bf16,
+            **am.launches_bf16}
 
 
 def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
@@ -1951,6 +2219,7 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
     from illufly_tts_tpu_torch.audio.mel import mel_l1
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
     from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.ops import adain_moments as am
 
     out = {"card": card}
     # -- the forms against their plain versions, and timed
@@ -2021,7 +2290,7 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
                     clips = engine.collect(h)
                     walls.append((time.perf_counter() - t0) * 1e3)
                 got = {"istft_oa": oa.launches, **asc.launches,
-                       **bf16_counts()}
+                       **am.launches, **bf16_counts()}
                 per_frame = 200 if fmt == "mulaw8k" else 600
                 for i, clip in enumerate(clips):
                     check_wave(f"bench {label}/{fmt}[{i}]", clip,
@@ -2031,11 +2300,12 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
                     walls), "audio_s": seconds, "t_bucket": h.t_bucket,
                     "f_bucket": h.f_bucket, "launches": got}
                 out["bench"][f"{label}/{fmt}"] = run
-                on = (("istft_head_bf16", *BF16_CONV) if label == "bf16"
-                      else ("istft_oa", *BF16_CONV.values()))
+                on = (("istft_head_bf16", *BF16_CONV, "adain_fold_bf16")
+                      if label == "bf16" else
+                      ("istft_oa", *BF16_CONV.values(), "adain_fold"))
                 want = {name: 0 for name in got}
-                want.update({name: 3 * (1 if "istft" in name else
-                                        conv_per_generator) for name in on})
+                want.update({name: kernel_launches(name, conv_per_generator,
+                                                   3) for name in on})
                 if got != want:
                     failures.append(f"bench {label}/{fmt}: launches {got}, "
                                     f"want {want}")
@@ -2060,10 +2330,10 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
                        int(h.fitted_totals[0]) * (200 if fmt == "mulaw8k"
                                                   else 600))
         got = bf16_counts()
-        want = {name: len(FORMATS) * (1 if "istft" in name
-                                      else conv_per_generator)
+        want = {name: kernel_launches(name, conv_per_generator, len(FORMATS))
                 for name in got}
-        if got != want or oa.launches or any(asc.launches.values()):
+        if got != want or oa.launches or any(asc.launches.values()) or any(
+                am.launches.values()):
             failures.append(f"bf16 zh_1 formats: launches {got}, want "
                             f"{want} and no f32 launch")
         torch.backends.cudnn.deterministic = True
@@ -2082,19 +2352,22 @@ def bf16_phase(torch, np, F, synth, layers, vocoder, asc, oa, flush, card,
             s16, lambda: timed_stream(torch, s16, [ZH]),
             "bf16 windowed stream (zh_1)", card)
         got = bf16_counts()
-        want = {name: (len(chunks) + 1) * (1 if "istft" in name
-                                           else conv_per_generator)
+        want = {name: kernel_launches(name, conv_per_generator,
+                                      len(chunks) + 1,
+                                      first_use_fronts(first_use16))
                 for name in got}
-        if got != want or oa.launches or any(asc.launches.values()):
+        if got != want or oa.launches or any(asc.launches.values()) or any(
+                am.launches.values()):
             failures.append(f"bf16 windowed stream, first use: launches "
                             f"{got}, want {want} and no f32 launch")
         reset_counts()
         h, chunks, first_ms, stream_ms = timed_stream(torch, s16, [ZH])
         got = bf16_counts()
-        want = {name: len(chunks) * (1 if "istft" in name
-                                     else conv_per_generator)
+        want = {name: kernel_launches(name, conv_per_generator, len(chunks),
+                                      fronts=1)
                 for name in got}
-        if got != want or oa.launches or any(asc.launches.values()):
+        if got != want or oa.launches or any(asc.launches.values()) or any(
+                am.launches.values()):
             failures.append(f"bf16 windowed stream: launches {got}, want "
                             f"{want} and no f32 launch")
         max_total = int(h.fitted_totals[0])
@@ -2290,6 +2563,7 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
         stage_kind,
     )
     from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.runtime.scheduler import (
         TaskStatus,
         TTSServiceManager,
@@ -2562,12 +2836,12 @@ def graphs_phase(torch, np, synth, pipe, requests, oa, asc,
             f"bf16 replayed {fmt} differs from the eager render",
             same(clips, ref16[fmt]))
     replayed16 = bf16_counts()
-    want16 = {name: len(fmts16) * (1 if "istft" in name
-                                   else conv_per_generator)
+    want16 = {name: kernel_launches(name, conv_per_generator, len(fmts16))
               for name in replayed16}
     check(f"bf16 replays launched {replayed16}, want {want16} and no f32 "
           "form", replayed16 == want16 and not oa.launches
-          and not any(asc.launches.values()))
+          and not any(asc.launches.values())
+          and not any(am.launches.values()))
     check("bf16 keys did not replay", all(
         w16.graph_replays[k] == (len(fmts16) if stage_kind(k) == "a" else 1)
         for k in w16._graphs))
@@ -2743,6 +3017,7 @@ def stream_graphs(torch, np, synth, requests, tree, inventory, oa, asc,
     import dataclasses
 
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
+    from illufly_tts_tpu_torch.ops import adain_moments as am
 
     def fresh(dtype):
         engine = Synthesizer(dataclasses.replace(synth.config, dtype=dtype),
@@ -2752,16 +3027,15 @@ def stream_graphs(torch, np, synth, requests, tree, inventory, oa, asc,
 
     def launches():
         return {"istft_oa": oa.launches, "istft_head_bf16": oa.launches_bf16,
-                **asc.launches, **asc.launches_bf16}
+                **asc.launches, **asc.launches_bf16, **am.launches,
+                **am.launches_bf16}
 
-    def want_launches(passes, bf16):
-        tile = "adain_snake_conv_bf16" if bf16 else "adain_snake_conv"
-        carry = ("adain_snake_conv_carry_bf16" if bf16
-                 else "adain_snake_conv_carry")
+    def want_launches(passes, bf16, fronts):
+        names = (("istft_head_bf16", *BF16_CONV, "adain_fold_bf16") if bf16
+                 else ("istft_oa", *CONV_KERNELS, "adain_fold"))
         want = {name: 0 for name in launches()}
-        want.update({"istft_head_bf16" if bf16 else "istft_oa": passes,
-                     tile: conv_per_generator * passes,
-                     carry: conv_per_generator * passes})
+        want.update({name: kernel_launches(name, conv_per_generator, passes,
+                                           fronts) for name in names})
         return want
 
     def eager_stream(engine, texts):
@@ -2804,7 +3078,8 @@ def stream_graphs(torch, np, synth, requests, tree, inventory, oa, asc,
                    f"windowed {label}: the first use differs from the eager "
                    "reference loop", same(chunks, ref))}
         check(f"windowed {label}, first use: launches {launches()}",
-              launches() == want_launches(windows + 1, bf16))
+              launches() == want_launches(windows + 1, bf16,
+                                          first_use_fronts(use)))
         reset_counts()
         replays0 = sum(engine.graph_replays.values())
         _, chunks, _, _ = timed_stream(torch, engine, texts)
@@ -2816,7 +3091,7 @@ def stream_graphs(torch, np, synth, requests, tree, inventory, oa, asc,
             "loop", same(chunks, ref))
         row["launches_replayed"] = got
         check(f"windowed {label}, replayed: launches {got}",
-              got == want_launches(windows, bf16))
+              got == want_launches(windows, bf16, 1))
         grown = sum(engine.graph_replays.values()) - replays0
         check(f"windowed {label}: {grown} replays, want {windows + 1}",
               grown == windows + 1)
@@ -2938,6 +3213,7 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
     from illufly_tts_tpu_torch.audio.telephony import mulaw_decode_np
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
     from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.parallel.mesh import compute_copy, make_mesh
     from illufly_tts_tpu_torch.pipeline import CachedTTSPipeline
     from illufly_tts_tpu_torch.training import loop
@@ -2946,7 +3222,8 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
     t_phase = time.perf_counter()
     torch.backends.cudnn.deterministic = True  # bitwise comparisons below
     out = {"card": card, "cudnn_deterministic": True, "checks": {}}
-    launches = {"istft_oa": 0, **{name: 0 for name in CONV_KERNELS}}
+    launches = {"istft_oa": 0, **{name: 0 for name in CONV_KERNELS},
+                "adain_fold": 0}
     tree = export_flax_params(synth.model)  # phase 4's weights
     voice = "smoke_voice"
 
@@ -2956,8 +3233,9 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
             failures.append(f"phase 13: {label}")
         return ok
 
-    def counted(label, generator_runs):
-        got = check_counts(f"phase 13: {label}", generator_runs)
+    def counted(label, generator_runs, fronts=None):
+        got = check_counts(f"phase 13: {label}", generator_runs,
+                           fronts=fronts)
         for name, n in got.items():
             launches[name] += n
 
@@ -3140,10 +3418,12 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
                                            halo_frames=STREAM_HALO,
                                            exact=False))
             ms = (time.perf_counter() - t0) * 1e3
-            # each replica renders every window; at first use each one's
-            # window capture adds its warm pass
+            # each replica prepares once and renders every window; at
+            # first use each one's prepare and window captures add their
+            # warm passes
             counted(f"windowed stream ({label}) on 2 replicas",
-                    2 * len(chunks) + (2 if label == "first use" else 0))
+                    2 * len(chunks) + (2 if label == "first use" else 0),
+                    fronts=2 * (2 if label == "first use" else 1))
             streams[label] = (chunks, ms, h.f_bucket)
         forced(1, h.t_bucket, h.f_bucket)
         try:
@@ -3339,9 +3619,9 @@ def mesh_phase(torch, np, synth, cfg, requests, layers, vocoder, asc, oa,
         m16 = compute_copy(init, torch.bfloat16, dev)
         master16, seen16 = run(m16, small, master=init)
         got16 = bf16_counts()
-        want16 = {"istft_head_bf16": 2,
-                  **{n: conv_per_generator * 2 for n in BF16_CONV}}
-        f32_launched = oa.launches + sum(asc.launches.values())
+        want16 = {n: kernel_launches(n, conv_per_generator, 2) for n in got16}
+        f32_launched = (oa.launches + sum(asc.launches.values())
+                        + sum(am.launches.values()))
         check("bf16 training launches each bf16 form per Generator pass, no "
               "f32 form", got16 == want16 and f32_launched == 0)
     finally:
@@ -3516,14 +3796,17 @@ def tp_phase(torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa,
     from illufly_tts_tpu_torch.audio.telephony import mulaw_decode_np
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
     from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.parallel.mesh import compute_copy, make_mesh
     from illufly_tts_tpu_torch.training import loop
     from illufly_tts_tpu_torch.training import step as tstep
 
     t_phase = time.perf_counter()
     out = {"card": card, "checks": {}}
-    launches = {"istft_oa": 0, **{name: 0 for name in CONV_KERNELS}}
-    launches16 = {"istft_head_bf16": 0, **{n: 0 for n in BF16_CONV}}
+    launches = {"istft_oa": 0, **{name: 0 for name in CONV_KERNELS},
+                "adain_fold": 0}
+    launches16 = {"istft_head_bf16": 0, **{n: 0 for n in BF16_CONV},
+                  "adain_fold_bf16": 0}
     voice = "smoke_voice"
 
     def check(label, ok):
@@ -3532,17 +3815,21 @@ def tp_phase(torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa,
             failures.append(f"phase 14: {label}")
         return ok
 
-    def counted(label, replicas, passes, bf16=False):
+    def counted(label, replicas, passes, bf16=False, fronts=None):
         """The launches since the last reset against ``passes`` Generator
-        passes on each of ``replicas`` replicas: each fused step once per
-        shard (both meshes' 'model' axes are 2-way), the head once per
-        pass; no launch of the other dtype's forms."""
-        f32 = {"istft_oa": oa.launches, **asc.launches}
-        b16 = {"istft_head_bf16": oa.launches_bf16, **asc.launches_bf16}
+        passes and ``fronts`` F0/N and trunk runs (one a pass where None)
+        on each of ``replicas`` replicas: each fused conv step once per
+        shard (both meshes' 'model' axes are 2-way), the AdaIN pass once a
+        step on the whole x, the head once per pass; no launch of the other
+        dtype's forms."""
+        f32 = {"istft_oa": oa.launches, **asc.launches, **am.launches}
+        b16 = {"istft_head_bf16": oa.launches_bf16, **asc.launches_bf16,
+               **am.launches_bf16}
         got, other = (b16, f32) if bf16 else (f32, b16)
-        head = "istft_head_bf16" if bf16 else "istft_oa"
-        want = {name: replicas * passes * (1 if name == head
-                                           else 2 * conv_per_generator)
+        shards = {name: 1 if "istft" in name or "adain_fold" in name else 2
+                  for name in got}
+        want = {name: replicas * shards[name] * kernel_launches(
+                    name, conv_per_generator, passes, fronts)
                 for name in got}
         log(f"phase 14: {label}: {replicas} replicas x {passes} Generator "
             f"passes, launches {got}")
@@ -3652,9 +3939,11 @@ def tp_phase(torch, np, F, synth, cfg, requests, layers, vocoder, asc, oa,
             h = e12.dispatch(zh, [voice], fmt="f32")
             chunks = list(e12.stream_decode(h, STREAM_WINDOW, STREAM_HALO,
                                             exact=False))
-            # at first use the window's capture adds its warm pass
+            # at first use the prepare's and the window's captures add
+            # their warm passes
             counted(f"windowed stream ({label}) on 1x2", 1,
-                    len(chunks) + (label == "first use"))
+                    len(chunks) + (label == "first use"),
+                    fronts=1 + (label == "first use"))
             streams[label] = chunks
         hs = single.dispatch(zh, [voice], fmt="f32")
         ref = list(single.stream_decode(hs, STREAM_WINDOW, STREAM_HALO,
@@ -3855,12 +4144,14 @@ def pool_phase(torch, np, cfg, requests, card, failures):
     with each stream key's growth; (b) ``POOL_LARGEST`` captured alone in
     a fresh engine, beside the same stage run eagerly and captured by hand
     from an emptied cache: the allocated peak, the reserved growth and the
-    segments of each. Runs on any checkout's engine
-    (``scripts/graph_pool.py --package-root``). -> summary."""
+    segments of each. ``scripts/graph_pool.py`` runs it alone, on this
+    checkout's engine or on another checkout with that checkout's own
+    ``chip_smoke.py``. -> summary."""
     from illufly_tts_tpu_torch.engine.synthesizer import (
         Synthesizer,
         stage_kind,
     )
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
     from illufly_tts_tpu_torch.ops import istft_oa as oa
 
@@ -3879,7 +4170,8 @@ def pool_phase(torch, np, cfg, requests, card, failures):
 
     def launches():
         return {"istft_oa": oa.launches, "istft_head_bf16": oa.launches_bf16,
-                **asc.launches, **asc.launches_bf16}
+                **asc.launches, **asc.launches_bf16, **am.launches,
+                **am.launches_bf16}
 
     def growth(memory):
         if "before" not in memory:
@@ -3931,15 +4223,17 @@ def pool_phase(torch, np, cfg, requests, card, failures):
     out["launches"] = {}  # of the two replays, by kernel
     for name, texts in probes.items():
         reset = dict(synth.graph_replays)
-        for table in (asc.launches, asc.launches_bf16):
+        for table in (asc.launches, asc.launches_bf16, am.launches,
+                      am.launches_bf16):
             for kernel in table:
                 table[kernel] = 0
         oa.launches = oa.launches_bf16 = 0
         got = synth.collect(synth.dispatch(texts, ["smoke_voice"] * len(texts),
                                            fmt="pcm16"))
         want = {name_: 0 for name_ in launches()}
-        want.update({"istft_oa": 1, "adain_snake_conv": conv_per_generator,
-                     "adain_snake_conv_carry": conv_per_generator})
+        want.update({name_: kernel_launches(name_, conv_per_generator, 1)
+                     for name_ in ("istft_oa", "adain_snake_conv",
+                                   "adain_snake_conv_carry", "adain_fold")})
         grown = {k: n - reset.get(k, 0)
                  for k, n in synth.graph_replays.items() if n != reset.get(k, 0)}
         out[f"replay_{name}"] = {
@@ -4096,6 +4390,7 @@ def main() -> None:
         from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
         from illufly_tts_tpu_torch.model import layers, vocoder
         from illufly_tts_tpu_torch.model.config import KokoroConfig
+        from illufly_tts_tpu_torch.ops import adain_moments as am
         from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
         from illufly_tts_tpu_torch.ops import cuda_build
         from illufly_tts_tpu_torch.ops import istft_oa as oa
@@ -4119,7 +4414,8 @@ def main() -> None:
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
-    info = cuda_build.build(["istft_oa", "adain_snake_conv"])
+    info = cuda_build.build(["istft_oa", "adain_snake_conv",
+                             "adain_moments"])
     log(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for name, rec in info.items():
         for line in rec["log"].splitlines():
@@ -4183,6 +4479,7 @@ def main() -> None:
     conv["adain_snake_conv"]["tile_lens"] = [
         time_tile_lens(torch, asc, flush, shape) for shape in
         (conv["adain_snake_conv"]["shape"], (1, 256, 1920, 7, 3))]
+    adain = adain_phase(torch, am, flush, card)
 
     # ---- 4. batch path ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -4193,6 +4490,11 @@ def main() -> None:
     net = cfg.istftnet
     conv_per_generator = len(net.upsample_rates) * (
         3 + sum(len(d) for d in net.resblock_dilation_sizes))  # 24
+    fronts = 2 * sum(isinstance(m, layers.AdainResBlk1d)
+                     for m in synth.model.modules())
+    if fronts != ADAIN_FRONT:
+        fail(f"the model has {fronts} AdaIN1d's outside the Generator, "
+             f"ADAIN_FRONT says {ADAIN_FRONT}")
     requests = REQUESTS
     failures = []
     conv_shapes, head_shapes = record_shapes(layers, vocoder, asc, oa)
@@ -4202,18 +4504,20 @@ def main() -> None:
 
     def reset_counts():
         oa.launches = oa.launches_bf16 = 0
-        for table in (asc.launches, asc.launches_bf16):
+        for table in (asc.launches, asc.launches_bf16, am.launches,
+                      am.launches_bf16):
             for name in table:
                 table[name] = 0
 
-    def check_counts(label, generator_runs, skipped=0):
+    def check_counts(label, generator_runs, skipped=0, fronts=None):
         """The f32 kernels' launches against ``generator_runs`` Generator
-        passes, each ``skipped`` conv launches of each form short (the
-        noise blocks of phase 10's gradient comparison)."""
-        counts = {"istft_oa": oa.launches, **asc.launches}
-        want = {"istft_oa": generator_runs,
-                **{name: (conv_per_generator - skipped) * generator_runs
-                   for name in CONV_KERNELS}}
+        passes, each ``skipped`` fused steps of each form short (the noise
+        blocks of phase 10's gradient comparison), and ``fronts`` F0/N and
+        trunk runs (one a pass where None; ``kernel_launches``)."""
+        counts = {"istft_oa": oa.launches, **asc.launches, **am.launches}
+        want = {name: kernel_launches(name, conv_per_generator,
+                                      generator_runs, fronts, skipped)
+                for name in counts}
         log(f"{label}: {generator_runs} Generator runs, launches {counts}")
         for name, n in counts.items():
             if n == 0 or n != want[name]:
@@ -4314,14 +4618,15 @@ def main() -> None:
     (_, chunks, _, _), stream_first_use = first_use(
         synth, lambda: timed_stream(torch, synth, texts),
         "windowed stream (mixed_4)", card)
-    check_counts("windowed stream, first use (captures)", len(chunks) + 1)
+    check_counts("windowed stream, first use (captures)", len(chunks) + 1,
+                 fronts=first_use_fronts(stream_first_use))
     reset_counts()
     h, chunks, first_ms, stream_ms = timed_stream(torch, synth, texts)
     windows = h.f_bucket // STREAM_WINDOW
     max_total = int(h.fitted_totals[: h.n].max())
     want_lens = [min(STREAM_WINDOW, max_total - lo) * 600
                  for lo in range(0, max_total, STREAM_WINDOW)]
-    stream_counts = check_counts("windowed stream", len(chunks))
+    stream_counts = check_counts("windowed stream", len(chunks), fronts=1)
     if [c.shape for c in chunks] != [(h.n, n) for n in want_lens]:
         failures.append(f"windowed chunks {[c.shape for c in chunks]}, "
                         f"want {want_lens}")
@@ -4477,6 +4782,17 @@ def main() -> None:
     # ---- 15. the graph pool ---------------------------------------------------
     pool = pool_phase(torch, np, cfg, requests, card, failures)
 
+    seen = sorted(ADAIN_SEEN)
+    log(f"adain_fold vs plain at the {len(seen)} shapes the main path gave "
+        "it in phases 4-5, 7, 8, 10, 11 and 13:")
+    t0 = time.perf_counter()
+    err, err_abs = check_adain(torch, am, seen)
+    log(f"  in {time.perf_counter() - t0:.1f} s ({card})")
+    for row in adain.values():
+        row["err_over_peak"] = max(row["err_over_peak"], err)
+        row["max_abs_err"] = max(row["max_abs_err"], err_abs)
+        row["main_path_shapes_checked"] = len(seen)
+
     if failures:
         for f in failures:
             print(f"FAIL: {f}", file=sys.stderr)
@@ -4542,6 +4858,41 @@ def main() -> None:
                             "already activated input, with the bias",
             "bound_note": "3xTF32 tensor cores (3 x 2 B L C^2 k / 495e12); "
                           "bound_f32_ms: f32 CUDA cores (/ 67e12)",
+            "card": card,
+        })
+    for name, bf16_form in (("adain_fold", False), ("adain_fold_bf16", True)):
+        rows.append({
+            "name": name,
+            "route": "cuda",
+            "source": "illufly_tts_tpu_torch/csrc/adain_moments.cu",
+            "replaces": "illufly_tts_tpu/ops/pallas/fused_conv.py:157",
+            "replaces_note": "no Pallas kernel: the XLA reduction the JAX "
+                             "package runs outside its conv kernels "
+                             "(instance_moments + fold_adain, fused_conv.py"
+                             ":157-179) and in AdaIN1d (model/layers.py:"
+                             "99-106)",
+            "role": "every AdaIN of stage B" + (", bfloat16 model"
+                                                if bf16_form else "")
+                    + f": two a fused Generator step, {ADAIN_FRONT} in the "
+                      "F0/N towers and the decoder trunk",
+            **adain[name],
+            **({"launches": bf16["bench"]["bf16/pcm16"]["launches"][name],
+                "launches_stream": bf16["stream"]["launches"][name]}
+               if bf16_form else {
+                "launches": counts[name],
+                "launches_stream": stream_counts[name],
+                "stage_b_runs": stage_b_runs,
+                "launches_serving": serving["launches"][name],
+                "launches_per_text_request": serving["launches"][name]
+                / len(TASKS),
+                "launches_http": http["launches"][name],
+                "launches_training": training["launches"][name],
+                "backward_recompute": training["recompute"][name]}),
+            "library_note": "torch.var_mean(x, dim=-1, correction=0): the "
+                            "unmasked moments alone in one call, no mask, "
+                            "no fold",
+            "bound_note": "bytes: x, the mask, gamma and beta read once, "
+                          "scale and shift written once, over 3.35e12 B/s",
             "card": card,
         })
     head16 = bf16_rows["istft_head_bf16"]

@@ -48,6 +48,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops import adain_moments as am
 from ..ops import adain_snake_conv as asc
 from ..ops import istft_oa as oa
 from ..ops.capture_tally import captured
@@ -59,6 +60,8 @@ def add_launches(tally: Dict[str, int], times: int = 1) -> None:
     for name, n in tally.items():
         if name in ("istft_oa", "istft_head_bf16"):
             oa.count_launch(name == "istft_head_bf16", n * times)
+        elif name in ("adain_fold", "adain_fold_bf16"):
+            am.count_launch(name, n * times)
         else:
             asc.count_launch(name, n * times)
 

@@ -27,12 +27,11 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from ..ops.adain_moments import adain_fold
 from ..ops.adain_snake_conv import (
     _wide,
     adain_snake_conv,
     adain_snake_conv_carry,
-    fold_adain,
-    instance_moments,
     pack_weights,
 )
 
@@ -88,8 +87,12 @@ class LSTM(nn.Module):
 
 
 class AdaIN1d(nn.Module):
-    """Style-conditioned instance norm over time. x [B, C, T], s [B, S];
-    a bfloat16 x is normalized in float32 and rounded once."""
+    """Style-conditioned instance norm over time. x [B, C, T], s [B, S].
+    The masked moments come from the AdaIN statistics pass
+    (``ops/adain_moments.py``: the kernel on CUDA). x is centered before it
+    is scaled, as in the JAX layer: folded into ``x * scale + shift``, the
+    backward would cancel where |mean| >> std. A bfloat16 x is normalized
+    in float32 and rounded once."""
 
     def __init__(self, style_dim: int, channels: int):
         super().__init__()
@@ -97,16 +100,13 @@ class AdaIN1d(nn.Module):
 
     def forward(self, x, s, mask: Optional[torch.Tensor] = None):
         gamma, beta = _wide(self.fc(s))[:, :, None].chunk(2, dim=1)
-        xf = _wide(x)
         if mask is not None:
-            m = mask[:, None, :].to(xf.dtype)
-            count = m.sum(dim=-1, keepdim=True).clamp(min=1.0)
-            mean = (xf * m).sum(dim=-1, keepdim=True) / count
-            var = ((xf - mean) ** 2 * m).sum(dim=-1, keepdim=True) / count
-        else:
-            mean = xf.mean(dim=-1, keepdim=True)
-            var = xf.var(dim=-1, keepdim=True, unbiased=False)
-        x_norm = (xf - mean) * torch.rsqrt(var + 1e-5)
+            mask = mask.float().contiguous()
+        # the kernel takes a contiguous x; on the CPU the plain moments sum
+        # x as it lies (the F0/N towers hand over a transposed one)
+        mean, rstd = adain_fold(x.contiguous() if x.is_cuda else x, mask,
+                                None, None)
+        x_norm = (_wide(x) - mean[:, :, None]) * rstd[:, :, None]
         return ((1.0 + gamma) * x_norm + beta).to(x.dtype)
 
 
@@ -218,13 +218,14 @@ class AdaSnakeResBlock(nn.Module):
     (iSTFTNet AdaINResBlock1 shape), channels-first. The alphas are
     ``[1, C, 1]`` (flax keeps ``[1, 1, C]``).
 
-    Each AdaIN -> snake -> mask -> conv step runs as one fused call
-    (``ops/adain_snake_conv.py``): the masked instance moments are folded
-    with the style affine into a per-(batch, channel) scale/shift, which
-    the call applies before its conv. ``conv1_j`` (dilation d_j) goes to
-    the walking-carry kernel, ``conv2_j`` (dilation 1) to the halo-tile
-    kernel. As in ``AdaIN1d``, the moments of conv1's output are taken over
-    the unmasked conv output with masked weights.
+    Each AdaIN -> snake -> mask -> conv step runs as two calls: the masked
+    instance moments folded with the style affine into a per-(batch,
+    channel) scale/shift (``ops/adain_moments.py``), then one fused call
+    (``ops/adain_snake_conv.py``) that applies them before its conv.
+    ``conv1_j`` (dilation d_j) goes to the walking-carry kernel,
+    ``conv2_j`` (dilation 1) to the halo-tile kernel. As in ``AdaIN1d``,
+    the moments of conv1's output are taken over the unmasked conv output
+    with masked weights.
 
     bfloat16 (the Pallas kernels' bf16 form): x and the conv outputs are
     bfloat16; the moments, the folded scale/shift, the alphas and the conv
@@ -299,8 +300,7 @@ class AdaSnakeResBlock(nn.Module):
             if isinstance(alpha, nn.Module):  # split: gathered here
                 alpha = alpha(h.device)
             gamma, beta = _wide(adain.fc(s)).chunk(2, dim=1)
-            scale, shift = fold_adain(*instance_moments(h, kernel_mask),
-                                      gamma, beta)
+            scale, shift = adain_fold(h, kernel_mask, gamma, beta)
             inputs = (h, kernel_mask, scale, shift, alpha.reshape(-1))
             # a column-parallel conv (parallel/tensor.py): each shard runs
             # the fused call on its device at its output channels, from the

@@ -43,8 +43,9 @@ On CUDA the launch goes through ``ops/kernel_grad.py::kernel_call``: where
 autograd records, the gradients of x, scale, shift, alpha, w and b come
 from ``adain_snake_conv_plain`` recomputed in the backward (the mask gets
 none).
-``instance_moments`` and ``fold_adain`` give the folded AdaIN scale/shift;
-like the JAX package, they stay plain tensor ops.
+``instance_moments`` and ``fold_adain`` give the folded AdaIN scale/shift
+in plain tensor ops: the plain version of ``ops/adain_moments.py``'s
+kernel, which computes them on CUDA.
 """
 from __future__ import annotations
 

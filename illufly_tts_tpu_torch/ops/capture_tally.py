@@ -2,7 +2,8 @@
 """Kernel launches made while a CUDA graph is captured.
 
 The kernel wrappers count each launch when Python calls them
-(``count_launch`` in ``ops/istft_oa.py`` and ``ops/adain_snake_conv.py``).
+(``count_launch`` in ``ops/istft_oa.py``, ``ops/adain_snake_conv.py`` and
+``ops/adain_moments.py``).
 A capture runs the wrappers but executes no kernel, and a replay executes
 the kernels but runs no Python. So while this thread captures
 (``captured()``), its wrappers' counts go into the capture's own tally

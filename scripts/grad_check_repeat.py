@@ -8,13 +8,17 @@ Each run trains a fresh copy of the engine's seeded random weights
 (``Synthesizer(KokoroConfig(), seed=0)``) for 3 ``train()`` steps at the
 JAX ``train`` CLI's defaults (B=8, 64 tokens, 128 frames), as phase 10
 does, then compares one batch's gradients through the kernels with those
-through the plain versions twice: as phase 10 does (the Generator's noise
-blocks plain in both passes, ``chip_smoke.NOISE_BLOCK``), and with the noise
-blocks through the kernels too (the comparison before that repair). Prints
-each run's worst and median relative L2 over the non-degenerate leaves,
-then one JSON line with every run, the worst reading and the card's name and
-power limit (also written to ``--out``). Exits 1 if a run fails phase 10's
-check (``GRAD_TOL``, the degenerate leaves' bound, no zero gradients).
+through the plain versions three times: as phase 10 does (the Generator's
+noise blocks and the F0/N towers' and the trunk's ``AdaIN1d`` moments
+plain in both passes, ``chip_smoke.NOISE_BLOCK`` and
+``chip_smoke.gradient_passes``); with the noise blocks through the kernels
+too (``noise_blocks_kernel``, the comparison before that repair); and with
+the front's ``AdaIN1d`` moments through the AdaIN pass's kernel too
+(``front_kernel``). Prints each run's worst and median relative L2 over
+the non-degenerate leaves, then one JSON line with every run, the worst
+readings and the card's name and power limit (also written to ``--out``).
+Exits 1 if a run fails phase 10's check (``GRAD_TOL``, the degenerate
+leaves' bound, no zero gradients).
 
 Before the runs it measures what the comparison rests on: one fused conv
 at the training shape [8, 128, 15360, k=11, d=5] through the f32 kernel
@@ -151,15 +155,17 @@ def main() -> int:
                                            asc, oa)
             print(f"each pass repeated ((worst, median) relative L2): "
                   f"{diagnosis['repeats']}", flush=True)
-        for label, noise_plain in (("phase10", True), ("noise_blocks_kernel",
-                                                       False)):
+        for label, noise_plain, front_plain in (
+                ("phase10", True, True), ("noise_blocks_kernel", False, True),
+                ("front_kernel", True, False)):
             through, plain = smoke.gradient_passes(
                 torch, model, drawn[0], shape["frames"], layers, vocoder,
-                asc, oa, noise_blocks_plain=noise_plain)
+                asc, oa, noise_blocks_plain=noise_plain,
+                front_plain=front_plain)
             summary, wrong = smoke.compare_gradients(through, plain)
             row[label] = {key: summary[key] for key in (
                 "worst_rel_l2", "worst_leaf", "median_rel_l2")}
-            if noise_plain and wrong:
+            if label == "phase10" and wrong:
                 row["failed"] = wrong
                 failed = True
             del through, plain
@@ -171,7 +177,10 @@ def main() -> int:
               f"the kernels too: worst "
               f"{row['noise_blocks_kernel']['worst_rel_l2']:.3e} "
               f"({row['noise_blocks_kernel']['worst_leaf']}), median "
-              f"{row['noise_blocks_kernel']['median_rel_l2']:.3e}"
+              f"{row['noise_blocks_kernel']['median_rel_l2']:.3e}; the "
+              f"front's AdaIN1d through the kernel too: worst "
+              f"{row['front_kernel']['worst_rel_l2']:.3e} "
+              f"({row['front_kernel']['worst_leaf']})"
               f"{'; FAILED ' + str(row['failed']) if 'failed' in row else ''}",
               flush=True)
         del model
@@ -180,6 +189,8 @@ def main() -> int:
            "worst": max(r["phase10"]["worst_rel_l2"] for r in runs),
            "worst_noise_blocks_kernel": max(
                r["noise_blocks_kernel"]["worst_rel_l2"] for r in runs),
+           "worst_front_kernel": max(
+               r["front_kernel"]["worst_rel_l2"] for r in runs),
            "card": card}
     line = json.dumps(out)
     print(line, flush=True)

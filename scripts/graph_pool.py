@@ -6,11 +6,12 @@ checkout's engine, on one CUDA card.
 
 Runs ``chip_smoke.pool_phase`` (``warmup()`` with the JAX engine's default
 arguments on a fresh engine, two first-use windowed streams after it, the
-largest key captured alone beside its stage run eagerly) on the
-``illufly_tts_tpu_torch`` package in DIR (default: this checkout), so that
-another checkout's engine is measured by the same code: unpack it with
-``git archive <commit> illufly_tts_tpu_torch | tar -x -C build/parent``
-and pass ``--package-root build/parent``. TF32 is off, as in
+largest key captured alone beside its stage run eagerly) on the checkout in
+DIR (default: this one), its ``illufly_tts_tpu_torch`` package with its own
+``chip_smoke.py``, so that each checkout's engine is measured by the phase
+that counts its kernels: unpack another commit with ``git archive <commit>
+| tar -x -C build/parent`` and pass ``--package-root build/parent``. TF32
+is off, as in
 ``chip_smoke.py``. Prints the phase's lines, the card's name and power
 limit and, last, the phase's JSON summary (also written to FILE); exits 1
 if one of its checks failed.
@@ -29,7 +30,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--package-root", default=REPO,
-                        help="directory holding illufly_tts_tpu_torch/")
+                        help="checkout holding illufly_tts_tpu_torch/ and "
+                        "chip_smoke.py")
     parser.add_argument("--out", default=None, help="JSON summary file")
     args = parser.parse_args()
     sys.path.insert(0, REPO)

@@ -85,6 +85,8 @@ CLASSES = (  # first match wins
     ("adain_snake_conv_bf16", r"adain_snake_conv_tile_bf16"),
     ("adain_snake_conv_carry", r"adain_snake_conv_carry"),
     ("adain_snake_conv", r"adain_snake_conv_tile"),
+    # the AdaIN statistics pass, both launches, f32 and bf16 x
+    ("adain_fold", r"chunk_moments|finish_rows"),
     # the weight split both conv wrappers launch before their kernel
     ("conv_weight_split", r"split_weights_kernel"),
     ("lstm", r"(?i)rnn|lstm"),
@@ -253,6 +255,7 @@ def main() -> int:
     from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
     from illufly_tts_tpu_torch.model.config import KokoroConfig
     from illufly_tts_tpu_torch.model.params import export_flax_params
+    from illufly_tts_tpu_torch.ops import adain_moments as am
     from illufly_tts_tpu_torch.ops import adain_snake_conv as asc
     from illufly_tts_tpu_torch.ops import istft_oa as oa
     from illufly_tts_tpu_torch.utils.profiling import device_trace
@@ -333,7 +336,8 @@ def main() -> int:
             torch.cuda.synchronize()
             unprofiled.append((time.perf_counter() - t0) * 1e3)
         oa.launches = oa.launches_bf16 = 0
-        for table in (asc.launches, asc.launches_bf16):
+        for table in (asc.launches, asc.launches_bf16, am.launches,
+                      am.launches_bf16):
             table.update({k: 0 for k in table})
         for span in spans.values():
             span.clear()
@@ -345,7 +349,8 @@ def main() -> int:
             wall_us = (time.perf_counter() - t0) * 1e6
         extra["launches"] = {"istft_oa": oa.launches, **asc.launches,
                              "istft_head_bf16": oa.launches_bf16,
-                             **asc.launches_bf16}
+                             **asc.launches_bf16, **am.launches,
+                             **am.launches_bf16}
         for key, span in spans.items():
             if span:
                 extra[f"{key}_span_ms_each"] = sum(
