@@ -1,0 +1,9 @@
+"""Share of the traced window in which no operation ran on the device:
+one minus the union of the device's operation intervals over the window."""
+
+
+def read(run):
+    t = run.trace
+    if not t:
+        return None
+    return 100.0 * (1.0 - t["busy_s"] / t["window_s"])

@@ -1,0 +1,9 @@
+"""Share of the window's Generator passes (iSTFT launches, one a pass)
+that came from a replayed stage-B CUDA graph."""
+
+
+def read(run):
+    passes = run.after["generator_passes"] - run.before["generator_passes"]
+    if passes <= 0:
+        return None
+    return 100.0 * (run.after["replays_b"] - run.before["replays_b"]) / passes
