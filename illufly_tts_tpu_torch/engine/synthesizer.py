@@ -97,6 +97,7 @@ from ..model.vocab import encode as encode_phonemes
 from .buckets import BATCH_BUCKETS, FRAME_BUCKETS, TOKEN_BUCKETS, pick
 from ..parallel.mesh import make_mesh, shard_params
 from .graphs import StageGraph, expandable_segments
+from ..utils.profiling import TIMERS
 
 logger = logging.getLogger(__name__)
 
@@ -155,7 +156,7 @@ class DispatchHandle:
         "n", "b_bucket", "t_bucket", "ids", "mask", "ref", "d",
         "pred_dur", "totals", "f_bucket", "device_audio", "audio",
         "fitted_totals", "fmt", "keep_durations", "host_pred_dur", "pitch",
-        "ts_ctx", "shards",
+        "ts_ctx", "shards", "batch_id", "model_t0_ns", "model_s",
     )
 
     def __init__(self, n, b_bucket, t_bucket, ids, mask, ref, d,
@@ -181,6 +182,11 @@ class DispatchHandle:
         # under a mesh: each replica's handle of its rows, in row order
         # (this handle then holds no tensors of its own)
         self.shards: Optional[List["DispatchHandle"]] = None
+        # the batch's spans (utils/profiling.py): its id, its ``model``
+        # span's start (while recording) and the seconds of its children
+        self.batch_id = None
+        self.model_t0_ns = None
+        self.model_s = 0.0
 
 
 def stage_kind(key: tuple) -> str:
@@ -334,9 +340,16 @@ class _Replica:
             with self._graph_lock:
                 self.graph_replays[key] += 1
             return out
+        kind = stage_kind(key)
         with self._graph_lock:
+            # while recording, stage A and B replays get a device span:
+            # under the lock no other thread's work falls inside the pair
+            opened = (TIMERS.device_start("stage_" + kind, self.device)
+                      if kind in ("a", "b") else None)
             out = graph.run(inputs)
             self.graph_replays[key] += 1
+            if opened is not None:
+                TIMERS.device_end(opened)
         return out
 
     def _capture(self, key: tuple, inputs, cpu_pass: bool = True,
@@ -726,7 +739,6 @@ class Synthesizer(_Replica):
 
     # --- synthesis -------------------------------------------------------------
 
-    @torch.inference_mode()
     def dispatch(
         self,
         phonemes_list: Sequence[str],
@@ -739,7 +751,18 @@ class Synthesizer(_Replica):
         """Stage the batch and launch stage A. Returns a handle for
         ``launch_decode``/``collect``. The per-item frame totals start a
         non-blocking copy to host at once, so ``launch_decode`` rarely
-        waits for them."""
+        waits for them. Timed as the batch's ``dispatch`` span."""
+        batch = TIMERS.batch_id()
+        with TIMERS.track("dispatch", batch=batch, parent="model") as span:
+            handle = self._dispatch(phonemes_list, voice_ids, speeds, fmt,
+                                    keep_durations, pitches)
+        handle.batch_id, handle.model_t0_ns = batch, span.t0_ns
+        handle.model_s = span.seconds
+        return handle
+
+    @torch.inference_mode()
+    def _dispatch(self, phonemes_list, voice_ids, speeds, fmt,
+                  keep_durations, pitches) -> DispatchHandle:
         n = len(phonemes_list)
         if n > self.batch_buckets[-1]:
             raise ValueError(
@@ -878,14 +901,18 @@ class Synthesizer(_Replica):
 
     def launch_decode(self, handle: DispatchHandle) -> DispatchHandle:
         """Pick the frame bucket, launch stage B and the non-blocking copy
-        of its whole output to host (each replica's shard). Idempotent."""
+        of its whole output to host (each replica's shard). Idempotent;
+        the launch is timed as the batch's ``launch`` span."""
         if handle.audio is None:
-            self._decode(handle)
-            shards = [sh for _, sh in self._shards(handle)]
-            handle.audio = _gathered([_HostCopy(sh.device_audio)
-                                      for sh in shards])
-            for sh in shards:
-                sh.device_audio = None
+            with TIMERS.track("launch", batch=handle.batch_id,
+                              parent="model") as span:
+                self._decode(handle)
+                shards = [sh for _, sh in self._shards(handle)]
+                handle.audio = _gathered([_HostCopy(sh.device_audio)
+                                          for sh in shards])
+                for sh in shards:
+                    sh.device_audio = None
+            handle.model_s += span.seconds
         return handle
 
     def _frame_samples(self, fmt: str) -> int:
@@ -914,15 +941,22 @@ class Synthesizer(_Replica):
         Returns float32 @24k by default, int16 @24k with ``pcm16=True``,
         or uint8 G.711 mu-law @8k for a ``mulaw8k`` handle (``pcm16`` is
         ignored then). A ``mulaw24k`` handle shipped uint8 mu-law @24k and
-        comes back as PCM @24k, quantized to the mu-law grid."""
+        comes back as PCM @24k, quantized to the mu-law grid. The wait,
+        trim and expand are the batch's ``collect`` span, which closes its
+        ``model`` span."""
         self.launch_decode(handle)
-        audio_np = handle.audio.numpy()
-        spf = self._frame_samples(handle.fmt)
-        out = [
-            self._expand(audio_np[i, : int(handle.fitted_totals[i]) * spf],
-                         handle.fmt, pcm16)
-            for i in range(handle.n)
-        ]
+        with TIMERS.track("collect", batch=handle.batch_id,
+                          parent="model") as span:
+            audio_np = handle.audio.numpy()
+            spf = self._frame_samples(handle.fmt)
+            out = [
+                self._expand(
+                    audio_np[i, : int(handle.fitted_totals[i]) * spf],
+                    handle.fmt, pcm16)
+                for i in range(handle.n)
+            ]
+        TIMERS.add("model", handle.model_s + span.seconds,
+                   t0_ns=handle.model_t0_ns, batch=handle.batch_id)
         if not getattr(self._in_throwaway, "on", False):
             self._first_serve.set()  # releases warmup_staged's background
         return out
@@ -1024,7 +1058,8 @@ class Synthesizer(_Replica):
             )
         # each replica prepares its rows and renders their windows; a
         # chunk is the replicas' windows, rows in order
-        with torch.inference_mode():
+        with torch.inference_mode(), TIMERS.track(
+                "stream_prepare", batch=handle.batch_id):
             preps = [rep._run_stage(
                 ("prep", sh.b_bucket, sh.t_bucket, f_bucket),
                 (sh.ids, sh.mask, sh.d, sh.pred_dur, sh.ref, sh.pitch))
@@ -1045,7 +1080,8 @@ class Synthesizer(_Replica):
 
         def render(k: int):
             copies = []
-            with torch.inference_mode():
+            with torch.inference_mode(), TIMERS.track(
+                    "stream_window", batch=handle.batch_id):
                 for (rep, sh), prep, start in zip(shards, preps, starts):
                     (audio,) = rep._run_stage(
                         ("win", sh.b_bucket, f_bucket, 2 * window_frames,

@@ -17,7 +17,6 @@ import logging
 import os
 import re
 import threading
-import time
 from typing import Dict, Generator, List, Optional, Sequence
 
 import numpy as np
@@ -584,16 +583,13 @@ class TTSPipeline:
             speeds = [1.0] * len(texts)
         if output_format not in ("f32", "pcm16", "mulaw8k", "mulaw24k"):
             raise ValueError(f"unknown output_format: {output_format!r}")
-        from .utils.profiling import TIMERS
-
         try:
             ipa_list = self._texts_to_ipa(texts)
-            with TIMERS.track("model"):
-                fmt, pcm16 = self._device_fmt(output_format)
-                return self.synthesizer.synthesize_batch(
-                    ipa_list, voice_ids, speeds, pcm16=pcm16, fmt=fmt,
-                    pitches=pitches,
-                )
+            fmt, pcm16 = self._device_fmt(output_format)
+            return self.synthesizer.synthesize_batch(
+                ipa_list, voice_ids, speeds, pcm16=pcm16, fmt=fmt,
+                pitches=pitches,
+            )
         except Exception:
             if not self.fail_silent:
                 raise
@@ -631,13 +627,12 @@ class TTSPipeline:
                     for n in normalized
                 ]
             fmt, pcm16 = self._device_fmt(output_format)
-            with TIMERS.track("model"):
-                handle = self.synthesizer.dispatch(
-                    ipa_list, voice_ids, speeds, fmt=fmt,
-                    keep_durations=True, pitches=pitches,
-                )
-                audios = self.synthesizer.collect(handle, pcm16=pcm16)
-                fitted = self.synthesizer.rendered_durations(handle)
+            handle = self.synthesizer.dispatch(
+                ipa_list, voice_ids, speeds, fmt=fmt,
+                keep_durations=True, pitches=pitches,
+            )
+            audios = self.synthesizer.collect(handle, pcm16=pcm16)
+            fitted = self.synthesizer.rendered_durations(handle)
         except Exception:
             if not self.fail_silent:
                 raise
@@ -755,12 +750,9 @@ class TTSPipeline:
 
     def collect_batch(self, handle, output_format: str = "f32"):
         """Fetch a dispatched batch's audio in the requested format."""
-        from .utils.profiling import TIMERS
-
-        with TIMERS.track("model"):
-            return self.synthesizer.collect(
-                handle, pcm16=(output_format in ("pcm16", "mulaw24k"))
-            )
+        return self.synthesizer.collect(
+            handle, pcm16=(output_format in ("pcm16", "mulaw24k"))
+        )
 
     def _device_fmt(self, output_format: str):
         """Map a requested output format to ``(device fmt, pcm16 flag)``
@@ -849,6 +841,9 @@ class CachedTTSPipeline(TTSPipeline):
     # memory bounds for long-running servers (oldest-inserted evicted first)
     TEXT_CACHE_LIMIT = 20000
     AUDIO_CACHE_LIMIT = 512
+    # the frontend's three caches and the audio cache (rows served from it,
+    # counted in ``_plan_audio_batch``)
+    CACHE_KINDS = ("text", "phoneme", "ipa", "audio")
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -860,7 +855,7 @@ class CachedTTSPipeline(TTSPipeline):
         self._cache_lock = threading.Lock()
         self.cache_stats = {
             f"{k}_{kind}": 0
-            for k in ("voice", "text", "phoneme", "ipa")
+            for k in self.CACHE_KINDS
             for kind in ("hits", "misses")
         }
 
@@ -870,7 +865,6 @@ class CachedTTSPipeline(TTSPipeline):
             if cache_key in self._cache:
                 self.cache_stats[f"{kind}_hits"] += 1
                 return self._cache[cache_key]
-        start = time.time()
         # compute outside the lock: concurrent misses on the same key do
         # duplicate work (benign) instead of serializing the frontend
         result = compute()
@@ -879,7 +873,6 @@ class CachedTTSPipeline(TTSPipeline):
                 self._cache.pop(next(iter(self._cache)))
             self._cache[cache_key] = result
             self.cache_stats[f"{kind}_misses"] += 1
-        logger.debug("%s cache miss (%.3fs)", kind, time.time() - start)
         return result
 
     def _audio_cache_get(self, key: str) -> Optional[np.ndarray]:
@@ -917,8 +910,9 @@ class CachedTTSPipeline(TTSPipeline):
         )
 
     def get_cache_stats(self) -> Dict[str, float]:
-        stats = dict(self.cache_stats)
-        for kind in ("voice", "text", "phoneme", "ipa"):
+        with self._cache_lock:
+            stats = dict(self.cache_stats)
+        for kind in self.CACHE_KINDS:
             hits = stats[f"{kind}_hits"]
             misses = stats[f"{kind}_misses"]
             total = hits + misses
@@ -970,6 +964,9 @@ class CachedTTSPipeline(TTSPipeline):
             results.append(audio)
             if audio is None:
                 uncached.append(i)
+        with self._cache_lock:
+            self.cache_stats["audio_hits"] += len(texts) - len(uncached)
+            self.cache_stats["audio_misses"] += len(uncached)
         # dedup identical (text, voice, speed, pitch) inside the batch
         # (reference pipeline.py:574-584)
         unique: Dict[tuple, int] = {}

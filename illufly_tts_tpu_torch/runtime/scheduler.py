@@ -37,8 +37,16 @@ import numpy as np
 
 from ..audio.wav import save_wav
 from ..pipeline import CachedTTSPipeline
+from ..utils.profiling import TIMERS
 
 logger = logging.getLogger(__name__)
+
+
+def _record_wait(name: str, t0: float, t1: float, task_id: str,
+                 parent: Optional[str] = None) -> None:
+    """One task's wait from ``t0`` to ``t1`` (``time.time()``) as a span."""
+    TIMERS.add(name, t1 - t0, t0_ns=int(t0 * 1e9), t1_ns=int(t1 * 1e9),
+               batch=task_id, parent=parent)
 
 
 class TaskStatus(str, Enum):
@@ -58,6 +66,7 @@ class TTSTask:
     user_id: Optional[str] = None
     status: TaskStatus = TaskStatus.PENDING
     created_at: float = field(default_factory=time.time)
+    dispatched_at: Optional[float] = None  # selected into a batch
     completed_at: Optional[float] = None
     error: Optional[str] = None
     sequence_id: float = field(default_factory=time.time)
@@ -67,6 +76,7 @@ class TTSTask:
     pitch: float = 1.0          # F0 scale (1.0 = neutral)
     want_timestamps: bool = False
     timestamps: Optional[List[Dict[str, Any]]] = None  # word-level, opt-in
+    coalesce_s: float = 0.0  # of its queue wait, in the coalescing window
 
     def to_status_dict(self) -> Dict[str, Any]:
         return {
@@ -74,6 +84,7 @@ class TTSTask:
             "status": self.status.value,
             "user_id": self.user_id,
             "created_at": self.created_at,
+            "dispatched_at": self.dispatched_at,
             "completed_at": self.completed_at,
             "error": self.error,
             "sequence_id": self.sequence_id,
@@ -168,8 +179,6 @@ class TTSServiceManager:
         if callable(get_cache_stats):
             out["cache"] = get_cache_stats()
         out["pending"] = self._pending_count
-        from ..utils.profiling import TIMERS
-
         out["stage_timers"] = TIMERS.snapshot()
         return out
 
@@ -379,8 +388,15 @@ class TTSServiceManager:
         task = self.tasks.get(task_id)
         if task is None:
             raise ValueError(f"unknown task: {task_id}")
+        polled = False
         while task.status in (TaskStatus.PENDING, TaskStatus.PROCESSING):
+            polled = True
             await asyncio.sleep(0.05)
+        if polled and task.completed_at is not None:
+            # the poll's lag behind the task's end (a task finished before
+            # the call is not the poll's)
+            _record_wait("poll_wait", task.completed_at, time.time(),
+                         task.task_id)
         if task.status != TaskStatus.COMPLETED:
             return
         for i, chunk in enumerate(task.audio_chunks):
@@ -511,6 +527,7 @@ class TTSServiceManager:
                     texts, voices, speeds,
                     self._fmt_for("dispatch_texts", fmt),
                     want if any(want) else None, pitch_kw,
+                    [t.task_id for t in batch],
                 )
                 if stamps is not None:
                     for task, ts in zip(batch, stamps):
@@ -615,7 +632,7 @@ class TTSServiceManager:
             self._wakeup.set()  # the loop may now select this batch's users
 
     async def _run_batch_split(self, texts, voices, speeds, fmt,
-                               want=None, pitch_kw=None):
+                               want=None, pitch_kw=None, task_ids=()):
         """Decode-ahead pipelining through the pipeline's split-phase
         surface: batch k+1's host frontend + stage A run while batch k
         decodes, and collecting batch k first launches batch k+1's stage B
@@ -623,18 +640,23 @@ class TTSServiceManager:
         collect strictly FIFO (the order their stage A was dispatched), so
         completion order stays deterministic under concurrency. Returns
         ``(audios, stamps_or_None)``; ``want`` asks for per-row word
-        timestamps (rides the same dispatch)."""
+        timestamps (rides the same dispatch). The wait for the head of the
+        queue is each task's ``head_wait`` (``task_ids``)."""
         handle = await asyncio.to_thread(
             self._dispatch_split, texts, voices, speeds, fmt, want,
             pitch_kw or {},
         )
         self._decode_q.append(handle)
         try:
+            queued = time.time()
             # single event loop: no other coroutine runs between the head
             # check, clear() and wait(), so the wakeup cannot be missed
             while self._decode_q[0] is not handle:
                 self._head_event.clear()
                 await self._head_event.wait()
+            head = time.time()
+            for task_id in task_ids:
+                _record_wait("head_wait", queued, head, task_id)
             return await asyncio.to_thread(
                 self._decode_collect, handle, fmt, want
             )
@@ -700,12 +722,24 @@ class TTSServiceManager:
                 oldest = min(t.created_at for t in batch)
                 remaining = self.max_wait_time - (time.time() - oldest)
                 if remaining > 0:
+                    began = time.time()
                     await self._wait_for_work(timeout=remaining)
+                    waited = time.time() - began
+                    for task in batch:
+                        task.coalesce_s += waited
                     continue  # re-select: more tasks may have arrived
+            now = time.time()
             for task in batch:
                 task.status = TaskStatus.PROCESSING
+                task.dispatched_at = now
                 self._pending_count -= 1
                 self._in_flight_users.add(task.user_id)
+                # its queue wait, and the part of it in the window (as one
+                # span ending at the selection)
+                _record_wait("queue_wait", task.created_at, now,
+                             task.task_id)
+                _record_wait("coalesce_wait", now - task.coalesce_s, now,
+                             task.task_id, parent="queue_wait")
             runner = asyncio.create_task(self._run_batch(batch))
             self._active.add(runner)
             runner.add_done_callback(self._active.discard)
