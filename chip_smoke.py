@@ -23,7 +23,13 @@ From the root of a checkout. It
    peak and bitwise repeatable at ragged, unmasked and all-zero masks, timed
    at ``ADAIN_TIMED`` beside its byte bound and ``torch.var_mean``; at the
    end of the run it is held to its plain version again at every shape the
-   main path gave it);
+   main path gave it); then (3b) the row extents: each bf16 conv form and
+   the AdaIN pass given the mask's row extents, bitwise to the same launch
+   with full extents and without, at ``EXTENT_SHAPES`` and every (k, d),
+   the columns tally against ``work_plan``, and each conv form timed at
+   the offline cell's extents and at full extents (``check_extents``;
+   ``scripts/conv_extents.py`` times a Generator pass and the full-mask
+   shapes against another checkout);
 4. drives the batch path — ``Synthesizer.synthesize_batch`` and
    ``dispatch -> launch_decode -> collect`` at the full ``KokoroConfig()``
    with seeded random weights and a random voice — on three requests in
@@ -855,18 +861,20 @@ def adain_phase(torch, am, flush, card):
 def recorded_fold(fn, shapes):
     """The AdaIN pass ``fn`` that also records each call's (B, C, L, x
     dtype, mask kind)."""
-    def call(x, mask, gamma, beta):
+    def call(x, mask, gamma, beta, extent=None):
         shapes.add((*x.shape, str(x.dtype).split(".")[-1],
                     "none" if mask is None else "ragged"))
-        return fn(x, mask, gamma, beta)
+        return fn(x, mask, gamma, beta, extent=extent)
     return call
 
 
 def recorded(fn, shapes):
     """``fn`` that also records each call's (B, C_in, L, k, d)."""
-    def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1):
+    def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1,
+             extent=None):
         shapes.add((x.shape[0], x.shape[1], x.shape[2], kernel, dilation))
-        return fn(x, mask, scale, shift, alpha, w, b, kernel, dilation)
+        return fn(x, mask, scale, shift, alpha, w, b, kernel, dilation,
+                  extent=extent)
     return call
 
 
@@ -1939,9 +1947,9 @@ def gradient_passes(torch, model, batch, frames, layers, vocoder, asc, oa,
     hooks = plain_noise_blocks(layers, asc, model) if noise_blocks_plain else []
     held = layers.adain_fold
     if front_plain:  # AdaIN1d takes the moments-only form, gamma None
-        def fold(x, mask, gamma, beta):
+        def fold(x, mask, gamma, beta, extent=None):
             return (am.adain_fold_plain if gamma is None else held)(
-                x, mask, gamma, beta)
+                x, mask, gamma, beta, extent=extent)
         layers.adain_fold = fold
     try:
         through = grads()
@@ -2172,6 +2180,165 @@ def time_conv_bf16(torch, F, asc, name, flush, shape, card, reps=20):
         f"({out['bound_by']}, {out['bound_ms'] / out['ms']:.0%} of it "
         f"reached; {card})")
     return out
+
+
+# phase 3b, row extents (the bf16 convs and the AdaIN pass given each row's
+# mask extent): the shapes of bench.py's two Generator stages (B=32, F
+# 512) and B=1 at both, every (k, d) of the inventory
+EXTENT_SHAPES = ((32, 256, 10240), (32, 128, 61440), (1, 256, 10240),
+                 (1, 128, 61440))
+# the offline cell's rows: 40-170 ids at 3 frames an id, of 512 frames
+CELL_FRAMES = (120, 511)
+
+
+def cell_extents(torch, batch, length, seed):
+    """Extents of ``batch`` rows of the offline cell's frames, at a
+    Generator stage of ``length`` columns for 512 frames."""
+    gen = torch.Generator().manual_seed(seed)
+    frames = torch.randint(*CELL_FRAMES, (batch,), generator=gen)
+    return [int(f) * length // 512 for f in frames]
+
+
+def edge_extents(length, tile_len, pad):
+    """Extents at the split's edges: empty, one column, whole, and a tile
+    edge and the next one +- the conv's reach, +- 1."""
+    out = [0, 1, length, length - 1, length - pad]
+    for edge in (tile_len, 3 * tile_len):
+        for e in (edge - pad, edge + pad):
+            out += [e - 1, e, e + 1]
+    return sorted({min(max(e, 0), length) for e in out})
+
+
+def extent_mask(torch, extents, length, holes=False):
+    """Prefix masks [B, L] of the extents; with ``holes`` the second row
+    also has every 7th column inside its extent zeroed."""
+    cols = torch.arange(length, device="cuda")[None, :]
+    m = (cols < torch.tensor(extents, device="cuda")[:, None]).float()
+    if holes and len(extents) > 1:
+        m[1, ::7] = 0.0
+    return m.contiguous()
+
+
+def check_extents(torch, asc, am, flush, card, failures):
+    """Each bf16 conv form and the AdaIN pass (both x dtypes) given the
+    mask's row extents against the same launch given full extents and
+    without extents: the whole output bitwise equal, padded columns
+    included, at ``EXTENT_SHAPES`` and every (k, d) of the inventory, for
+    rows at the split's edges (``edge_extents``) and the cell's own rows;
+    the columns tally against ``work_plan``; each form at k 11 (d 1 and 5)
+    and the AdaIN pass timed at the cell's extents and at full extents
+    (device ms, ``cuda_ms``). -> summary."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    inventory = [(k, d) for k in (3, 7, 11) for d in (1, 3, 5)]
+    launches = 0
+    tally_ok = True
+    timed = []
+    t0 = time.perf_counter()
+
+    def tally():  # None before the process's first bf16 conv
+        return asc.columns_tally() or {"computed_tiles": 0, "grid_tiles": 0}
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                  else torch.int32),
+                           b.view(torch.int16 if b.dtype == torch.bfloat16
+                                  else torch.int32))
+
+    for si, (batch, channels, length) in enumerate(EXTENT_SHAPES):
+        tile_len = asc.column_tile(batch, channels, length, sms, True)
+        for k, d in inventory:
+            pad = (k - 1) * d // 2
+            edges = edge_extents(length, tile_len, pad)
+            cell = cell_extents(torch, 64, length, seed=si)
+            # B=32: one batch of edge rows then the cell's; B=1: a launch
+            # per extent
+            rows = ([(edges + cell)[:batch]] if batch > 1
+                    else [[e] for e in edges + cell[:2]])
+            args = bf16_inputs(torch, asc, batch, channels, length, k,
+                               seed=700 + si)
+            for extents in rows:
+                mask = extent_mask(torch, extents, length, holes=True)
+                ext = asc.mask_extent(mask)
+                full = torch.full_like(ext, length)
+                inputs = (args[0], mask, *args[2:])
+                for name, fn in (("tile", asc.adain_snake_conv),
+                                 ("carry", asc.adain_snake_conv_carry)):
+                    torch.cuda.synchronize()
+                    before = tally()
+                    got = fn(*inputs, k, d, extent=ext)
+                    torch.cuda.synchronize()
+                    after = tally()
+                    want = fn(*inputs, k, d)
+                    with_full = fn(*inputs, k, d, extent=full)
+                    launches += 3
+                    if not (same(got, want) and same(with_full, want)):
+                        failures.append(
+                            f"extents: {name} at {[batch, channels, length]}"
+                            f" k={k} d={d}, extents {extents[:12]}: not "
+                            "bitwise the launch without extents")
+                    co = -(-channels // asc.COUT_TILE)
+                    computed = sum(co * asc.work_tiles(int(e), length,
+                                                       tile_len, pad)
+                                   for e in ext.tolist())
+                    if (after["computed_tiles"] - before["computed_tiles"]
+                            != computed
+                            or after["grid_tiles"] - before["grid_tiles"]
+                            != batch * co * -(-length // tile_len)):
+                        tally_ok = False
+                        failures.append(
+                            f"extents: {name}'s columns tally at "
+                            f"{[batch, channels, length]} k={k} d={d} is not "
+                            "work_plan's")
+        # the AdaIN pass, both x dtypes, with the last shape's rows
+        for dtype in (torch.bfloat16, torch.float32):
+            x = args[0].to(dtype)
+            gamma, beta = (0.3 * torch.randn(2, batch, channels,
+                                             device="cuda")).unbind(0)
+            for extents in rows:
+                mask = extent_mask(torch, extents, length, holes=True)
+                ext = asc.mask_extent(mask)
+                got = am.adain_fold(x, mask, gamma, beta, extent=ext)
+                want = am.adain_fold(x, mask, gamma, beta)
+                launches += 2
+                if not all(same(g, w) for g, w in zip(got, want)):
+                    failures.append(
+                        f"extents: adain_fold ({dtype}) at "
+                        f"{[batch, channels, length]}, extents "
+                        f"{extents[:12]}: not bitwise the pass without")
+        # timed at the cell's rows (B=1: its first) and at full extents:
+        # each form at k 11, the AdaIN pass on its bf16 x
+        mask = extent_mask(torch, cell_extents(torch, batch, length, si),
+                           length)
+        modes = (("cell", asc.mask_extent(mask)),
+                 ("full", torch.full((batch,), length, dtype=torch.int32,
+                                     device="cuda")))
+        args = bf16_inputs(torch, asc, batch, channels, length, 11,
+                           seed=800 + si)
+        inputs = (args[0], mask, *args[2:])
+        for name, fn, d in (("tile", asc.adain_snake_conv, 1),
+                            ("carry", asc.adain_snake_conv_carry, 5)):
+            timed.append({"conv": [name, batch, channels, length, 11, d]} | {
+                mode: cuda_ms(lambda: fn(*inputs, 11, d, extent=e), 10, flush)
+                for mode, e in modes})
+        timed.append({"adain_fold": [batch, channels, length]} | {
+            mode: cuda_ms(lambda: am.adain_fold(args[0], mask, gamma, beta,
+                                                extent=e), 10, flush)
+            for mode, e in modes})
+        del args, inputs
+    summary = {"shapes": [list(s) for s in EXTENT_SHAPES],
+               "kd": inventory, "launches": launches, "tally_ok": tally_ok,
+               "seconds": time.perf_counter() - t0, "card": card,
+               "timed_ms": timed}
+    log(f"row extents: {launches} launches at {len(EXTENT_SHAPES)} shapes x "
+        f"{len(inventory)} (k, d), bf16 tile and carry and adain_fold "
+        "(bf16, f32) bitwise equal to full extents and to no extents "
+        f"{'in every case' if not any('extents:' in f for f in failures) else 'NOT in every case'}; "
+        f"tally {'matches' if tally_ok else 'DIFFERS from'} work_plan "
+        f"({summary['seconds']:.1f} s); device ms at the offline cell's "
+        f"extents and at full extents ({card}):")
+    for row in timed:
+        log("  " + json.dumps(row))
+    return summary
 
 
 def time_head_bf16(torch, oa, flush, card):
@@ -3775,11 +3942,13 @@ def recorded_split(fn, name, seen):
 
     bf16 = {plain: form for form, plain in BF16_CONV.items()}[name]
 
-    def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1):
+    def call(x, mask, scale, shift, alpha, w, b, kernel, dilation=1,
+             extent=None):
         seen[bf16 if x.dtype == torch.bfloat16 else name].add((
             x.shape[0], x.shape[1], b.shape[0], x.shape[2], kernel,
             dilation))
-        return fn(x, mask, scale, shift, alpha, w, b, kernel, dilation)
+        return fn(x, mask, scale, shift, alpha, w, b, kernel, dilation,
+                  extent=extent)
     return call
 
 
@@ -4480,6 +4649,10 @@ def main() -> None:
         time_tile_lens(torch, asc, flush, shape) for shape in
         (conv["adain_snake_conv"]["shape"], (1, 256, 1920, 7, 3))]
     adain = adain_phase(torch, am, flush, card)
+    extent_failures = []
+    extents = check_extents(torch, asc, am, flush, card, extent_failures)
+    if extent_failures:
+        fail("; ".join(extent_failures[:5]))
 
     # ---- 4. batch path ---------------------------------------------------------
     t0 = time.perf_counter()
@@ -4954,6 +5127,7 @@ def main() -> None:
     log(json.dumps({"mesh": mesh}))
     log(json.dumps({"tensor_parallel": tp}))
     log(json.dumps({"pool": pool}))
+    log(json.dumps({"extents": extents}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

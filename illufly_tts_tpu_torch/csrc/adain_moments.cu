@@ -30,9 +30,17 @@
 //   squares (x - mean_chunk)^2 m from the same registers: the two-pass
 //   arithmetic, with x read from device memory once. It writes the chunk's
 //   (count, mean, M2) to a scratch of three planes [chunks][rows].
+//   With row extents (extent[b], one past the last nonzero mask column of
+//   batch row b; the Generator passes them), a block whose chunk starts at
+//   or past its row's extent reads neither x nor the mask: every weight
+//   there is 0, so the full pass would write count 0, mean 0 and M2 0
+//   (+0 each, for finite x), which the block writes as they are.
 // - finish_rows: one thread a row combines its chunks' triples left to
 //   right by Chan's formula (each triple centered within its chunk, so the
-//   combine stays centered), then applies the count clamp and the fold.
+//   combine stays centered), then applies the count clamp and the fold. A
+//   zero-count triple leaves n and M2 as they were (+0 added) and the mean
+//   too (delta * 0 added; a -0 mean becomes +0), whether the block computed
+//   it or skipped it: the two give the same bits.
 // Sums are block trees in a fixed order and the combine runs in a fixed
 // order: no atomics, so two launches on the same inputs give the same
 // bits, inside CUDA graphs too (the wrapper allocates out and the scratch).
@@ -87,14 +95,26 @@ __device__ __forceinline__ void block_sum(float (&v)[N], float* red) {
   __syncthreads();  // red is written again by the next sum
 }
 
-template <typename T, bool MASKED>
+// EXTENTS (with MASKED): the rows' extents decide which chunks are read;
+// a launch without them runs the form without the test.
+template <typename T, bool MASKED, bool EXTENTS>
 __global__ void __launch_bounds__(THREADS)
     chunk_moments(const T* __restrict__ x, const float* __restrict__ mask,
-                  int channels, int length, int chunks, int rows,
-                  float* __restrict__ part) {
+                  const int* __restrict__ extent, int channels, int length,
+                  int chunks, int rows, float* __restrict__ part) {
   __shared__ float red[WARPS * 2];
   const int row = blockIdx.x / chunks;
   const int chunk = blockIdx.x - row * chunks;
+  if (EXTENTS && chunk * CHUNK >= extent[row / channels]) {
+    if (threadIdx.x == 0) {  // all weights 0: what the pass would write
+      const int64_t plane = (int64_t)chunks * rows;
+      const int64_t at = (int64_t)chunk * rows + row;
+      part[at] = 0.f;
+      part[plane + at] = 0.f;
+      part[2 * plane + at] = 0.f;
+    }
+    return;
+  }
   const T* xr = x + (int64_t)row * length;
   const float* mr = MASKED ? mask + (int64_t)(row / channels) * length
                            : nullptr;
@@ -187,11 +207,11 @@ __global__ void __launch_bounds__(FINISH_THREADS)
 }
 
 template <typename T>
-int launch(const T* x, const float* mask, const float* gamma,
-           int64_t gamma_stride, const float* beta, int64_t beta_stride,
-           float* out, float* part, int batch, int channels, int length,
-           float eps, void* stream) {
-  if (batch <= 0 || channels <= 0 || length <= 0) {
+int launch(const T* x, const float* mask, const int* extent,
+           const float* gamma, int64_t gamma_stride, const float* beta,
+           int64_t beta_stride, float* out, float* part, int batch,
+           int channels, int length, float eps, void* stream) {
+  if (batch <= 0 || channels <= 0 || length <= 0 || (extent && !mask)) {
     return (int)cudaErrorInvalidValue;
   }
   const int64_t rows = (int64_t)batch * channels;
@@ -199,12 +219,15 @@ int launch(const T* x, const float* mask, const float* gamma,
   if (rows * chunks > INT32_MAX) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const unsigned blocks = (unsigned)(rows * chunks);
-  if (mask) {
-    chunk_moments<T, true><<<blocks, THREADS, 0, s>>>(
-        x, mask, channels, length, (int)chunks, (int)rows, part);
+  if (extent) {
+    chunk_moments<T, true, true><<<blocks, THREADS, 0, s>>>(
+        x, mask, extent, channels, length, (int)chunks, (int)rows, part);
+  } else if (mask) {
+    chunk_moments<T, true, false><<<blocks, THREADS, 0, s>>>(
+        x, mask, nullptr, channels, length, (int)chunks, (int)rows, part);
   } else {
-    chunk_moments<T, false><<<blocks, THREADS, 0, s>>>(
-        x, mask, channels, length, (int)chunks, (int)rows, part);
+    chunk_moments<T, false, false><<<blocks, THREADS, 0, s>>>(
+        x, mask, nullptr, channels, length, (int)chunks, (int)rows, part);
   }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -217,28 +240,32 @@ int launch(const T* x, const float* mask, const float* gamma,
 
 }  // namespace
 
-// x [B, C, L] f32, mask [B, L] f32 or null, gamma/beta rows of C floats at
-// the given row strides, or both null (out: the moments); out [2, B, C]; part: 3 * B * C * chunks floats
-// (adain_fold_part_floats).
+// x [B, C, L] f32, mask [B, L] f32 or null, extent [B] (row extents of the
+// mask) or null, gamma/beta rows of C floats at the given row strides, or
+// both null (out: the moments); out [2, B, C]; part: 3 * B * C * chunks
+// floats (adain_fold_part_floats).
 extern "C" int adain_fold_f32(const float* x, const float* mask,
+                              const int* extent,
                               const float* gamma, long long gamma_stride,
                               const float* beta, long long beta_stride,
                               float* out, float* part, int batch,
                               int channels, int length, float eps,
                               void* stream) {
-  return launch(x, mask, gamma, gamma_stride, beta, beta_stride, out, part,
-                batch, channels, length, eps, stream);
+  return launch(x, mask, extent, gamma, gamma_stride, beta, beta_stride, out,
+                part, batch, channels, length, eps, stream);
 }
 
 // The same for a bfloat16 x.
 extern "C" int adain_fold_bf16(const void* x, const float* mask,
+                               const int* extent,
                                const float* gamma, long long gamma_stride,
                                const float* beta, long long beta_stride,
                                float* out, float* part, int batch,
                                int channels, int length, float eps,
                                void* stream) {
-  return launch((const __nv_bfloat16*)x, mask, gamma, gamma_stride, beta,
-                beta_stride, out, part, batch, channels, length, eps, stream);
+  return launch((const __nv_bfloat16*)x, mask, extent, gamma, gamma_stride,
+                beta, beta_stride, out, part, batch, channels, length, eps,
+                stream);
 }
 
 // The scratch a launch needs, in floats.

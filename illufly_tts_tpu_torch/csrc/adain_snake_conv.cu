@@ -709,6 +709,34 @@ int launch_carry(const Args& a, int batch, int tiles_per_chunk,
 // column) in shared memory after the raw buffers; it fits beside the stages
 // at every shape with k <= 11 and d <= 5, so the carry kernel walks chunks
 // of tiles at C = 256 too.
+//
+// Row extents (the Generator's masks, ragged in a batch): with extent[b],
+// one past the last nonzero mask column of row b, the MMAs run only over
+// the column tiles that start before extent[b] + pad, clipped to L (none
+// for an empty row). Every input at or past the extent is masked to zero,
+// so an output column l >= extent + pad sums products of zero activations:
+// its f32 sum is +0 and its value bf16(0 + bias[o]), which the launch stores
+// for the tiles it skips, bit for bit what computing them gives (+0 is
+// added first, so a -0 bias stores +0, as the MMAs' sum gives). Those
+// columns are written, not left: the residual, the transposed conv and the
+// head after the blocks read them. Each (batch row, output-channel tile) is
+// a segment; segments in the order (b, co tile) list their computed tiles,
+// and again their bias tiles. The grid is the one without extents, about
+// one wave and fixed by shape (CUDA graphs capture it). Where a row's
+// extent leaves tiles out, CTA i of the G takes the contiguous share [i W
+// / G, (i + 1) W / G) of the W computed tiles (shares differ by at most one
+// tile) and likewise of the bias tiles, whose stores its consumers issue
+// between its computed tiles. A share may span segments: the pipeline runs
+// on across them, the walking carry restarts at each segment's first tile,
+// and each tile's arithmetic and column tiling are those of the split
+// without extents, so the output is bitwise that launch's. Without extents,
+// or where every row reaches its end, a CTA takes tiles_per_cta
+// consecutive tiles of one segment, placed by its index, as ever.
+//
+// A tally (conv_tally_bf16, device memory of this module) counts the column
+// tiles computed and the tiles of the launches' whole grids (B x C_out
+// tiles x L / TL), one atomic add a CTA (the first CTA adds the grid), so
+// CUDA-graph replays count too; adain_snake_conv_tally reads it on demand.
 
 constexpr int CKB = 16;           // input channels per bf16 stage (one k16 step)
 constexpr int TLB_MAX = 256;      // longest bf16 column tile (wgmma n256)
@@ -720,6 +748,7 @@ constexpr int RB = 3;             // raw buffers: raw inputs load RB - 1 stages 
 constexpr int W_TAP_WORDS = 2 * TN * 4;  // a tap of a stage's weights, 4 KB
 constexpr int BAR_WORDS = 32;     // the mbarriers, ahead of the stage buffers
 constexpr int RAW_B = 1;          // named barrier among the producers
+constexpr int TILES_S = 8;        // the producers' tiles in flight, a ring
 
 // Rows of a stage's window: the tile and both halos at the largest pad,
 // rounded so that the two k halves sit 16 banks apart (4 rows_b = 16 mod 32
@@ -770,8 +799,139 @@ struct ArgsB {
   const __nv_bfloat16* w;  // stage-packed [C_out/128][C_in/16][k][2][128][8]
   const float* bias;
   __nv_bfloat16* y;
-  int c_in, c_out, length, k, dilation, pad, stages;
+  const int* extent;  // [B] row extents, or null: full rows
+  int batch, c_in, c_out, length, k, dilation, pad, stages;
 };
+
+// Column tiles computed (0) and of the launches' whole grids (1).
+__device__ unsigned long long conv_tally_bf16[2];
+
+// A position in one of a launch's two tile lists (computed, bias): the
+// segment (b * co_tiles + co tile), the list index of its first tile, and
+// how many of its tiles the list holds.
+struct Cursor {
+  int seg, base, count;
+};
+
+// What the split reads of a launch: the row extents (or null), the row
+// length, the conv's reach and the output-channel tiles.
+struct Rows {
+  const int* extent;
+  int length, pad, co_tiles;
+};
+
+__device__ __forceinline__ Rows rows_of(const ArgsB& a) {
+  return Rows{a.extent, a.length, a.pad, (a.c_out + TN - 1) / TN};
+}
+
+// Tiles of segment `seg` that the MMAs compute: those starting before the
+// row's extent + pad, clipped to the row; none for an empty row; all
+// without extents.
+template <int TL>
+__device__ __forceinline__ int work_tiles(const Rows& r, int seg) {
+  const int n_tiles = (r.length + TL - 1) / TL;
+  if (r.extent == nullptr) return n_tiles;
+  const int e = r.extent[seg / r.co_tiles];
+  return e <= 0 ? 0 : min(n_tiles, (e + r.pad + TL - 1) / TL);
+}
+
+// Moves c forward to the segment holding list index g (the bias list with
+// BIAS: each segment's tiles past its computed ones).
+template <int TL, bool BIAS>
+__device__ __forceinline__ void seek(const Rows& r, Cursor& c, int g) {
+  while (g >= c.base + c.count) {
+    c.base += c.count;
+    ++c.seg;
+    const int w = work_tiles<TL>(r, c.seg);
+    c.count = BIAS ? (r.length + TL - 1) / TL - w : w;
+  }
+}
+
+// A CTA's share: list indices [w0, w1) of the computed tiles and [b0, b1)
+// of the bias tiles, with cursors at the segments holding w0 and b0;
+// ragged when some row computes fewer than all its tiles.
+struct Share {
+  int w0, w1, b0, b1;
+  Cursor work, bias;
+  bool ragged;
+};
+
+// The cursor at index g of a list (BIAS: the bias tiles), found by one
+// warp, 32 batch rows a step: each row's tiles in the list, their
+// inclusive prefix by shuffles, and the first row whose prefix passes g.
+template <int TL, bool BIAS>
+__device__ __forceinline__ Cursor locate(const ArgsB& a, int co_tiles, int g) {
+  const int lane = threadIdx.x % 32;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  int before = 0;  // list index of this step's first row
+  for (int r0 = 0; r0 < a.batch; r0 += 32) {
+    const int r = r0 + lane;
+    const int w = r < a.batch ? work_tiles<TL>(rows_of(a), r * co_tiles) : 0;
+    const int each = r < a.batch ? (BIAS ? n_tiles - w : w) : 0;  // a segment
+    int upto = co_tiles * each;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, upto, off);
+      if (lane >= off) upto += v;
+    }
+    const unsigned hit = __ballot_sync(0xffffffffu, before + upto > g);
+    if (hit != 0) {
+      const int src = __ffs(hit) - 1;
+      const int row_base =
+          before + __shfl_sync(0xffffffffu, upto - co_tiles * each, src);
+      const int per = __shfl_sync(0xffffffffu, each, src);
+      const int k = (g - row_base) / per;
+      return Cursor{(r0 + src) * co_tiles + k, row_base + k * per, per};
+    }
+    before += __shfl_sync(0xffffffffu, upto, 31);
+  }
+  return Cursor{0, 0, 0};  // g past the list: not asked
+}
+
+// The CTA's share, by warp 0 (every lane gets it). Without extents, or
+// where every row computes all its tiles, a run of tiles_per_cta tiles of
+// segment (blockIdx.z, blockIdx.y); else the i-th of G balanced parts of
+// each list, i the CTA's index in the grid and G its size.
+template <int TL>
+__device__ __forceinline__ Share share_of(const ArgsB& a, int tiles_per_cta) {
+  const int co_tiles = (a.c_out + TN - 1) / TN;
+  const int n_tiles = (a.length + TL - 1) / TL;
+  Share s;
+  const int seg = blockIdx.z * co_tiles + blockIdx.y;
+  const int t0 = blockIdx.x * tiles_per_cta;
+  s.work = Cursor{seg, seg * n_tiles, n_tiles};
+  s.w0 = seg * n_tiles + t0;
+  s.w1 = seg * n_tiles + min(n_tiles, t0 + tiles_per_cta);
+  s.b0 = s.b1 = 0;
+  s.bias = Cursor{0, 0, 0};
+  s.ragged = false;
+  if (a.extent == nullptr) return s;
+  int total = 0;  // computed tiles of the launch
+  for (int r0 = 0; r0 < a.batch; r0 += 32) {
+    const int r = r0 + (int)threadIdx.x % 32;
+    int w = r < a.batch ? co_tiles * work_tiles<TL>(rows_of(a), r * co_tiles)
+                        : 0;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      w += __shfl_xor_sync(0xffffffffu, w, off);
+    total += w;
+  }
+  const int64_t bias_total = (int64_t)a.batch * co_tiles * n_tiles - total;
+  if (bias_total == 0) return s;  // every row whole
+  const int64_t i =
+      blockIdx.x + (int64_t)gridDim.x * (blockIdx.y + gridDim.y * blockIdx.z);
+  const int64_t g = (int64_t)gridDim.x * gridDim.y * gridDim.z;
+  s.ragged = true;
+  s.w0 = (int)(i * total / g);
+  s.w1 = (int)((i + 1) * total / g);
+  s.b0 = (int)(i * bias_total / g);
+  s.b1 = (int)((i + 1) * bias_total / g);
+  s.work = Cursor{0, 0, 0};
+  s.bias = Cursor{0, 0, 0};
+  if (s.w0 < s.w1) s.work = locate<TL, false>(a, co_tiles, s.w0);
+  if (s.b0 < s.b1) s.bias = locate<TL, true>(a, co_tiles, s.b0);
+  return s;
+}
 
 // D += A B on the tensor cores, one warpgroup: m64 nN k16, bfloat16 in, f32
 // accumulation, both operands K-major from shared memory.
@@ -1212,76 +1372,183 @@ __device__ __forceinline__ void store_tile_bf16(const ArgsB& a,
   }
 }
 
-// Tiles [tile0, tile_end) of one (output-channel tile, batch row), C_in in
-// stages of CKB channels through SB stage buffers. Producer iteration q
-// activates stage q into buffer q % SB while the copy engine brings stage
-// q + 1's weights into the next buffer and cp.async the raw inputs RB - 1
-// stages ahead; the consumers multiply stage q - 1 meanwhile. Consumer
-// warpgroup g takes output channels 64 g of the tile's 128, all TL columns.
-// With ``carry`` every tile after the first takes its left 2 pad rows from
-// the carry buffer.
+// A bias tile, by the consumer threads (t of CONSUMERS_B): columns [tile
+// TL, min(L, (tile + 1) TL)) of output channels co_tile * 128 .. + 127 of
+// row b set to bf16(0 + bias[o]), what the MMAs' +0 sum gives there. Thread
+// t takes one 16-byte chunk of a row (one column where L is not a multiple
+// of 8) and walks the rows, one bias load a row.
 template <int TL>
-__device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
-                                         int tile_end, uint32_t* carry) {
+__device__ __forceinline__ void store_bias_bf16(__nv_bfloat16* y,
+                                                const float* bias, int c_out,
+                                                int length, int b,
+                                                int co_tile, int tile,
+                                                int t) {
+  const int l0 = tile * TL;
+  const int cols = min(TL, length - l0);
+  const bool wide = length % 8 == 0;  // the tile starts and ends on a chunk
+  const int per_row = wide ? cols / 8 : cols;
+  static_assert(TL <= CONSUMERS_B, "a row's chunks fit the threads");
+  const int rows_at_once = CONSUMERS_B / per_row;
+  const int c = t % per_row;
+  if (t / per_row >= rows_at_once) return;
+  for (int o = co_tile * TN + t / per_row;
+       o < min(c_out, (co_tile + 1) * TN); o += rows_at_once) {
+    const float v = __fadd_rn(0.f, bias[o]);
+    __nv_bfloat16* y_row = y + ((int64_t)b * c_out + o) * length + l0;
+    if (wide) {
+      const uint32_t w = pack_bf16x2(v, v);
+      *reinterpret_cast<uint4*>(y_row + 8 * c) = make_uint4(w, w, w, w);
+    } else {
+      y_row[c] = __float2bfloat16_rn(v);
+    }
+  }
+}
+
+// Where the share's tile i lies, for the producers, in tiles[i % TILES_S]:
+// its row, output-channel tile and first window column, and the first
+// window row to load and activate (a window's first tile in the share or
+// its segment loads it whole) with bit 16 set where the share's next tile
+// continues the row (walk: the carry kernel walks). Found afresh from the
+// share's start, out of line and from scalars (no stack): the producers,
+// which set the pace, keep no cursor in registers, and their loop stays as
+// lean as without extents.
+template <int TL>
+__device__ __noinline__ void describe_tile(const int* extent, int length,
+                                           int pad, int co_tiles,
+                                           const Share* sh, bool walk, int i,
+                                           int4* tiles) {
+  const Rows r{extent, length, pad, co_tiles};
+  const int g = sh->w0 + i;
+  Cursor c = sh->work;
+  seek<TL, false>(r, c, g);
+  const int tile = g - c.base;
+  const bool fresh = i == 0 || tile == 0 || !walk;
+  const bool cont = walk && g + 1 < sh->w1 && g + 1 < c.base + c.count;
+  tiles[i % TILES_S] =
+      make_int4(c.seg / co_tiles, c.seg % co_tiles, tile * TL - pad,
+                (fresh ? 0 : 2 * pad) | (cont ? 1 << 16 : 0));
+}
+
+// Consumer t's part of part i of `parts` of the share's bias tiles (all of
+// them for parts = 1), found afresh from the share's start; out of line.
+template <int TL>
+__device__ __noinline__ void store_bias_share(__nv_bfloat16* y,
+                                              const float* bias,
+                                              const int* extent, int c_out,
+                                              int length, int pad,
+                                              const Share* sh, int i,
+                                              int parts, int t) {
+  const int co_tiles = (c_out + TN - 1) / TN;
+  const Rows r{extent, length, pad, co_tiles};
+  const int64_t biases = sh->b1 - sh->b0;
+  const int from = sh->b0 + (int)(i * biases / parts);
+  const int to = sh->b0 + (int)((i + 1) * biases / parts);
+  Cursor c = sh->bias;
+  for (int gb = from; gb < to; ++gb) {
+    seek<TL, true>(r, c, gb);
+    store_bias_bf16<TL>(y, bias, c_out, length, c.seg / co_tiles,
+                        c.seg % co_tiles,
+                        (length + TL - 1) / TL - c.count + gb - c.base, t);
+  }
+}
+
+// The CTA's share of computed tiles (list indices [w0, w1), each a column
+// tile of a segment), C_in in stages of CKB channels through SB stage
+// buffers. Producer iteration q activates stage q into buffer q % SB while
+// the copy engine brings stage q + 1's weights into the next buffer and
+// cp.async the raw inputs RB - 1 stages ahead; the consumers multiply stage
+// q - 1 meanwhile. Consumer warpgroup g takes output channels 64 g of the
+// tile's 128, all TL columns. With ``carry`` every tile after the first of
+// its segment in the share takes its left 2 pad rows from the carry
+// buffer. RAGGED: the share may span segments, and each tile's place comes
+// from the share's cursors; the consumers also store the share's bias
+// tiles, a part after each computed tile's epilogue (all first in a share
+// without any), while they would wait for the producers. Else one
+// segment's run of tiles, placed by the CTA's index as without extents.
+// The consumers hold no cursor across the MMAs, whose n256 sums take all
+// but a few of their registers, and the producers, which set the pace,
+// hold none at all.
+template <int TL, bool RAGGED>
+__device__ __forceinline__ void pipeline_bf16(const ArgsB& a, const Share& sh,
+                                              int tiles, uint32_t* carry,
+                                              int4* tiles_s) {
   constexpr int HW = rows_b(TL);
   extern __shared__ __align__(128) uint32_t smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + SB;
   uint32_t* stage0 = smem + BAR_WORDS;
-  const int co_tile = blockIdx.y;
-  const int b = blockIdx.z;
+  const int co_tiles = (a.c_out + TN - 1) / TN;
   const int halo = 2 * a.pad;
   const int stages = a.stages;  // per tile
-  const int n = (tile_end - tile0) * stages;
   const int words = stage_words_bf16(TL, a.k);
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < SB; ++s) {
-      mbar_init(&full[s], PRODUCERS_B);
-      mbar_init(&empty[s], CONSUMERS_B / 32);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
+  const int n = (sh.w1 - sh.w0) * stages;
 
   if (threadIdx.x >= CONSUMERS_B) {  // ---- producers
     const int p = threadIdx.x - CONSUMERS_B;
     uint32_t* raw0 = stage0 + SB * words;
     // each start commits one cp.async group, an empty one past the last
     // stage, so every wait is a constant
-    auto start_raw = [&](int q) {
+    auto start_raw = [&](int q, int4 t) {
       if (q >= n) return commit_group();
-      const int tile = tile0 + q / stages;
-      start_raw_bf16<TL>(a, b, (q % stages) * CKB, tile * TL - a.pad,
-                         tile == tile0 || carry == nullptr ? 0 : halo,
+      start_raw_bf16<TL>(a, t.x, (q % stages) * CKB, t.z, t.w & 0xFFFF,
                          TL + halo, p, raw0 + (q % RB) * raw_words_bf16(TL));
     };
-    auto start_weights = [&](int q) {
+    auto start_weights = [&](int q, int co_tile) {
       if (p == 0)
         start_weights_bf16(a, co_tile, q % stages, stage0 + (q % SB) * words,
                            &full[q % SB]);
     };
-    for (int j = 0; j < RB - 1; ++j) start_raw(j);
-    start_weights(0);
+    // the tile of stage q: RAGGED, from tiles_s, where producer 0 places
+    // each tile of the share one barrier before any producer reads it (the
+    // tile of stage q + RB at stage q, whose raw inputs the next stage
+    // starts; a stage's tile is read before the wait, so no shared-memory
+    // load lies between a barrier and the copies it lets go); else by the
+    // CTA's index, a run of tiles from blockIdx.x * tiles, as without
+    // extents
+    const int tile0 = blockIdx.x * tiles, tile_end = tile0 + sh.w1 - sh.w0;
+    auto tile_of = [&](int q) {
+      if constexpr (RAGGED) return tiles_s[(q / stages) % TILES_S];
+      const int tile = tile0 + q / stages;
+      return make_int4(
+          blockIdx.z, blockIdx.y, tile * TL - a.pad,
+          (tile == tile0 || carry == nullptr ? 0 : halo) |
+              (carry != nullptr && tile + 1 < tile_end ? 1 << 16 : 0));
+    };
+    if (RAGGED) {
+      if (p == 0)
+        for (int j = 0; j < RB && j < n; ++j)
+          if (j % stages == 0)
+            describe_tile<TL>(a.extent, a.length, a.pad, co_tiles, &sh,
+                              carry != nullptr, j / stages, tiles_s);
+      bar_sync(RAW_B, PRODUCERS_B);
+    }
+    for (int j = 0; j < RB - 1; ++j) start_raw(j, tile_of(j));
+    if (n > 0) start_weights(0, tile_of(0).y);
     for (int q = 0; q < n; ++q) {
       const int s = q % SB;
-      const int tile = tile0 + q / stages;
-      const int ci0 = (q % stages) * CKB;
-      const int row_lo = tile == tile0 || carry == nullptr ? 0 : halo;
+      const int st = q % stages;
+      const int ci0 = st * CKB;
+      // the tiles of stages q, q + 1 (weights) and q + RB - 1 (raw inputs)
+      const int4 t = tile_of(q), t_raw = tile_of(q + RB - 1);
+      const int w_co = tile_of(q + 1).y;
+      if (RAGGED && p == 0 && q + RB < n && (q + RB) % stages == 0)
+        describe_tile<TL>(a.extent, a.length, a.pad, co_tiles, &sh,
+                          carry != nullptr, (q + RB) / stages, tiles_s);
       wait_groups<RB - 2>();  // raw q landed (RB - 2 groups since)
       bar_sync(RAW_B, PRODUCERS_B);  // and raw q - 1's buffer is free
-      start_raw(q + RB - 1);
+      start_raw(q + RB - 1, t_raw);
       if (q + 1 < n) {
         // stage q + 1 goes to buffer (q + 1) % SB once every consumer warp
         // is done with that buffer's stage, q + 1 - SB
         if (q + 1 >= SB) mbar_wait(&empty[(q + 1) % SB], ((q + 1) / SB - 1) & 1);
-        start_weights(q + 1);
+        start_weights(q + 1, w_co);
       }
       uint32_t* win = stage0 + s * words + a.k * W_TAP_WORDS;
+      const int row_lo = t.w & 0xFFFF;
       if (row_lo > 0) carry_rows_bf16<TL>(a, ci0, 0, true, p, win, carry);
-      activate_bf16<TL>(a, b, ci0, tile * TL - a.pad, row_lo, TL + halo, p,
+      activate_bf16<TL>(a, t.x, ci0, t.z, row_lo, TL + halo, p,
                         raw0 + (q % RB) * raw_words_bf16(TL), win);
-      if (carry != nullptr && tile + 1 < tile_end) {
+      if (t.w >> 16) {
         // rows [TL, TL + 2 pad) are the next tile's left halo
         bar_sync(RAW_B, PRODUCERS_B);
         carry_rows_bf16<TL>(a, ci0, TL, false, p, win, carry);
@@ -1291,6 +1558,13 @@ __device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
       mbar_arrive(&full[s]);
     }
     wait_groups<0>();
+    if (p == 0) {
+      atomicAdd(&conv_tally_bf16[0], (unsigned long long)(sh.w1 - sh.w0));
+      if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0)
+        atomicAdd(&conv_tally_bf16[1], (unsigned long long)a.batch *
+                                           co_tiles * ((a.length + TL - 1) /
+                                                       TL));
+    }
     return;
   }
 
@@ -1300,7 +1574,13 @@ __device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
   const int lane = threadIdx.x % 32;
   float acc[TL / 2];
   int q = 0;
-  for (int tile = tile0; tile < tile_end; ++tile) {
+  // RAGGED: the share's bias tiles, a part after each computed tile's
+  // epilogue (all at once in a share without any), while the producers
+  // prepare the next tile
+  if (RAGGED && sh.w0 == sh.w1 && sh.b0 < sh.b1)
+    store_bias_share<TL>(a.y, a.bias, a.extent, a.c_out, a.length, a.pad, &sh,
+                         0, 1, threadIdx.x);
+  for (int w = sh.w0; w < sh.w1; ++w) {
 #pragma unroll
     for (int i = 0; i < TL / 2; ++i) acc[i] = 0.f;
     for (int st = 0; st < stages; ++st, ++q) {
@@ -1327,6 +1607,17 @@ __device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     fence_operands(acc);
     if (lane == 0) mbar_arrive(&empty[(q - 1) % SB]);  // the tile's last stage
+    // where the tile lies: RAGGED, found from the share's start (nothing of
+    // it is held across the MMAs)
+    int tile = blockIdx.x * tiles + w - sh.w0, b = blockIdx.z,
+        co_tile = blockIdx.y;
+    if constexpr (RAGGED) {
+      Cursor c = sh.work;
+      seek<TL, false>(rows_of(a), c, w);
+      tile = w - c.base;
+      b = c.seg / co_tiles;
+      co_tile = c.seg % co_tiles;
+    }
     // accumulator layout of m64nN: warp w of the warpgroup holds rows
     // (output channels) 16 w + lane / 4 (+ 8 for e >= 2), columns 8 j +
     // 2 (lane % 4) + e % 2
@@ -1352,63 +1643,96 @@ __device__ __forceinline__ void run_bf16(const ArgsB& a, int tile0,
         }
       }
     }
+    if (RAGGED && sh.b0 < sh.b1)
+      store_bias_share<TL>(a.y, a.bias, a.extent, a.c_out, a.length, a.pad,
+                           &sh, w - sh.w0, sh.w1 - sh.w0, threadIdx.x);
+  }
+}
+
+// Each CTA finds its share (warp 0; one load of the extents), then runs
+// the pipeline for a ragged share or for a run of one segment's tiles.
+template <int TL>
+__device__ __forceinline__ void run_bf16(const ArgsB& a, int tiles,
+                                         uint32_t* carry) {
+  extern __shared__ __align__(128) uint32_t smem[];
+  // the share, in shared memory: read where used, it holds no registers
+  // across the MMAs; and the producers' tiles in flight (pipeline_bf16)
+  __shared__ Share sh;
+  __shared__ int4 tiles_s[TILES_S];
+  if (threadIdx.x == 32) {  // the mbarriers, while warp 0 reads the extents
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    for (int s = 0; s < SB; ++s) {
+      mbar_init(&full[s], PRODUCERS_B);
+      mbar_init(&full[SB + s], CONSUMERS_B / 32);  // empty[s]
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (threadIdx.x < 32) {
+    const Share mine = share_of<TL>(a, tiles);
+    if (threadIdx.x == 0) sh = mine;
+  }
+  __syncthreads();
+  if (sh.ragged) {
+    pipeline_bf16<TL, true>(a, sh, tiles, carry, tiles_s);
+  } else {
+    pipeline_bf16<TL, false>(a, sh, tiles, carry, tiles_s);
   }
 }
 
 template <int TL>
 __global__ void __launch_bounds__(THREADS_B, 1)
 adain_snake_conv_tile_bf16_kernel(const ArgsB a, int tiles_per_cta) {
-  const int n_tiles = (a.length + TL - 1) / TL;
-  const int tile0 = blockIdx.x * tiles_per_cta;
-  run_bf16<TL>(a, tile0, min(n_tiles, tile0 + tiles_per_cta), nullptr);
+  run_bf16<TL>(a, tiles_per_cta, nullptr);
 }
 
+// tiles_per_chunk > 1: walk (the carry buffer follows the raw buffers)
 template <int TL>
 __global__ void __launch_bounds__(THREADS_B, 1)
 adain_snake_conv_carry_bf16_kernel(const ArgsB a, int tiles_per_chunk) {
   extern __shared__ __align__(128) uint32_t smem[];
-  const int n_tiles = (a.length + TL - 1) / TL;
-  const int tile0 = blockIdx.x * tiles_per_chunk;
-  const int tile_end = min(n_tiles, tile0 + tiles_per_chunk);
   uint32_t* carry =
       tiles_per_chunk > 1 ? smem + carry_offset_bf16(TL, a.k) : nullptr;
-  run_bf16<TL>(a, tile0, tile_end, carry);
+  run_bf16<TL>(a, tiles_per_chunk, carry);
+}
+
+// The grid, with or without extents: one CTA a run of `tiles` tiles of
+// each segment, about one wave.
+template <int TL>
+dim3 grid_bf16(const ArgsB& a, int tiles) {
+  const int n_tiles = (a.length + TL - 1) / TL;
+  return dim3((n_tiles + tiles - 1) / tiles, (a.c_out + TN - 1) / TN,
+              a.batch);
 }
 
 template <int TL>
-int launch_tile_bf16(const ArgsB& a, int batch, int tiles_per_cta,
-                     cudaStream_t stream) {
-  const int n_tiles = (a.length + TL - 1) / TL;
+int launch_tile_bf16(const ArgsB& a, int tiles_per_cta, cudaStream_t stream) {
   const int smem = prepare_smem(adain_snake_conv_tile_bf16_kernel<TL>,
                                 smem_bytes_bf16(TL, a.k, 0));
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n_tiles + tiles_per_cta - 1) / tiles_per_cta,
-                  (a.c_out + TN - 1) / TN, batch);
-  adain_snake_conv_tile_bf16_kernel<TL><<<grid, THREADS_B, smem, stream>>>(
-      a, tiles_per_cta);
+  adain_snake_conv_tile_bf16_kernel<TL>
+      <<<grid_bf16<TL>(a, tiles_per_cta), THREADS_B, smem, stream>>>(
+          a, tiles_per_cta);
   return (int)cudaGetLastError();
 }
 
 template <int TL>
-int launch_carry_bf16(const ArgsB& a, int batch, int tiles_per_chunk,
+int launch_carry_bf16(const ArgsB& a, int tiles_per_chunk,
                       cudaStream_t stream) {
-  const int n_tiles = (a.length + TL - 1) / TL;
-  const int chunks = (n_tiles + tiles_per_chunk - 1) / tiles_per_chunk;
   const int carry_words =
       tiles_per_chunk > 1 ? (a.c_in + 1) / 2 * 2 * a.pad : 0;
   const int smem = prepare_smem(adain_snake_conv_carry_bf16_kernel<TL>,
                                 smem_bytes_bf16(TL, a.k, carry_words));
   if (smem == 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(chunks, (a.c_out + TN - 1) / TN, batch);
-  adain_snake_conv_carry_bf16_kernel<TL><<<grid, THREADS_B, smem, stream>>>(
-      a, tiles_per_chunk);
+  adain_snake_conv_carry_bf16_kernel<TL>
+      <<<grid_bf16<TL>(a, tiles_per_chunk), THREADS_B, smem, stream>>>(
+          a, tiles_per_chunk);
   return (int)cudaGetLastError();
 }
 
 ArgsB make_args_bf16(const void* x, const float* mask, const float* scale,
                      const float* shift, const float* alpha, const void* w,
-                     const float* bias, void* y, int c_in, int c_out,
-                     int length, int k, int dilation) {
+                     const float* bias, void* y, const int* extent, int batch,
+                     int c_in, int c_out, int length, int k, int dilation) {
   return ArgsB{static_cast<const __nv_bfloat16*>(x),
                mask,
                scale,
@@ -1417,6 +1741,8 @@ ArgsB make_args_bf16(const void* x, const float* mask, const float* scale,
                static_cast<const __nv_bfloat16*>(w),
                bias,
                static_cast<__nv_bfloat16*>(y),
+               extent,
+               batch,
                c_in,
                c_out,
                length,
@@ -1471,22 +1797,36 @@ extern "C" int adain_snake_conv_carry_f32(
 
 // The bf16 forms: x and y bfloat16, w stage-packed bfloat16 ([C_out / 128]
 // [C_in / 16][k][2][128][8], 16-byte aligned), the rest f32. No scratch.
+// With extent [B] (the rows' mask extents) a launch computes only the
+// tiles each row's extent reaches, spread over its grid (see run_bf16);
+// null: every tile. tiles_per_cta / tiles_per_chunk give the grid, one CTA
+// a run of that many tiles of each (row, output-channel tile), either way.
+static bool valid_plan(const int* extent, int batch, int c_out, int length,
+                       int tile_len) {
+  const int64_t tiles = (int64_t)batch * ((c_out + TN - 1) / TN) *
+                        ((length + tile_len - 1) / tile_len);
+  return extent == nullptr || tiles < INT32_MAX;
+}
+
 extern "C" int adain_snake_conv_bf16(const void* x, const float* mask,
                                      const float* scale, const float* shift,
                                      const float* alpha, const void* w,
                                      const float* bias, void* y, int batch,
                                      int c_in, int c_out, int length, int k,
                                      int dilation, int tile_len,
-                                     int tiles_per_cta, void* stream) {
-  if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_cta <= 0)
+                                     int tiles_per_cta, const int* extent,
+                                     void* stream) {
+  if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_cta <= 0 ||
+      tile_len <= 0 || !valid_plan(extent, batch, c_out, length, tile_len))
     return (int)cudaErrorInvalidValue;
   const ArgsB a = make_args_bf16(x, mask, scale, shift, alpha, w, bias, y,
-                                 c_in, c_out, length, k, dilation);
+                                 extent, batch, c_in, c_out, length, k,
+                                 dilation);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tile_len) {
-    case 64: return launch_tile_bf16<64>(a, batch, tiles_per_cta, s);
-    case 128: return launch_tile_bf16<128>(a, batch, tiles_per_cta, s);
-    case 256: return launch_tile_bf16<256>(a, batch, tiles_per_cta, s);
+    case 64: return launch_tile_bf16<64>(a, tiles_per_cta, s);
+    case 128: return launch_tile_bf16<128>(a, tiles_per_cta, s);
+    case 256: return launch_tile_bf16<256>(a, tiles_per_cta, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1495,18 +1835,34 @@ extern "C" int adain_snake_conv_carry_bf16(
     const void* x, const float* mask, const float* scale, const float* shift,
     const float* alpha, const void* w, const float* bias, void* y, int batch,
     int c_in, int c_out, int length, int k, int dilation, int tile_len,
-    int tiles_per_chunk, void* stream) {
-  if (!valid(batch, c_in, c_out, length, k, dilation) || tiles_per_chunk <= 0)
+    int tiles_per_chunk, const int* extent, void* stream) {
+  if (!valid(batch, c_in, c_out, length, k, dilation) ||
+      tiles_per_chunk <= 0 || tile_len <= 0 ||
+      !valid_plan(extent, batch, c_out, length, tile_len))
     return (int)cudaErrorInvalidValue;
   const ArgsB a = make_args_bf16(x, mask, scale, shift, alpha, w, bias, y,
-                                 c_in, c_out, length, k, dilation);
+                                 extent, batch, c_in, c_out, length, k,
+                                 dilation);
   const cudaStream_t s = (cudaStream_t)stream;
   switch (tile_len) {
-    case 64: return launch_carry_bf16<64>(a, batch, tiles_per_chunk, s);
-    case 128: return launch_carry_bf16<128>(a, batch, tiles_per_chunk, s);
-    case 256: return launch_carry_bf16<256>(a, batch, tiles_per_chunk, s);
+    case 64: return launch_carry_bf16<64>(a, tiles_per_chunk, s);
+    case 128: return launch_carry_bf16<128>(a, tiles_per_chunk, s);
+    case 256: return launch_carry_bf16<256>(a, tiles_per_chunk, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The tally of the bf16 kernels' column tiles on the current device: out[0]
+// computed, out[1] of the launches' whole grids, since the module loaded.
+// Copied on `stream` (the caller's own, which should wait for no other
+// work), then waited for.
+extern "C" int adain_snake_conv_tally(unsigned long long* out, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const cudaError_t err = cudaMemcpyFromSymbolAsync(
+      out, conv_tally_bf16, sizeof(conv_tally_bf16), 0,
+      cudaMemcpyDeviceToHost, s);
+  const cudaError_t done = cudaStreamSynchronize(s);
+  return (int)(err != cudaSuccess ? err : done);
 }
 
 // Dynamic shared memory of a launch in bytes (0 when it does not fit):

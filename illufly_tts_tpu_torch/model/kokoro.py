@@ -209,9 +209,11 @@ class KokoroModel(nn.Module):
         lo = _slice_start(start - halo, span, total_p)
         cols = lo + torch.arange(span, device=dev)
         rad0 = rad_p.index_select(1, lo[None])[:, 0]  # phase before the slice
+        # no row extents: a window's rows are whole but near the end, where
+        # skipping the padded columns would save little
         audio = self.decoder.generate(
             x_p.index_select(2, cols), dec_style, f0_p.index_select(1, cols),
-            mask_p.index_select(1, cols), rad_offset=rad0)
+            mask_p.index_select(1, cols), rad_offset=rad0, extents=False)
         spi = cfg.samples_per_frame // 2
         emit = window + halo  # window body + right overlap for crossfade
         a0 = _slice_start((start - lo) * spi, emit * spi, audio.shape[1])

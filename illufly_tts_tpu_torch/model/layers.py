@@ -237,7 +237,11 @@ class AdaSnakeResBlock(nn.Module):
     column-parallel and the alphas split: the moments, the AdaIN fold and
     the gathered alphas stay whole on x's device, and each conv shard runs
     the fused call at its C_out / n_model output channels on its own
-    device."""
+    device.
+
+    ``extent`` (int32 [B], the mask's row extents, ``mask_extent``) goes to
+    both calls: the kernels then skip what the mask does not reach, with
+    the same output. None (or no mask): every column."""
 
     def __init__(self, channels: int, kernel: int, dilations: Sequence[int],
                  style_dim: int):
@@ -286,8 +290,10 @@ class AdaSnakeResBlock(nn.Module):
             self._packed[conv] = held
         return held[1]
 
-    def forward(self, x, s, mask: Optional[torch.Tensor] = None):
+    def forward(self, x, s, mask: Optional[torch.Tensor] = None,
+                extent: Optional[torch.Tensor] = None):
         if mask is None:
+            extent = None
             mask = torch.ones(x.shape[0], x.shape[2], dtype=x.dtype,
                               device=x.device)
         kernel_mask = mask.float().contiguous()  # the fused convs' mask
@@ -300,14 +306,17 @@ class AdaSnakeResBlock(nn.Module):
             if isinstance(alpha, nn.Module):  # split: gathered here
                 alpha = alpha(h.device)
             gamma, beta = _wide(adain.fc(s)).chunk(2, dim=1)
-            scale, shift = adain_fold(h, kernel_mask, gamma, beta)
+            scale, shift = adain_fold(h, kernel_mask, gamma, beta,
+                                      extent=extent)
             inputs = (h, kernel_mask, scale, shift, alpha.reshape(-1))
             # a column-parallel conv (parallel/tensor.py): each shard runs
             # the fused call on its device at its output channels, from the
             # whole input; the slices are gathered on h's device
             parts = [fused(*(t.to(c.weight.device) for t in inputs),
                            self._weight(c), c.bias, c.kernel_size[0],
-                           c.dilation[0]).to(h.device)
+                           c.dilation[0],
+                           extent=None if extent is None
+                           else extent.to(c.weight.device)).to(h.device)
                      for c in getattr(conv, "shards", (conv,))]
             return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 

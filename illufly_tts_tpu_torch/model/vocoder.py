@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.adain_snake_conv import mask_extent
 from ..ops.istft_oa import istft_head
 from ..ops.stft import stft_magphase
 from .config import KokoroConfig
@@ -109,9 +110,12 @@ class Generator(nn.Module):
             c_prev = c_cur
         self.conv_post = Conv1d(c_prev, spec, 7)
 
-    def forward(self, x, s, f0, mask=None, generator=None, rad_offset=None):
+    def forward(self, x, s, f0, mask=None, generator=None, rad_offset=None,
+                extents=True):
         """x [B, C0, 2F], s [B, S], f0 [B, 2F] -> audio [B, 2F * 300].
-        ``rad_offset`` [B]: see ``SourceModule``."""
+        ``rad_offset`` [B]: see ``SourceModule``. ``extents`` False: the
+        blocks get no row extents and compute every column (for a caller
+        whose rows are whole but for rare ones, as stream windows are)."""
         n_fft, hop = self.n_fft, self.hop
         if mask is not None:
             f0 = f0 * mask.to(f0.dtype)
@@ -126,18 +130,24 @@ class Generator(nn.Module):
         har_spec = torch.cat([mag_h, ph_h], dim=-1).transpose(1, 2).to(
             x.dtype)
 
-        cur_mask = mask
+        cur_mask, extent = mask, None
         for i, u in enumerate(self.upsample_rates):
             x = getattr(self, f"up_{i}")(leaky_relu(x, 0.1))
             if cur_mask is not None:
                 cur_mask = cur_mask.repeat_interleave(u, dim=1)
                 x = x * cur_mask[:, None, :].to(x.dtype)
+                # each row's mask extent, once a stage: the stage's bf16
+                # blocks compute no columns past it and its conv's reach
+                # (the float32 convs compute every column: none there)
+                if extents and x.dtype == torch.bfloat16:
+                    extent = mask_extent(cur_mask)
             # noise branch from the harmonic spectrum
             x_src = getattr(self, f"noise_conv_{i}")(har_spec)
-            x = x + getattr(self, f"noise_res_{i}")(x_src, s, cur_mask)
+            x = x + getattr(self, f"noise_res_{i}")(x_src, s, cur_mask,
+                                                    extent)
             acc = None
             for j in range(self.num_kernels):
-                out = getattr(self, f"res_{i}_{j}")(x, s, cur_mask)
+                out = getattr(self, f"res_{i}_{j}")(x, s, cur_mask, extent)
                 acc = out if acc is None else acc + out
             x = acc / self.num_kernels
 
@@ -189,9 +199,9 @@ class Decoder(nn.Module):
         return x, f0_curve, cur_mask
 
     def generate(self, x, s, f0_curve, cur_mask=None, generator=None,
-                 rad_offset=None):
+                 rad_offset=None, extents=True):
         return self.generator(x, s, f0_curve, cur_mask, generator,
-                              rad_offset)
+                              rad_offset, extents)
 
     def forward(self, asr, f0_curve, n_curve, s, frame_mask=None,
                 generator=None):

@@ -24,7 +24,11 @@ tensors, or raises for what it does not take, and counts the launch in
 ``adain_fold_plain``. The kernel splits each row into chunks of ``CHUNK``
 elements, takes each chunk's (count, mean, M2) in two passes over
 registers, and combines a row's chunks left to right by Chan's formula;
-``adain_fold_chunked_plain`` computes that arithmetic on any device. On
+``adain_fold_chunked_plain`` computes that arithmetic on any device. Given
+the mask's row extents (``extent``, ``adain_snake_conv.mask_extent``), a
+chunk that starts at or past its row's extent is not read: its (count,
+mean, M2) is (0, 0, 0), what reading it gives (``adain_fold_chunked_plain``
+takes ``skip_past`` to do the same). On
 CUDA the launch goes through ``ops/kernel_grad.py::kernel_call``: where
 autograd records, the gradients of x, gamma and beta come from
 ``adain_fold_plain`` recomputed in the backward (the mask gets none). Both
@@ -39,7 +43,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from .adain_snake_conv import _wide, fold_adain, instance_moments
+from .adain_snake_conv import (_wide, check_extent, fold_adain,
+                               instance_moments)
 from .capture_tally import tallied
 from .kernel_grad import kernel_call
 
@@ -73,12 +78,14 @@ def _ones_mask(x: torch.Tensor) -> torch.Tensor:
 
 def adain_fold_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
                      gamma: Optional[torch.Tensor],
-                     beta: Optional[torch.Tensor], eps: float = EPS
+                     beta: Optional[torch.Tensor], eps: float = EPS,
+                     extent: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """PyTorch ops equal to the JAX ``fold_adain(*instance_moments(...))``
     in the channels-first layout (no mask: the mean and the variance over
     time, as JAX's unmasked branch); with gamma and beta None,
-    ``instance_moments(...)`` alone."""
+    ``instance_moments(...)`` alone. ``extent`` is taken as the kernel
+    takes it and changes nothing."""
     if mask is None:
         xf = _wide(x)
         moments = (xf.mean(dim=-1), torch.rsqrt(
@@ -93,12 +100,15 @@ def adain_fold_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
 def adain_fold_chunked_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
                              gamma: Optional[torch.Tensor],
                              beta: Optional[torch.Tensor], eps: float = EPS,
-                             chunk: int = CHUNK
+                             chunk: int = CHUNK,
+                             skip_past: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic: each row cut into ``chunk``-element chunks,
     each chunk's count, mean and centered M2 (two passes), the chunks
     combined left to right by Chan's formula, then the count clamp and the
-    fold (none where gamma and beta are None)."""
+    fold (none where gamma and beta are None). ``skip_past`` (row extents
+    [B]): the chunks that start at or past their row's extent get (0, 0,
+    0) in place of what they compute, as the kernel does with extents."""
     x = _wide(x)
     batch, channels, length = x.shape
     m = _ones_mask(x) if mask is None else mask
@@ -113,6 +123,11 @@ def adain_fold_chunked_plain(x: torch.Tensor, mask: Optional[torch.Tensor],
     cm = torch.where(cn > 0, (xs * ms).sum(dim=-1) / safe,
                      torch.zeros_like(cn))
     cq = ((xs - cm[..., None]) ** 2 * ms).sum(dim=-1)
+    if skip_past is not None:
+        starts = torch.arange(cn.shape[-1], device=x.device) * chunk
+        past = (starts[None, :] >= skip_past.to(x.device)[:, None])[:, None]
+        cn, cm, cq = (torch.where(past, torch.zeros_like(t), t)
+                      for t in (cn, cm, cq))
     n = mean = m2 = torch.zeros_like(cn[..., 0])
     for k in range(cn.shape[-1]):
         total = n + cn[..., k]
@@ -139,11 +154,11 @@ def _library():
 
     lib = load("adain_moments")
     ptr, num, wide = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # x, mask, gamma, its row stride, beta, its row stride, out, scratch;
-    # batch, C, L; eps; the stream
+    # x, mask, row extents, gamma, its row stride, beta, its row stride,
+    # out, scratch; batch, C, L; eps; the stream
     for fn in (lib.adain_fold_f32, lib.adain_fold_bf16):
-        fn.argtypes = [ptr, ptr, ptr, wide, ptr, wide, ptr, ptr, num, num,
-                       num, ctypes.c_float, ptr]
+        fn.argtypes = [ptr, ptr, ptr, ptr, wide, ptr, wide, ptr, ptr, num,
+                       num, num, ctypes.c_float, ptr]
         fn.restype = ctypes.c_int
     lib.adain_fold_part_floats.argtypes = [num] * 3
     lib.adain_fold_part_floats.restype = wide
@@ -157,7 +172,7 @@ def _library():
     return lib
 
 
-def _check(x, mask, gamma, beta) -> bool:
+def _check(x, mask, gamma, beta, extent=None) -> bool:
     """Validate shapes; -> True for CPU tensors (plain path). Raises for
     mixed devices, and on CUDA for what the kernel does not take."""
     if x.dim() != 3:
@@ -174,6 +189,8 @@ def _check(x, mask, gamma, beta) -> bool:
     if mask is not None and tuple(mask.shape) != (batch, length):
         raise ValueError(f"adain_fold: mask {tuple(mask.shape)} != "
                          f"{(batch, length)}")
+    if check_extent("adain_fold", x, extent) is not None and mask is None:
+        raise ValueError("adain_fold: extent without a mask")
     tensors = [t for t in (x, mask, gamma, beta) if t is not None]
     if all(t.device.type == "cpu" for t in tensors):
         return True
@@ -196,12 +213,14 @@ def _check(x, mask, gamma, beta) -> bool:
 
 def adain_fold(x: torch.Tensor, mask: Optional[torch.Tensor],
                gamma: Optional[torch.Tensor], beta: Optional[torch.Tensor],
-               eps: float = EPS) -> Tuple[torch.Tensor, torch.Tensor]:
+               eps: float = EPS, extent: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, C, L] f32 or bf16, mask [B, L] f32 or None, gamma and beta
     [B, C] f32 -> (scale, shift) [B, C] f32, or with gamma and beta None
     (mean, rstd): the kernel on CUDA tensors, ``adain_fold_plain`` on CPU
-    tensors."""
-    if _check(x, mask, gamma, beta):
+    tensors. ``extent``: the mask's row extents (int32 [B]), with which the
+    kernel reads no chunk past them; the result is the same."""
+    if _check(x, mask, gamma, beta, extent):
         return adain_fold_plain(x, mask, gamma, beta, eps)
     batch, channels, length = x.shape
     bf16 = x.dtype == torch.bfloat16
@@ -218,6 +237,7 @@ def adain_fold(x: torch.Tensor, mask: Optional[torch.Tensor],
                            dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):  # the C side launches on the current one
             rc = fn(x.data_ptr(), 0 if mask is None else mask.data_ptr(),
+                    0 if extent is None else extent.data_ptr(),
                     *((0, 0, 0, 0) if gamma is None else (
                         gamma.data_ptr(), gamma.stride(0), beta.data_ptr(),
                         beta.stride(0))), out.data_ptr(), part.data_ptr(),

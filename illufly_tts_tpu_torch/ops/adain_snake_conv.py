@@ -37,6 +37,17 @@ layout the tensor cores read, which the kernels' copy engine moves in bulk),
 which the model makes once per weight. ``adain_snake_conv_plain`` computes
 the same arithmetic on any device, with w as it comes or packed.
 
+Row extents (``extent``, ``mask_extent(mask)``: one past each row's last
+nonzero mask column) let the bf16 forms compute only the column tiles that
+start before a row's extent plus the conv's reach ``(k - 1) * d / 2``,
+spread over the launch's grid (about one wave of CTAs), and store the
+bias, which is what the rest computes, for the others: the output is
+bitwise the launch's without extents (``work_plan`` mirrors the split; the
+source's notes give why). The float32 forms and the plain version take
+extents and compute every column. ``columns_tally`` reads the bf16
+kernels' count of column tiles computed against their grids' tiles
+(``TIMERS``' snapshot).
+
 Each wrapper launches its kernel for CUDA tensors (or raises) and counts the
 launch in ``launches``; for CPU tensors it runs ``adain_snake_conv_plain``.
 On CUDA the launch goes through ``ops/kernel_grad.py::kernel_call``: where
@@ -52,11 +63,12 @@ from __future__ import annotations
 import ctypes
 import threading
 from functools import lru_cache
-from typing import Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..utils.profiling import TIMERS
 from .capture_tally import tallied
 from .kernel_grad import kernel_call
 
@@ -139,11 +151,12 @@ def _conv(h, w, kernel, dilation):
 
 
 def adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b, kernel,
-                           dilation=1):
+                           dilation=1, extent=None):
     """PyTorch ops equal to the JAX ``adain_snake_conv_reference``. For a
     bfloat16 x, its bf16 arithmetic: h (float32) and w rounded to
     bfloat16, their products (exact in float32) summed in float32 with the
-    float32 bias, the output rounded to bfloat16."""
+    float32 bias, the output rounded to bfloat16. Every column is computed
+    (``extent`` is taken as the kernels take it, and changes nothing)."""
     w = _held(w, x.shape[1], b.shape[0])
     h = _activate(x, mask, scale, shift, alpha)
     if x.dtype == torch.bfloat16:
@@ -278,6 +291,58 @@ def column_tile(batch: int, c_out: int, length: int, sms: int,
         -(-per_column * -(-length // tl) // sms) * cost[tl], -tl))
 
 
+def mask_extent(mask: torch.Tensor) -> torch.Tensor:
+    """Row extents of a mask [B, L]: one past the last nonzero column of each
+    row, 0 for an all-zero row, L for one whose last column is nonzero ->
+    int32 [B] on the mask's device (a few ops; nothing read on the host)."""
+    cols = torch.arange(1, mask.shape[1] + 1, dtype=torch.int32,
+                        device=mask.device)
+    return torch.where(mask != 0, cols, 0).amax(dim=1)
+
+
+def work_tiles(extent: int, length: int, tile_len: int, pad: int) -> int:
+    """Column tiles of a row that the bf16 kernels compute: those starting
+    before ``extent + pad``, clipped to the row; none for an empty row."""
+    if extent <= 0:
+        return 0
+    return min(-(-length // tile_len), -(-(extent + pad) // tile_len))
+
+
+def work_plan(extents, c_out: int, length: int, tile_len: int, pad: int,
+              tiles: int) -> List[Tuple[List[Tuple[int, int, int]],
+                                        List[Tuple[int, int, int]]]]:
+    """The bf16 kernels' split with row extents, as the source's
+    ``share_of`` makes it, for a grid of ``tiles`` tiles a CTA
+    (``tiles_per_cta`` or ``carry_tiles_per_chunk``): each (row b,
+    output-channel tile co) a segment, in that order. Where every row
+    computes all its tiles, each CTA its run of ``tiles`` tiles of one
+    segment, as without extents; else CTA i of the G takes list indices
+    [i W / G, (i + 1) W / G) of the W computed (b, co, column tile)s and
+    likewise of the bias tiles (each segment's tiles past its computed
+    ones). -> per CTA in grid order (x fastest, then co, then b),
+    (computed, bias) lists of (b, co, tile)."""
+    co_tiles = -(-c_out // COUT_TILE)
+    n_tiles = -(-length // tile_len)
+    runs = -(-n_tiles // tiles)
+    work, bias = [], []
+    for b, e in enumerate(extents):
+        n = work_tiles(int(e), length, tile_len, pad)
+        for co in range(co_tiles):
+            work += [(b, co, t) for t in range(n)]
+            bias += [(b, co, t) for t in range(n, n_tiles)]
+    if not bias:
+        return [([(b, co, t) for t in range(x * tiles,
+                                            min(n_tiles, (x + 1) * tiles))],
+                 []) for b in range(len(extents)) for co in range(co_tiles)
+                for x in range(runs)]
+    ctas = len(extents) * co_tiles * runs
+
+    def share(items, i):
+        return items[i * len(items) // ctas:(i + 1) * len(items) // ctas]
+
+    return [(share(work, i), share(bias, i)) for i in range(ctas)]
+
+
 @lru_cache(maxsize=None)
 def _library():
     from .cuda_build import load
@@ -289,11 +354,15 @@ def _library():
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    # the bf16 forms: the same without the split-weight scratch, w packed
+    # the bf16 forms: the same without the split-weight scratch, w packed;
+    # then the row extents (or null)
     for fn in (lib.adain_snake_conv_bf16, lib.adain_snake_conv_carry_bf16):
         fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_void_p, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+    lib.adain_snake_conv_tally.argtypes = [
+        ctypes.POINTER(ctypes.c_ulonglong), ctypes.c_void_p]
+    lib.adain_snake_conv_tally.restype = ctypes.c_int
     for fn in (lib.adain_snake_conv_smem_bytes,
                lib.adain_snake_conv_smem_bytes_bf16):
         fn.argtypes = [ctypes.c_int] * 3
@@ -323,6 +392,42 @@ def _library():
             raise RuntimeError("adain_snake_conv: bf16 shared-memory sizes "
                                "differ from the wrapper's")
     return lib
+
+
+# the cards a bf16 conv has launched on in this process (their tallies)
+_TALLIED: set = set()
+
+
+@lru_cache(maxsize=None)
+def _tally_stream(index: int) -> torch.cuda.Stream:
+    return torch.cuda.Stream(device=index)
+
+
+def columns_tally() -> Optional[dict]:
+    """The bf16 conv kernels' column tiles since their library loaded,
+    summed over the cards they launched on in this process (the replicas
+    of one engine across cards included): ``computed_tiles`` (what the MMAs
+    ran over), ``grid_tiles`` (every launch's B x C_out tiles x its L /
+    column tile) and their ratio, ``computed_share``, the share of the
+    columns computed. None before the first bf16 launch (no CUDA touched).
+    Reads each card's device counter on a stream of its own, kept for the
+    next read, waiting for no other work."""
+    if not _TALLIED:
+        return None
+    computed = grid = 0
+    out = (ctypes.c_ulonglong * 2)()
+    for index in sorted(_TALLIED):
+        with torch.cuda.device(index):
+            rc = _library().adain_snake_conv_tally(
+                out, _tally_stream(index).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"adain_snake_conv_tally: cudaError {rc}")
+        computed, grid = computed + int(out[0]), grid + int(out[1])
+    return {"computed_tiles": computed, "grid_tiles": grid,
+            "computed_share": computed / grid if grid else None}
+
+
+TIMERS.add_reader("bf16_conv_columns", columns_tally)
 
 
 @lru_cache(maxsize=None)
@@ -398,17 +503,22 @@ def _check_bf16(name, tensors):
 
 
 def _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
-            *extra):
+            *extra, extent=None):
+    """``extra``: the column tile and the tiles a CTA takes; a bf16 form
+    also gets ``extent`` (int32 [B] on x's device, or None)."""
     batch, c_in, length = x.shape
     c_out = _c_out(w, b)
     y = torch.empty((batch, c_out, length), dtype=x.dtype, device=x.device)
-    scratch = []
+    scratch, plan = [], ()
     if x.dtype != torch.bfloat16:
         # the weights split as hi and lo, which the launch fills for its
         # kernel (the bf16 forms read w as it is held)
         scratch.append(torch.empty(
             _library().adain_snake_conv_split_words(c_in, c_out, kernel),
             dtype=torch.int32, device=x.device))
+    else:
+        plan = (0 if extent is None else extent.data_ptr(),)
+        _TALLIED.add(x.device.index)
     # the C side launches on the runtime's current device and sets each
     # kernel's shared-memory limit there: make it x's
     with torch.cuda.device(x.device):
@@ -417,20 +527,21 @@ def _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
                 shift.data_ptr(), alpha.data_ptr(), w.data_ptr(),
                 b.data_ptr(), y.data_ptr(),
                 *(t.data_ptr() for t in scratch), batch, c_in, c_out,
-                length, kernel, dilation, *extra, stream)
+                length, kernel, dilation, *extra, *plan, stream)
     if rc != 0:
         raise RuntimeError(f"{fn.__name__} launch failed: cudaError {rc}")
     return y
 
 
 def _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
-          *extra):
+          *extra, extent=None):
     """Launch ``fn`` and count it as ``name``; where autograd records, the
     backward differentiates the plain version (``kernel_call``). The mask
-    stays outside the Function's inputs: it gets no gradient."""
+    and the row extents stay outside the Function's inputs: they get no
+    gradient."""
     def launch(x, scale, shift, alpha, w, b):
         y = _launch(fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
-                    *extra)
+                    *extra, extent=extent)
         count_launch(name)
         return y
 
@@ -441,10 +552,27 @@ def _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel, dilation,
     return kernel_call(launch, plain, x, scale, shift, alpha, w, b)
 
 
+def check_extent(name, x, extent):
+    """``extent`` as a kernel takes it: None, or int32 [B] on x's device;
+    raises for anything else."""
+    batch = x.shape[0]
+    if extent is not None and (
+            tuple(extent.shape) != (batch,) or extent.dtype != torch.int32
+            or extent.device != x.device or not extent.is_contiguous()):
+        raise ValueError(f"{name}: extent must be the mask's row extents, "
+                         f"int32 [{batch}] on {x.device}; got {extent.dtype} "
+                         f"{tuple(extent.shape)} on {extent.device}")
+    return extent
+
+
 def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
-                     dilation=1):
+                     dilation=1, extent=None):
     """Halo-tile kernel: mask(snake(x*scale+shift)) conv w + b ->
-    [B, C_out, L] in x's dtype (f32, or the bf16 form for bfloat16 x)."""
+    [B, C_out, L] in x's dtype (f32, or the bf16 form for bfloat16 x).
+    ``extent``: the mask's row extents (``mask_extent``), with which the
+    bf16 form computes only each row's columns the mask reaches; the
+    output is the same."""
+    check_extent("adain_snake_conv", x, extent)
     if _check("adain_snake_conv", x, mask, scale, shift, alpha, w, b,
               kernel, dilation):
         return adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
@@ -455,18 +583,21 @@ def adain_snake_conv(x, mask, scale, shift, alpha, w, b, kernel,
     bf16 = x.dtype == torch.bfloat16
     tile_len = column_tile(batch, c_out, length, sms, bf16)
     name, fn = "adain_snake_conv", _library().adain_snake_conv_f32
-    if bf16:
+    if bf16:  # the float32 form computes every column
         name, fn = "adain_snake_conv_bf16", _library().adain_snake_conv_bf16
     return _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel,
                  dilation, tile_len,
-                 tiles_per_cta(batch, c_out, length, sms, tile_len))
+                 tiles_per_cta(batch, c_out, length, sms, tile_len),
+                 extent=extent if bf16 else None)
 
 
 def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
-                           dilation=1):
+                           dilation=1, extent=None):
     """Walking-carry kernel: the same function as ``adain_snake_conv``,
     each input column loaded and activated once per chunk of
-    ``carry_tiles_per_chunk`` tiles."""
+    ``carry_tiles_per_chunk`` tiles (with ``extent``, once per run of a
+    row's tiles in a CTA's share, where that walks)."""
+    check_extent("adain_snake_conv_carry", x, extent)
     if _check("adain_snake_conv_carry", x, mask, scale, shift, alpha, w, b,
               kernel, dilation):
         return adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
@@ -480,8 +611,9 @@ def adain_snake_conv_carry(x, mask, scale, shift, alpha, w, b, kernel,
                                       dilation, sms, tile_len, bf16)
     name, fn = ("adain_snake_conv_carry",
                 _library().adain_snake_conv_carry_f32)
-    if bf16:
+    if bf16:  # the float32 form computes every column
         name, fn = ("adain_snake_conv_carry_bf16",
                     _library().adain_snake_conv_carry_bf16)
     return _call(name, fn, x, mask, scale, shift, alpha, w, b, kernel,
-                 dilation, tile_len, per_chunk)
+                 dilation, tile_len, per_chunk,
+                 extent=extent if bf16 else None)

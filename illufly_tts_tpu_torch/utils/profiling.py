@@ -28,7 +28,13 @@ Span names (PERF.md §3 names the reader of each):
 - scheduler, one each per task: ``queue_wait`` (created to selected),
   ``coalesce_wait`` (the part of it in the coalescing window),
   ``head_wait`` (its batch's wait for the head of the decode queue) and
-  ``poll_wait`` (completed to ``stream_result``'s poller seeing it)."""
+  ``poll_wait`` (completed to ``stream_result``'s poller seeing it).
+
+Counters kept elsewhere join the snapshot through ``add_reader``, read
+only when a snapshot is taken: ``bf16_conv_columns``, the bf16 fused
+convs' column tiles computed against their grids' tiles, and the share
+of the columns computed (``ops/adain_snake_conv.py::columns_tally``, a
+device counter on each card, summed over the cards they ran on)."""
 from __future__ import annotations
 
 import contextlib
@@ -38,7 +44,7 @@ import os
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterator, List, NamedTuple, Optional
+from typing import Callable, Dict, Iterator, List, NamedTuple, Optional
 
 import torch
 from torch.autograd import profiler as _autograd_profiler
@@ -111,6 +117,15 @@ class StageTimers:
         self._lock = threading.Lock()
         self._local = threading.local()  # the thread's open spans
         self._ids = itertools.count(1)
+        # name -> a reader of a counter kept elsewhere (a dict, or None
+        # while it has nothing to report), called by ``snapshot``
+        self._readers: Dict[str, Callable[[], Optional[dict]]] = {}
+
+    def add_reader(self, name: str,
+                   read: Callable[[], Optional[dict]]) -> None:
+        """Report ``read()`` under ``name`` in every ``snapshot`` (left out
+        while it returns None)."""
+        self._readers[name] = read
 
     @staticmethod
     def recording() -> bool:
@@ -244,8 +259,10 @@ class StageTimers:
             self.dropped = 0
 
     def snapshot(self) -> Dict[str, Dict[str, float]]:
+        """Each span name's ``ewma_s``, ``count`` and ``total_s``; then each
+        reader's counters under its name."""
         with self._lock:
-            return {
+            out = {
                 stage: {
                     "ewma_s": self.ewma[stage],
                     "count": self.count[stage],
@@ -253,6 +270,11 @@ class StageTimers:
                 }
                 for stage in self.ewma
             }
+        for name, read in list(self._readers.items()):
+            value = read()
+            if value is not None:
+                out[name] = value
+        return out
 
 
 TIMERS = StageTimers()

@@ -94,8 +94,24 @@ def render_prometheus(stats: Dict[str, Any]) -> str:
                      [({"kind": k}, cache[f"{k}_hit_rate"]) for k in rated])
 
     timers = stats.get("stage_timers")
-    if isinstance(timers, dict) and timers:
-        stages = sorted(timers)
+    timers = timers if isinstance(timers, dict) else {}
+    columns = timers.get("bf16_conv_columns")
+    if isinstance(columns, dict):
+        emit("tts_bf16_conv_tiles_computed_total",
+             "Column tiles the bf16 fused convs computed, all cards",
+             "counter",
+             [({}, columns["computed_tiles"])])
+        emit("tts_bf16_conv_tiles_grid_total",
+             "Column tiles of the bf16 fused convs' whole grids, all cards",
+             "counter",
+             [({}, columns["grid_tiles"])])
+        if columns.get("computed_share") is not None:
+            emit("tts_bf16_conv_computed_share",
+                 "Share of the bf16 fused convs' columns computed", "gauge",
+                 [({}, columns["computed_share"])])
+    stages = sorted(s for s, v in timers.items()
+                    if isinstance(v, dict) and "count" in v)
+    if stages:
         emit("tts_stage_seconds_total",
              "Wall seconds per pipeline stage", "counter",
              [({"stage": s}, timers[s].get("total_s", 0.0)) for s in stages])

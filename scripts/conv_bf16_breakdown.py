@@ -107,7 +107,7 @@ def build() -> dict:
         for form in FORMS:
             fn = getattr(libs[name], form)
             fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                           + [ctypes.c_void_p])
+                           + [ctypes.c_void_p, ctypes.c_void_p])
             fn.restype = ctypes.c_int
     return libs
 

@@ -417,10 +417,10 @@ def test_layers_route_their_moments_through_the_pass(monkeypatch):
     every ``AdaIN1d`` its moments (gamma and beta None)."""
     seen = []
 
-    def spy(x, mask, gamma, beta):
+    def spy(x, mask, gamma, beta, extent=None):
         seen.append((tuple(x.shape), None if mask is None else mask.dtype,
                      gamma is None))
-        return am.adain_fold(x, mask, gamma, beta)
+        return am.adain_fold(x, mask, gamma, beta, extent=extent)
 
     monkeypatch.setattr(tl, "adain_fold", spy)
     channels, kernel, dilations = _gen_block()

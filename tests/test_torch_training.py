@@ -59,7 +59,8 @@ def stand_ins(monkeypatch):
     """Route both wrappers' launches to their plain versions, counted."""
     calls = []
 
-    def conv_launch(fn, x, mask, scale, shift, alpha, w, b, k, d, *extra):
+    def conv_launch(fn, x, mask, scale, shift, alpha, w, b, k, d, *extra,
+                    extent=None):
         calls.append(fn)
         return asc.adain_snake_conv_plain(x, mask, scale, shift, alpha, w, b,
                                           k, d)
@@ -434,7 +435,7 @@ def _split_gradients(model, arrays, where):
 
     inside = [False]
 
-    def conv(*args):
+    def conv(*args, extent=None):  # both compute every column
         use = where == "all" or where == ("noise" if inside[0] else "main")
         return (split if use else asc.adain_snake_conv_plain)(*args)
 
