@@ -23,8 +23,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from perfbench.harness import check, configs, weights  # noqa: E402
-from perfbench.reference import kokoro  # noqa: E402
+from perfbench.harness import check, configs, registry  # noqa: E402
 
 CURVES = {  # F0 [Hz] over the utterance's half-frames, t in [0, 1]
     "unvoiced": lambda t: 4.5 + 4.5 * torch.sin(6.2832 * 3 * t),
@@ -40,10 +39,13 @@ def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def readings(cfg: dict, seed: int, frames: int, device: str,
-             program: bool = True) -> list:
+             program: bool = True, family: str = "kokoro") -> list:
+    """``family``: the name of the model family ``cfg`` is sized for
+    (``perfbench/families/<family>.py``)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    params = weights.make(cfg, seed, device)
+    fam = registry.family(family)
+    params = fam.make(cfg, seed, device)
     gen = torch.Generator(device=device).manual_seed(seed ^ 0xF0)
     x = torch.randn(1, 512, frames, generator=gen, device=device)
     s = torch.randn(1, cfg["style_dim"], generator=gen, device=device) * 0.1
@@ -51,18 +53,11 @@ def readings(cfg: dict, seed: int, frames: int, device: str,
     t = torch.linspace(0.0, 1.0, frames, device=device)[None]
     port = None
     if program:
-        from illufly_tts_tpu_torch.model.kokoro import KokoroModel
-
-        with torch.device("meta"):
-            model = KokoroModel(configs.kokoro_config(
-                {**cfg, "dtype": "float32"}))
-        model = model.to_empty(device=device)
-        model.load_state_dict(params, strict=True)
-        port = model.decoder.generator.eval()
+        port = fam.model(cfg, params, device).decoder.generator.eval()
 
     def ref(dtype, quant=None):
         p = {k: v.to(dtype) for k, v in params.items()}
-        r = kokoro.Reference(cfg, p, quant)
+        r = fam.Reference(cfg, p, quant)
         return lambda f0: r.generator(x.to(dtype), s.to(dtype), f0.to(dtype),
                                       mask.to(dtype))
 
@@ -95,7 +90,8 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     torch.set_num_threads(min(4, torch.get_num_threads()))
     for row in readings(configs.load(args.config), args.seed, args.frames,
-                        args.device):
+                        args.device,
+                        family=configs.family_name(args.config)):
         print(json.dumps(row), flush=True)
     return 0
 

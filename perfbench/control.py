@@ -18,7 +18,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from perfbench.harness import check, configs, frontend, registry, traffic  # noqa: E402
-from perfbench.harness import weights  # noqa: E402
 
 DEFAULT_FRAMES = (64, 128, 192, 256, 384, 512, 768, 1024, 1536, 2048, 3072,
                   4096)
@@ -31,16 +30,17 @@ def readings(cell_name: str, seed: int, device: str = "cuda",
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cell = registry.load_json("workloads", cell_name)
+    family = configs.family(cell["config"])
     cfg = cfg or configs.load(cell["config"])
     mix = {**registry.load_json("traffic", cell["traffic"]),
            **(mix_override or {})}
     tables = frontend.load_tables()
     requests, _ = traffic.generate(mix, seed, 30.0, tables)
-    params = weights.make(cfg, seed, device)
-    packs = weights.voices(cfg, seed, mix["voices"], device)
+    params = family.make(cfg, seed, device)
+    packs = family.voices(cfg, seed, mix["voices"], device)
     names = [f"bench_{i}" for i in range(len(packs))]
-    ref = check.Judge(cfg, params, packs)
-    control = check.Judge(cfg, params, packs, check.CONTROLS[cfg["dtype"]])
+    ref = family.Judge(cfg, params, packs)
+    control = family.Judge(cfg, params, packs, check.CONTROLS[cfg["dtype"]])
     form = cell["check"]["form"]
     buckets = cell["deployment"].get("buckets", {}).get("frame_buckets") \
         or DEFAULT_FRAMES

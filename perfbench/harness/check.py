@@ -1,8 +1,9 @@
 """The comparison that decides ``correct``.
 
-What the window produced is held to the plain reference
-(``perfbench/reference/``) after the window has closed, the peak memory
-read and the program's state freed:
+What the window produced is held to the plain reference (the
+configuration's family's ``Judge``, ``perfbench/families/<family>.py``,
+over ``perfbench/reference/``) after the window has closed, the peak
+memory read and the program's state freed:
 
 - ``ipa_mismatch``: answers whose text the pipeline did not hand to the
   engine as the IPA the frozen tables spell for it (every answer);
@@ -51,7 +52,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from perfbench.reference import kokoro, mel, vocab
+from perfbench.reference import mel
 
 NO_MATCH = 1e9
 DUR_OFF = 0.75
@@ -113,63 +114,16 @@ def pick_sample(answers: List[dict], count: int, seed: int,
     return [longest] + [rest[i] for i in sorted(take)]
 
 
-class Judge:
-    """The reference on the seed's weights and voices, on ``device``."""
-
-    def __init__(self, cfg: dict, params: Dict[str, torch.Tensor],
-                 packs: torch.Tensor, quant: Optional[Callable] = None):
-        self.cfg = cfg
-        self.ref = kokoro.Reference(cfg, params, quant)
-        self.packs = packs
-        self.device = packs.device
-
-    def inputs(self, ipa: str, voice: int):
-        ids = torch.tensor([vocab.encode(ipa)[:512]], device=self.device)
-        mask = torch.ones(ids.shape, device=self.device)
-        pack = self.packs[voice]
-        ref_s = pack[max(min(len(ipa) - 1, pack.shape[0] - 1), 0)][None]
-        return ids, mask, ref_s
-
-    @torch.no_grad()
-    def durations(self, ipa: str, voice: int):
-        ids, mask, ref_s = self.inputs(ipa, voice)
-        dur, d = self.ref.durations(ids, mask, ref_s)
-        return dur, d
-
-    @torch.no_grad()
-    def audio(self, ipa: str, voice: int, dur_int: np.ndarray, frames: int,
-              form: dict, d=None) -> np.ndarray:
-        """The served audio of ``ipa`` rendered with ``dur_int`` at
-        ``frames`` frames, in ``form`` ({"kind": "pcm16"} or {"kind":
-        "stream", "window": w, "halo": h}); None where the reference
-        refuses it."""
-        ids, mask, ref_s = self.inputs(ipa, voice)
-        if d is None:
-            _, d = self.ref.durations(ids, mask, ref_s)
-        dur = torch.as_tensor(dur_int, device=self.device)[None]
-        spf = kokoro.samples_per_frame(self.cfg)
-        total = int(self.ref.fit(dur, frames).sum())
-        if form["kind"] == "stream":
-            try:
-                out = self.ref.stream(ids, mask, d, dur, ref_s, frames,
-                                      form["window"], form["halo"])
-            except ValueError:
-                return None
-            return out.cpu().numpy()
-        audio, _ = self.ref.render(ids, mask, d, dur, ref_s, frames)
-        return kokoro.pcm16(audio)[0, : total * spf].cpu().numpy()
-
-
-def judge(answers: List[dict], rows: Dict[tuple, dict], judge_: Judge,
+def judge(answers: List[dict], rows: Dict[tuple, dict], judge_,
           form: dict, sample: List[dict], voice_names: List[str],
           worst: Optional[list] = None) -> Dict[str, float]:
     """The run's numbers (those of the module's docstring).
 
     ``answers``: every request due in the window, {"ipa" (expected),
     "voice", "audio" (served, None where it failed)}; ``rows``: the
-    recorder's (IPA, voice name) -> engine durations and frame bucket;
-    ``worst`` gathers (wave_err, mel_err, index, ids) of each sampled
-    answer."""
+    recorder's (IPA, voice name) -> engine durations, frame bucket and
+    the family's extras; ``judge_``: the family's ``Judge``; ``worst``
+    gathers (wave_err, mel_err, index, ids) of each sampled answer."""
     out = {"ipa_mismatch": 0, "unanswered": 0, "dur_mismatch": 0,
            "dur_off": 0, "wave_err": 0.0, "mel_err": 0.0, "mel_med": 0.0,
            "gain_err": 0.0}
@@ -188,16 +142,16 @@ def judge(answers: List[dict], rows: Dict[tuple, dict], judge_: Judge,
         row = rows.get((a["ipa"], voice_names[a["voice"]]))
         if row is None:
             continue  # counted above
-        n = len(vocab.encode(a["ipa"])[:512])
-        port_dur = np.asarray(row["pred_dur"][:n], np.int64)
         ref_float, d = judge_.durations(a["ipa"], a["voice"])
+        n = ref_float.shape[-1]
+        port_dur = np.asarray(row["pred_dur"][:n], np.int64)
         ref_dur = judge_.ref.quantize(ref_float, torch.ones_like(ref_float))
         out["dur_mismatch"] += int((ref_dur[0].cpu().numpy()
                                     != port_dur).sum())
         out["dur_off"] += int((np.abs(port_dur - ref_float[0].double().cpu()
                                       .numpy()) >= DUR_OFF).sum())
         want = judge_.audio(a["ipa"], a["voice"], port_dur, row["frames"],
-                            form, d=d)
+                            form, d=d, row=row)
         got = a["audio"]
         err = NO_MATCH if want is None else rel_rms(got, want)
         out["wave_err"] = max(out["wave_err"], err)
@@ -214,7 +168,7 @@ def judge(answers: List[dict], rows: Dict[tuple, dict], judge_: Judge,
     return out
 
 
-def control_answers(sample: List[dict], control: Judge, form: dict,
+def control_answers(sample: List[dict], control, form: dict,
                     frame_buckets, voice_names: List[str]) -> tuple:
     """The control in the program's place for ``sample``: its own durations
     (rounded as the engine rounds), its own frame bucket and audio. ->

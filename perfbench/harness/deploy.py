@@ -1,36 +1,16 @@
-"""The system under test, as a deployment sets it up: the served engine on
-the benchmark's seeded weights and voices, the text pipeline on the
-benchmark's frozen G2P and the program's own normalizers, the scheduler,
-and the warmup; and the recorder that keeps what the engine was handed and
-what it decided, for the check after the window."""
+"""The system under test, as a deployment sets it up: the voices on the
+engine the configuration's family built, the text pipeline on the
+benchmark's frozen G2P and the program's own normalizers; and the recorder
+that keeps what the engine was handed and what it decided, for the check
+after the window."""
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 import torch
 
-from . import configs
 from .frontend import FrozenG2P
-
-
-def synthesizer(cfg: dict, params: Dict[str, torch.Tensor], device,
-                **buckets):
-    """The served engine (``Synthesizer``) holding ``params``: they are put
-    into a float32 model on the device and handed to the engine as its
-    weight tree, as a checkpoint is."""
-    from illufly_tts_tpu_torch.engine.synthesizer import Synthesizer
-    from illufly_tts_tpu_torch.model.kokoro import KokoroModel
-    from illufly_tts_tpu_torch.model.params import export_flax_params
-
-    kcfg = configs.kokoro_config(cfg)
-    with torch.device("meta"):
-        model = KokoroModel(configs.kokoro_config({**cfg, "dtype": "float32"}))
-    model = model.to_empty(device=device)
-    model.load_state_dict(params, strict=True)
-    tree = export_flax_params(model)
-    del model
-    return Synthesizer(config=kcfg, params=tree, device=device, **buckets)
 
 
 def register_voices(synth, packs: torch.Tensor) -> List[str]:
@@ -61,10 +41,13 @@ def pipeline(synth, tables):
 class Recorder:
     """Wraps the engine's ``dispatch`` and ``launch_decode`` on one engine:
     each dispatch's IPA, voices and the stage-A durations it computed (the
-    tensor the engine made, kept alive, read after the window), and each
-    batch's frame bucket. Nothing the engine computes changes."""
+    tensor the engine made, kept alive, read after the window), each
+    batch's frame bucket, and for each row what the family's
+    ``row_extras(handle, i)`` keeps of it (such as noise the engine drew)
+    while the handle lives. Nothing the engine computes changes."""
 
-    def __init__(self, synth):
+    def __init__(self, synth, row_extras: Callable[[object, int], dict]):
+        self.row_extras = row_extras
         self.batches: List[dict] = []
         self._open: Dict[int, dict] = {}
         self._lock = threading.Lock()
@@ -91,12 +74,14 @@ class Recorder:
         synth.launch_decode = recorded_launch
 
     def close(self, handle) -> None:
-        """Note the frame bucket the engine picked for ``handle`` and let
-        the handle go."""
+        """Note the frame bucket the engine picked for ``handle`` and each
+        row's extras, and let the handle go."""
         with self._lock:
             rec = self._open.pop(id(handle), None)
         if rec is not None:
             rec["f_bucket"] = handle.f_bucket
+            rec["extras"] = [self.row_extras(handle, i)
+                             for i in range(len(rec["ipa"]))]
             rec["handle"] = None
 
     def close_all(self) -> None:
@@ -108,7 +93,8 @@ class Recorder:
 
     def rows(self) -> Dict[tuple, dict]:
         """(IPA, voice) -> {"ipa", "voice", "pred_dur" (host, the row's
-        tokens), "frames"} for the first dispatch of each pair."""
+        tokens), "frames", "extras"} for the first dispatch of each
+        pair."""
         out = {}
         for rec in self.batches:
             if rec["f_bucket"] is None:
@@ -117,10 +103,10 @@ class Recorder:
             for i, (ipa, voice) in enumerate(zip(rec["ipa"], rec["voices"])):
                 out.setdefault((ipa, voice), {
                     "ipa": ipa, "voice": voice, "pred_dur": pred[i],
-                    "frames": rec["f_bucket"]})
+                    "frames": rec["f_bucket"], "extras": rec["extras"][i]})
         return out
 
     def release(self) -> None:
         for rec in self.batches:
-            rec["pred_dur"] = rec["handle"] = None
+            rec["pred_dur"] = rec["handle"] = rec["extras"] = None
 

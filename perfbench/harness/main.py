@@ -17,7 +17,6 @@ from types import SimpleNamespace
 import numpy as np
 
 from . import check, configs, deploy, drive, frontend, registry, trace, traffic
-from . import weights
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "illufly_tts_tpu"}
 
@@ -37,15 +36,14 @@ def log(*parts) -> None:
     print("[perfbench]", *parts, file=sys.stderr, flush=True)
 
 
-def counters(s) -> dict:
+def counters(s, family) -> dict:
     from illufly_tts_tpu_torch.engine.synthesizer import stage_kind
-    from illufly_tts_tpu_torch.ops import istft_oa
     from illufly_tts_tpu_torch.utils.profiling import TIMERS
 
     out = {"frontend_s": TIMERS.total.get("frontend", 0.0),
            "replays_b": sum(v for k, v in s.synth.graph_replays.items()
                             if stage_kind(k) == "b"),
-           "generator_passes": istft_oa.launches + istft_oa.launches_bf16}
+           "generator_passes": family.generator_passes()}
     if getattr(s, "manager", None) is not None:
         out["manager"] = dict(s.manager.counters)
     return out
@@ -81,9 +79,10 @@ def card_line() -> str:
 
 
 def run(args, t_start: float, device: str = "cuda", overrides=None) -> int:
-    """``device`` and ``overrides`` (a configuration dict in place of the
-    cell's, traffic and deployment keys in place of the mix's and the
-    cell's) serve the CPU tests."""
+    """``device`` and ``overrides`` (a configuration dict of sizes in place
+    of the cell's, traffic and deployment keys in place of the mix's and
+    the cell's) serve the CPU tests. The model family is the cell's
+    configuration's."""
     import torch
 
     overrides = overrides or {}
@@ -104,17 +103,18 @@ def run(args, t_start: float, device: str = "cuda", overrides=None) -> int:
     # float32 means float32: cuDNN's TF32 is on by default
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    family = configs.family(cell["config"])
     cfg = overrides.get("config") or configs.load(cell["config"])
     mix = {**registry.load_json("traffic", cell["traffic"]),
            **overrides.get("traffic", {})}
     tables = frontend.load_tables()
     dev = torch.device(device)
 
-    params = weights.make(cfg, args.seed, dev)
-    packs = weights.voices(cfg, args.seed, mix["voices"], dev)
+    params = family.make(cfg, args.seed, dev)
+    packs = family.voices(cfg, args.seed, mix["voices"], dev)
     log(f"weights at {time.perf_counter() - t_start:.3f} s")
-    synth = deploy.synthesizer(cfg, params, dev,
-                               **cell["deployment"].get("buckets", {}))
+    synth = family.engine(cfg, params, dev,
+                          **cell["deployment"].get("buckets", {}))
     del params
     names = deploy.register_voices(synth, packs)
     log(f"engine at {time.perf_counter() - t_start:.3f} s")
@@ -123,24 +123,24 @@ def run(args, t_start: float, device: str = "cuda", overrides=None) -> int:
     log(f"traffic at {time.perf_counter() - t_start:.3f} s")
     s = drive.Session(cell=cell, mix=mix, synth=synth,
                       pipe=deploy.pipeline(synth, tables),
-                      recorder=deploy.Recorder(synth), requests=requests,
-                      prefill=prefill, voice_names=names, errors=[],
-                      manager=None)
+                      recorder=deploy.Recorder(synth, family.row_extras),
+                      requests=requests, prefill=prefill, voice_names=names,
+                      errors=[], manager=None)
     kind = drive.KINDS[cell["deployment"]["kind"]]
     kind["setup"](s)
     s.errors.clear()  # set-up's own (a warm stream the engine refuses)
     if device == "cuda":
         torch.cuda.synchronize()
-    before = counters(s)
+    before = counters(s, family)
     setup_s = time.perf_counter() - t_start
     log(f"set-up {setup_s:.3f} s; {len(requests)} requests ready")
 
-    tracer = trace.Tracer(bool(args.trace))
+    tracer = trace.Tracer(bool(args.trace), family.TRACE_CLASSES)
     recs = kind["window"](s, args.seconds, tracer)
     if device == "cuda":
         torch.cuda.synchronize()
     tracer.stop()  # a window shorter than the trace
-    after = counters(s)
+    after = counters(s, family)
     log(diagnostics(recs, s.window_s))
     peak = int(torch.cuda.max_memory_allocated(dev)) if device == "cuda" else 0
     t_read = time.perf_counter()
@@ -157,12 +157,11 @@ def run(args, t_start: float, device: str = "cuda", overrides=None) -> int:
     errors = s.errors
 
     result_run = SimpleNamespace(
-        cell=cell, name=args.workload, cfg=cfg, mix=mix, setup_s=setup_s,
-        window_s=s.window_s, t_end=s.t_end, trace_resumed=resumed,
-        records=recs, before=before, after=after,
+        cell=cell, name=args.workload, family=family, cfg=cfg, mix=mix,
+        setup_s=setup_s, window_s=s.window_s, t_end=s.t_end,
+        trace_resumed=resumed, records=recs, before=before, after=after,
         trace=summary, sample_rate=cfg["sample_rate"],
-        samples_per_frame=2 * cfg["istftnet"]["gen_istft_hop_size"]
-        * int(np.prod(cfg["istftnet"]["upsample_rates"])),
+        samples_per_frame=family.samples_per_frame(cfg),
         deployment=cell["deployment"])
     metrics = {}
     group = "per_layer" if args.trace else "end_to_end"
@@ -176,8 +175,8 @@ def run(args, t_start: float, device: str = "cuda", overrides=None) -> int:
     gc.collect()
     if device == "cuda":
         torch.cuda.empty_cache()
-    params = weights.make(cfg, args.seed, dev)
-    judge = check.Judge(cfg, params, packs)
+    params = family.make(cfg, args.seed, dev)
+    judge = family.Judge(cfg, params, packs)
     form = dict(cell["check"]["form"])
     sample = check.pick_sample(recs, cell["check"]["sample"], args.seed)
     worst = []

@@ -2,9 +2,11 @@
 ``perfbench/workloads/<cell>.json``, a configuration in
 ``perfbench/configs/<name>.json``, a traffic mix in
 ``perfbench/traffic/<mix>.json`` (read by the generator its ``kind`` names,
-``perfbench/harness/traffic.py``), and a metric's reader in
-``perfbench/metrics/<metric>.py``. ``BENCHMARK.json`` at the root of the
-checkout says which metrics a cell reports."""
+``perfbench/harness/traffic.py``), a metric's reader in
+``perfbench/metrics/<metric>.py``, and a model family, which a
+configuration names, in ``perfbench/families/<family>.py``.
+``BENCHMARK.json`` at the root of the checkout says which metrics a cell
+reports."""
 from __future__ import annotations
 
 import importlib.util
@@ -15,7 +17,8 @@ from typing import Dict, List
 BENCH_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(BENCH_DIR)
 KINDS = {"workloads": ".json", "configs": ".json", "traffic": ".json",
-         "metrics": ".py"}
+         "metrics": ".py", "families": ".py"}
+_FAMILIES: Dict[str, object] = {}  # path -> module, loaded once a process
 
 
 def path(kind: str, name: str) -> str:
@@ -41,6 +44,22 @@ def reader(metric: str):
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module.read
+
+
+def family(name: str):
+    """The module ``perfbench/families/<name>.py``: the sizes, seeded
+    weights, engine, reference, encoder and operation counts of one model
+    family (``perfbench/families/kokoro.py`` lists what a family holds)."""
+    where = path("families", name)
+    module = _FAMILIES.get(where)
+    if module is None:
+        spec = importlib.util.spec_from_file_location(
+            f"perfbench_family_{name.replace('.', '_').replace('-', '_')}",
+            where)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        _FAMILIES[where] = module
+    return module
 
 
 def benchmark(root: str = ROOT) -> dict:

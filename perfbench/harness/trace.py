@@ -5,8 +5,9 @@ that the host made), read in memory and never written to disk.
 
 - ``busy_s``: the union of the device's operation intervals (kernels,
   copies, fills): overlapping kernels count once;
-- ``classes``: device seconds and launches by kernel class (``CLASSES``,
-  first match wins), for the kernels' rooflines;
+- ``classes``: device seconds and launches by kernel class (the family's
+  ``TRACE_CLASSES``, then ``CLASSES``; first match wins), for the kernels'
+  rooflines;
 - ``breakdown``: the ten device operations that took most time, and the
   idle time between device operations by the CUDA runtime call the host
   was in at the gap's middle ("host" where it was in none: Python, the
@@ -19,22 +20,24 @@ import time
 from collections import defaultdict
 from typing import Dict, List, Tuple
 
+# the library's kernels, after the family's own (``TRACE_CLASSES``)
 CLASSES = (
-    ("istft", r"istft"),
-    ("fused_conv", r"adain_snake_conv"),
-    ("adain_fold", r"chunk_moments|finish_rows"),
-    ("conv_weight_split", r"split_weights_kernel"),
     ("lstm", r"(?i)rnn|lstm"),
     ("conv_gemm", r"(?i)conv|gemm|xmma|cutlass|implicit|sm90|wgrad|dgrad"),
     ("memcpy", r"(?i)memcpy|memset"),
     ("elementwise", r"(?i)elementwise|reduce|vectorized|unrolled|index"
                     r"|gather|scan|cat|copy|fill|softmax|norm"),
 )
-_COMPILED = [(name, re.compile(pat)) for name, pat in CLASSES]
 
 
-def kernel_class(name: str) -> str:
-    for cls, pat in _COMPILED:
+def compile_classes(family_classes=()) -> List[tuple]:
+    """(name, compiled pattern) of ``family_classes``, then ``CLASSES``."""
+    return [(name, re.compile(pat))
+            for name, pat in tuple(family_classes) + CLASSES]
+
+
+def kernel_class(name: str, compiled: List[tuple]) -> str:
+    for cls, pat in compiled:
         if pat.search(name):
             return cls
     return "other"
@@ -52,9 +55,11 @@ class Tracer:
     ``due`` call ``TRACE_SECONDS`` after it (or ``stop``); the device is
     synchronized before the profiler stops. ``seconds`` is the traced
     window's length; ``resumed`` the host clock once the profiler has
-    stopped, from which the window runs untraced (``None`` until then)."""
+    stopped, from which the window runs untraced (``None`` until then).
+    ``classes``: the family's kernel classes (``TRACE_CLASSES``)."""
 
-    def __init__(self, enabled: bool):
+    def __init__(self, enabled: bool, classes=()):
+        self.classes = compile_classes(classes)
         self.prof = None
         self.seconds = None
         self.t0 = None
@@ -85,8 +90,8 @@ class Tracer:
         self.resumed = time.perf_counter()
 
     def summary(self):
-        return None if self.prof is None else summarize(self.prof,
-                                                        self.seconds)
+        return None if self.prof is None else summarize(
+            self.prof, self.seconds, self.classes)
 
 
 def _events(prof) -> Tuple[List[tuple], List[tuple]]:
@@ -104,9 +109,10 @@ def _events(prof) -> Tuple[List[tuple], List[tuple]]:
     return dev, host
 
 
-def summarize(prof, window_s: float) -> Dict:
+def summarize(prof, window_s: float, classes: List[tuple]) -> Dict:
     """``prof``'s device work over a window of ``window_s`` host seconds
-    (the profiler ran around the window alone)."""
+    (the profiler ran around the window alone), by ``classes``
+    (``compile_classes``)."""
     dev, host = _events(prof)
     dev.sort()
     busy, gaps, cur_s, cur_e = 0, [], None, None
@@ -121,10 +127,10 @@ def summarize(prof, window_s: float) -> Dict:
     if cur_e is not None:
         busy += cur_e - cur_s
     by_name: Dict[str, float] = defaultdict(float)
-    classes: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
+    by_class: Dict[str, List[float]] = defaultdict(lambda: [0.0, 0])
     for s, e, n in dev:
         by_name[n] += (e - s) * 1e-9
-        c = classes[kernel_class(n)]
+        c = by_class[kernel_class(n, classes)]
         c[0] += (e - s) * 1e-9
         c[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
@@ -132,7 +138,7 @@ def summarize(prof, window_s: float) -> Dict:
         "busy_s": busy * 1e-9,
         "window_s": window_s,
         "classes": {k: {"seconds": v[0], "launches": v[1]}
-                    for k, v in classes.items()},
+                    for k, v in by_class.items()},
         "breakdown": {"device_ops": [[n[:160], s] for n, s in top],
                       "idle_gaps": _idle_by_host(gaps, host)},
     }

@@ -1,5 +1,5 @@
-"""Share of the window's Generator passes (iSTFT launches, one a pass)
-that came from a replayed stage-B CUDA graph."""
+"""Share of the window's Generator passes (the family's count,
+``generator_passes``) that came from a replayed stage-B CUDA graph."""
 
 
 def read(run):

@@ -1,11 +1,13 @@
-"""``perfbench/flops.py`` against counts made by hand at one shape per
-kernel."""
+"""The Kokoro family's operation and byte counts
+(``perfbench/families/kokoro.py``) against counts made by hand at one
+shape per kernel."""
 import math
 
 import pytest
 
-from perfbench import flops
-from perfbench.harness import configs
+from perfbench.harness import configs, registry
+
+flops = registry.family("kokoro")
 
 CFG = configs.load("kokoro82m-zh-f32")
 

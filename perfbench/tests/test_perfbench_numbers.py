@@ -11,6 +11,8 @@ from perfbench import conditioning, flops, readings
 from perfbench.harness import check, registry
 from perfbench.reference import vocab
 
+KOKORO = registry.family("kokoro")
+
 from .helpers import tiny_config
 
 
@@ -72,13 +74,15 @@ def _run(resumed, t_end=50.0):
     cfg = tiny_config("bfloat16")
     recs = [{"ipa": "ni", "audio": np.zeros(600 * 9), "sent": t}
             for t in (1.0, 20.0, 30.0, 40.0)]
-    return SimpleNamespace(cfg=cfg, records=recs, trace_resumed=resumed,
+    return SimpleNamespace(family=KOKORO, cfg=cfg, records=recs,
+                           trace_resumed=resumed,
                            t_end=t_end, samples_per_frame=600, window_s=49.0)
 
 
 def test_mfu_reads_the_untraced_part_of_the_window():
     read = registry.reader("mfu.batch")
-    one = flops.utterance(tiny_config("bfloat16"), len(vocab.encode("ni")), 9)
+    one = KOKORO.utterance(tiny_config("bfloat16"), len(vocab.encode("ni")),
+                           9)
     got = read(_run(resumed=15.0))  # three items dispatched after the stop
     assert math.isclose(got, 100.0 * 3 * one / (35.0 * flops.PEAK_BF16))
     assert read(_run(resumed=None)) is None        # no trace

@@ -8,12 +8,13 @@ import pytest
 import torch
 
 from perfbench.harness import check, configs, deploy, frontend, traffic
-from perfbench.harness import registry, weights
+from perfbench.harness import registry
 from perfbench.reference import vocab
 
 from .helpers import tiny_config
 
 TABLES = frontend.load_tables()
+kokoro = registry.family("kokoro")
 
 
 def _texts(seed, n=3):
@@ -27,9 +28,9 @@ def _texts(seed, n=3):
 def engine():
     torch.set_num_threads(2)
     cfg = tiny_config()
-    params = weights.make(cfg, 2147483659, "cpu")
-    packs = weights.voices(cfg, 2147483659, 2, "cpu")
-    synth = deploy.synthesizer(cfg, params, "cpu")
+    params = kokoro.make(cfg, 2147483659, "cpu")
+    packs = kokoro.voices(cfg, 2147483659, 2, "cpu")
+    synth = kokoro.engine(cfg, params, "cpu")
     names = deploy.register_voices(synth, packs)
     return cfg, params, packs, synth, names
 
@@ -39,9 +40,9 @@ def test_weights_fit_the_served_model():
 
     cfg = configs.load("kokoro82m-zh-f32")
     with torch.device("meta"):
-        model = KokoroModel(configs.kokoro_config(cfg))
+        model = KokoroModel(kokoro.kokoro_config(cfg))
     want = {n: tuple(p.shape) for n, p in model.state_dict().items()}
-    got = {n: shape for n, shape, _, _ in weights.spec(cfg)}
+    got = {n: shape for n, shape, _, _ in kokoro.spec(cfg)}
     assert got == want
     assert sum(math.prod(s) for s in got.values()) == 81_195_448
 
@@ -56,11 +57,11 @@ def test_weights_follow_the_served_init():
     )
 
     cfg = tiny_config()
-    model = KokoroModel(configs.kokoro_config(cfg))
+    model = KokoroModel(kokoro.kokoro_config(cfg))
     load_flax_params(model, random_flax_params(model, 3))
-    ours = weights.make({**cfg, "duration_bias": 0.0, "magnitude_gain": 1.0,
-                         "f0_gain": 1.0}, 3, "cpu")
-    rules = {n: rule for n, _, rule, _ in weights.spec(cfg)}
+    ours = kokoro.make({**cfg, "duration_bias": 0.0, "magnitude_gain": 1.0,
+                        "f0_gain": 1.0}, 3, "cpu")
+    rules = {n: rule for n, _, rule, _ in kokoro.spec(cfg)}
     for name, p in model.state_dict().items():
         q = ours[name]
         if rules[name] != "normal":
@@ -71,11 +72,11 @@ def test_weights_follow_the_served_init():
 
 def test_same_seed_same_weights():
     cfg = tiny_config()
-    a, b = weights.make(cfg, 5, "cpu"), weights.make(cfg, 5, "cpu")
+    a, b = kokoro.make(cfg, 5, "cpu"), kokoro.make(cfg, 5, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["bert.qkv.weight" if "bert.qkv.weight" in a
                              else "bert.shared_layer.qkv.weight"],
-                           weights.make(cfg, 6, "cpu")[
+                           kokoro.make(cfg, 6, "cpu")[
                                "bert.shared_layer.qkv.weight"])
 
 
@@ -86,7 +87,7 @@ def test_batch_render_matches(engine):
                                                    names[0]],
                        keep_durations=True)
     served = synth.collect(h, pcm16=True)
-    judge = check.Judge(cfg, params, packs)
+    judge = kokoro.Judge(cfg, params, packs)
     for i, r in enumerate(items):
         voice = [0, 1, 0][i]
         n = len(vocab.encode(r["ipa"]))
@@ -108,15 +109,15 @@ def test_bf16_render_at_full_size():
 
     torch.set_num_threads(4)
     cfg = configs.load("kokoro82m-zh-bf16")
-    params = weights.make(cfg, 99, "cpu")
-    packs = weights.voices(cfg, 99, 1, "cpu")
-    synth = deploy.synthesizer(cfg, params, "cpu", token_buckets=(64,),
-                               frame_buckets=(128,))
+    params = kokoro.make(cfg, 99, "cpu")
+    packs = kokoro.voices(cfg, 99, 1, "cpu")
+    synth = kokoro.engine(cfg, params, "cpu", token_buckets=(64,),
+                          frame_buckets=(128,))
     names = deploy.register_voices(synth, packs)
     ipa = "ni↓xau↓ma, ʈʂɤ↘ʂɨ↘i→kɤ↘tsʰɤ↘ʂɨ↘."
     h = synth.dispatch([ipa], names, keep_durations=True)
     served = synth.collect(h, pcm16=True)[0]
-    judge = check.Judge(cfg, params, packs)
+    judge = kokoro.Judge(cfg, params, packs)
     port = h.host_pred_dur.numpy()[0][:len(vocab.encode(ipa))]
     want = judge.audio(ipa, 0, port, 128, {"kind": "pcm16"})
     assert mel.gain_matched_l1(served, want) < 0.1
@@ -131,7 +132,7 @@ def test_windowed_stream_matches(engine):
     port = h.host_pred_dur.numpy()[0][:len(vocab.encode(r["ipa"]))]
     served = np.concatenate([c[0] for c in chunks])[
         : int(h.fitted_totals[0]) * 600]
-    judge = check.Judge(cfg, params, packs)
+    judge = kokoro.Judge(cfg, params, packs)
     want = judge.audio(r["ipa"], 1, port, h.f_bucket,
                        {"kind": "stream", "window": 64, "halo": 16})
     assert check.rel_rms(served, want) < 1e-3
@@ -141,9 +142,9 @@ def test_reference_refuses_what_the_engine_refuses():
     """A stream of the 64-frame bucket: window 64 + halo 16 exceed it, in
     the engine and in the reference alike."""
     cfg = tiny_config()
-    params = weights.make(cfg, 9, "cpu")
-    packs = weights.voices(cfg, 9, 1, "cpu")
-    judge = check.Judge(cfg, params, packs)
+    params = kokoro.make(cfg, 9, "cpu")
+    packs = kokoro.voices(cfg, 9, 1, "cpu")
+    judge = kokoro.Judge(cfg, params, packs)
     dur = np.full(len(vocab.encode("ni↓xau↓")), 3)
     assert judge.audio("ni↓xau↓", 0, dur, 64,
                        {"kind": "stream", "window": 64, "halo": 16}) is None
