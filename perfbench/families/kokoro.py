@@ -5,8 +5,9 @@ harness knows of the model, found by a configuration's ``"family":
 "kokoro"`` (``perfbench/harness/registry.py``):
 
 - ``sizes(raw)``: a configuration file's keys as the model's sizes (the
-  ``cfg`` every other function takes); ``kokoro_config(cfg)``: them as the
-  served model's ``KokoroConfig``;
+  ``cfg`` every other function takes); ``tiny(dtype)``: such sizes small
+  enough for the CPU tests; ``kokoro_config(cfg)``: them as the served
+  model's ``KokoroConfig``;
 - ``spec``, ``make``, ``voices``: the seeded weights and voice packs;
 - ``model``, ``engine``: the served float32 model and engine on them;
 - ``row_extras(handle, i)``: what the recorder keeps of a dispatched row
@@ -86,6 +87,26 @@ def sizes(raw: dict) -> dict:
         "duration_bias": assumed["duration_bias"],
         "magnitude_gain": assumed["magnitude_head_gain"],
         "f0_gain": assumed["f0_head_gain"],
+    }
+
+
+def tiny(dtype: str = "float32") -> dict:
+    """Sizes small enough for the CPU tests: the stack's shape with narrow
+    layers, as ``sizes`` returns them."""
+    return {
+        "n_token": 256, "hidden_dim": 32, "style_dim": 16, "max_dur": 10,
+        "n_layer": 2, "text_encoder_kernel_size": 5, "sample_rate": 24000,
+        "albert": {"vocab_size": 256, "embedding_size": 16, "hidden_size": 32,
+                   "num_heads": 4, "intermediate_size": 64, "num_layers": 2,
+                   "max_position": 512},
+        "istftnet": {"upsample_rates": (10, 6),
+                     "upsample_kernel_sizes": (20, 12),
+                     "upsample_initial_channel": 32,
+                     "resblock_kernel_sizes": (3, 7),
+                     "resblock_dilation_sizes": ((1, 3), (1, 3)),
+                     "gen_istft_n_fft": 20, "gen_istft_hop_size": 5},
+        "dtype": dtype, "duration_bias": -1.0, "magnitude_gain": 0.05,
+        "f0_gain": 0.1,
     }
 
 
@@ -348,10 +369,10 @@ Reference = reference.Reference
 
 class Judge:
     """The reference on the seed's weights and voices, on their device, as
-    ``perfbench/harness/check.py`` asks it: ``durations(ipa, voice)`` ->
-    (float durations [1, n] of the n ids ``encode`` gives, the state stage
-    B starts from); ``ref.quantize(durations, mask)``, rounded as the
-    engine rounds; ``audio(...)`` of one recorded row."""
+    ``perfbench/harness/check.py`` asks it: ``durations(ipa, voice,
+    row=None)`` -> (float durations [1, n] of the n ids ``encode`` gives,
+    the state stage B starts from); ``ref.quantize(durations, mask)``,
+    rounded as the engine rounds; ``audio(...)`` of one recorded row."""
 
     def __init__(self, cfg: dict, params: Dict[str, torch.Tensor],
                  packs: torch.Tensor, quant: Optional[Callable] = None):
@@ -368,7 +389,9 @@ class Judge:
         return ids, mask, ref_s
 
     @torch.no_grad()
-    def durations(self, ipa: str, voice: int):
+    def durations(self, ipa: str, voice: int, row=None):
+        """``row``, the recorder's row of the answer (None for a control,
+        which draws its own), adds nothing here (``row_extras``)."""
         ids, mask, ref_s = self.inputs(ipa, voice)
         dur, d = self.ref.durations(ids, mask, ref_s)
         return dur, d

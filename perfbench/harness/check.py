@@ -122,7 +122,8 @@ def judge(answers: List[dict], rows: Dict[tuple, dict], judge_,
     ``answers``: every request due in the window, {"ipa" (expected),
     "voice", "audio" (served, None where it failed)}; ``rows``: the
     recorder's (IPA, voice name) -> engine durations, frame bucket and
-    the family's extras; ``judge_``: the family's ``Judge``; ``worst``
+    the family's extras, each handed to the judge's ``durations`` and
+    ``audio`` with its answer; ``judge_``: the family's ``Judge``; ``worst``
     gathers (wave_err, mel_err, index, ids) of each sampled answer."""
     out = {"ipa_mismatch": 0, "unanswered": 0, "dur_mismatch": 0,
            "dur_off": 0, "wave_err": 0.0, "mel_err": 0.0, "mel_med": 0.0,
@@ -142,7 +143,7 @@ def judge(answers: List[dict], rows: Dict[tuple, dict], judge_,
         row = rows.get((a["ipa"], voice_names[a["voice"]]))
         if row is None:
             continue  # counted above
-        ref_float, d = judge_.durations(a["ipa"], a["voice"])
+        ref_float, d = judge_.durations(a["ipa"], a["voice"], row=row)
         n = ref_float.shape[-1]
         port_dur = np.asarray(row["pred_dur"][:n], np.int64)
         ref_dur = judge_.ref.quantize(ref_float, torch.ones_like(ref_float))
@@ -171,11 +172,12 @@ def judge(answers: List[dict], rows: Dict[tuple, dict], judge_,
 def control_answers(sample: List[dict], control, form: dict,
                     frame_buckets, voice_names: List[str]) -> tuple:
     """The control in the program's place for ``sample``: its own durations
-    (rounded as the engine rounds), its own frame bucket and audio. ->
+    (rounded as the engine rounds), its own frame bucket and audio, from
+    no recorded row (what the engine drew, the control draws itself). ->
     (answers, rows) as ``judge`` takes them."""
     answers, rows = [], {}
     for a in sample:
-        dur_f, d = control.durations(a["ipa"], a["voice"])
+        dur_f, d = control.durations(a["ipa"], a["voice"], row=None)
         ids, mask, _ = control.inputs(a["ipa"], a["voice"])
         dur = control.ref.quantize(dur_f, mask)[0].cpu().numpy()
         frames = a.get("frames") or _pick(frame_buckets, int(dur.sum()))

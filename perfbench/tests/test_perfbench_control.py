@@ -8,7 +8,7 @@ import pytest
 from perfbench import control
 from perfbench.harness import check, configs, registry
 
-from .helpers import tiny_config, need_card
+from .helpers import need_card, tiny_sizes
 
 CELLS = [c for c in registry.names("workloads")]
 
@@ -20,8 +20,8 @@ def _fails(cell, numbers):
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_fails_the_limits_tiny(cell):
-    cfg = tiny_config("bfloat16" if "bf16" in cell else "float32")
-    numbers = control.readings(cell, 2147483701, "cpu", cfg=cfg, sample=3)
+    numbers = control.readings(cell, 2147483701, "cpu",
+                               cfg=tiny_sizes(cell), sample=3)
     assert _fails(cell, numbers), numbers
 
 

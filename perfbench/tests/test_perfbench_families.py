@@ -32,7 +32,7 @@ import torch
 from perfbench import flops
 from perfbench.harness import configs, drive, main, registry, trace
 
-from .helpers import TINY_DEPLOYMENT, TINY_TRAFFIC, tiny_config
+from .helpers import tiny_overrides, tiny_sizes
 
 BENCH_DIR = registry.BENCH_DIR
 
@@ -125,10 +125,9 @@ FROZEN_RUN = {
 
 def test_tiny_run_numbers_are_frozen(monkeypatch):
     cell = "bf16-offline-b32"
-    cfg = tiny_config("bfloat16")
+    cfg = tiny_sizes(cell)
     line, run = _fixed_clock_run(monkeypatch, cell, {
-        "config": cfg, "traffic": TINY_TRAFFIC[cell],
-        "deployment": TINY_DEPLOYMENT[cell]})
+        "config": cfg, **tiny_overrides(cell)})
     want = FROZEN_RUN
     assert line["correct"] is True
     assert line["attempted"] == want["attempted"]
@@ -156,7 +155,7 @@ def test_tiny_run_numbers_are_frozen(monkeypatch):
 
 TOY = '''"""A family for the tests alone: the Kokoro stack served at half its
 sample rate (every second sample), with a count of Generator passes and a
-pass class of its own."""
+pass class of its own, and a judge that reads each recorded row."""
 from perfbench.harness import registry
 
 KOKORO = registry.family("kokoro")
@@ -176,6 +175,10 @@ def _tuples(x):
 def sizes(raw):
     cfg = _tuples(raw["sizes"])
     return {**cfg, "sample_rate": cfg["sample_rate"] // 2}
+
+
+def tiny(dtype="float32"):
+    return sizes({"sizes": KOKORO.tiny(dtype)})
 
 
 def _kokoro(cfg):
@@ -210,12 +213,29 @@ def engine(cfg, params, device, **buckets):
     return synth
 
 
+ROWS = [0]  # recorded rows the judge's durations were handed
+
+
+def _recorded(row):
+    """The extras the recorder kept of ``row``; None for no row, or for a
+    control's, which records nothing."""
+    if row is None or "extras" not in row:
+        return None
+    assert row["extras"]["row"] >= 0
+    return row["extras"]
+
+
 class Judge(KOKORO.Judge):
     def __init__(self, cfg, params, packs, quant=None):
         super().__init__(_kokoro(cfg), params, packs, quant)
 
+    def durations(self, ipa, voice, row=None):
+        if _recorded(row) is not None:
+            ROWS[0] += 1
+        return super().durations(ipa, voice, row=row)
+
     def audio(self, *args, row=None, **kwargs):
-        assert row["extras"]["row"] >= 0
+        _recorded(row)
         out = super().audio(*args, row=row, **kwargs)
         return None if out is None else out[::2].copy()
 '''
@@ -230,8 +250,9 @@ def toy_bench(tmp_path, monkeypatch):
     shutil.copytree(BENCH_DIR, copy,
                     ignore=shutil.ignore_patterns("__pycache__"))
     (copy / "families" / "toy.py").write_text(TOY)
+    sizes = registry.family("kokoro").tiny("bfloat16")
     (copy / "configs" / "toy-tiny.json").write_text(json.dumps(
-        {"family": "toy", "sizes": tiny_config("bfloat16")}))
+        {"family": "toy", "sizes": sizes}))
     cell = registry.load_json("workloads", "bf16-offline-b32")
     (copy / "workloads" / "toy-offline.json").write_text(json.dumps(
         {**cell, "config": "toy-tiny"}))
@@ -248,9 +269,9 @@ def test_a_family_of_new_files_runs_a_cell(toy_bench, monkeypatch):
     kokoro = registry.family("kokoro")
     toy = configs.family("toy-tiny")
     assert toy.PASS_CLASS != kokoro.PASS_CLASS
-    line, run = _fixed_clock_run(monkeypatch, "toy-offline", {
-        "traffic": TINY_TRAFFIC["bf16-offline-b32"],
-        "deployment": TINY_DEPLOYMENT["bf16-offline-b32"]})
+    toy.ROWS[0] = 0
+    line, run = _fixed_clock_run(monkeypatch, "toy-offline",
+                                 tiny_overrides("toy-offline"))
     assert line["correct"] is True, line["checks"]
     assert run.family is toy
     cfg = run.cfg
@@ -260,6 +281,8 @@ def test_a_family_of_new_files_runs_a_cell(toy_bench, monkeypatch):
     assert done and all(r["audio"].size % 300 == 0 for r in done)
     assert line["metrics"]["audio_s_per_s"]["value"] == pytest.approx(
         sum(r["audio"].size for r in done) / 12000 / run.window_s)
+    # the judge's durations read the recorded row of every sampled answer
+    assert toy.ROWS[0] == min(len(done), run.cell["check"]["sample"])
     batches = len(done) // 32
     assert run.after["generator_passes"] - run.before["generator_passes"] \
         == batches

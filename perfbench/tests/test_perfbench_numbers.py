@@ -13,8 +13,6 @@ from perfbench.reference import vocab
 
 KOKORO = registry.family("kokoro")
 
-from .helpers import tiny_config
-
 
 class _Judge:
     """The reference's durations 3.1 frames a token; its audio a tone."""
@@ -26,7 +24,7 @@ class _Judge:
 
             return torch.full((1, 3), 3)
 
-    def durations(self, ipa, voice):
+    def durations(self, ipa, voice, row=None):
         import torch
 
         return torch.full((1, 3), 3.1), None
@@ -71,7 +69,7 @@ def test_dur_off_reads_durations_moved():
 
 
 def _run(resumed, t_end=50.0):
-    cfg = tiny_config("bfloat16")
+    cfg = KOKORO.tiny("bfloat16")
     recs = [{"ipa": "ni", "audio": np.zeros(600 * 9), "sent": t}
             for t in (1.0, 20.0, 30.0, 40.0)]
     return SimpleNamespace(family=KOKORO, cfg=cfg, records=recs,
@@ -81,7 +79,7 @@ def _run(resumed, t_end=50.0):
 
 def test_mfu_reads_the_untraced_part_of_the_window():
     read = registry.reader("mfu.batch")
-    one = KOKORO.utterance(tiny_config("bfloat16"), len(vocab.encode("ni")),
+    one = KOKORO.utterance(KOKORO.tiny("bfloat16"), len(vocab.encode("ni")),
                            9)
     got = read(_run(resumed=15.0))  # three items dispatched after the stop
     assert math.isclose(got, 100.0 * 3 * one / (35.0 * flops.PEAK_BF16))
@@ -91,7 +89,7 @@ def test_mfu_reads_the_untraced_part_of_the_window():
 
 def test_unvoiced_frames_are_well_conditioned_tiny():
     rows = {r["f0"]: r for r in conditioning.readings(
-        tiny_config(), 2147483999, 16, "cpu")}
+        KOKORO.tiny(), 2147483999, 16, "cpu")}
     unvoiced = rows["unvoiced"]
     assert unvoiced["float32"] < 1e-4 and unvoiced["program"] < 1e-4
     assert unvoiced["tf32_control"] > 10 * unvoiced["float32"]

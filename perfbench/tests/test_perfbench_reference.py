@@ -11,8 +11,6 @@ from perfbench.harness import check, configs, deploy, frontend, traffic
 from perfbench.harness import registry
 from perfbench.reference import vocab
 
-from .helpers import tiny_config
-
 TABLES = frontend.load_tables()
 kokoro = registry.family("kokoro")
 
@@ -27,7 +25,7 @@ def _texts(seed, n=3):
 @pytest.fixture(scope="module")
 def engine():
     torch.set_num_threads(2)
-    cfg = tiny_config()
+    cfg = kokoro.tiny()
     params = kokoro.make(cfg, 2147483659, "cpu")
     packs = kokoro.voices(cfg, 2147483659, 2, "cpu")
     synth = kokoro.engine(cfg, params, "cpu")
@@ -56,7 +54,7 @@ def test_weights_follow_the_served_init():
         random_flax_params,
     )
 
-    cfg = tiny_config()
+    cfg = kokoro.tiny()
     model = KokoroModel(kokoro.kokoro_config(cfg))
     load_flax_params(model, random_flax_params(model, 3))
     ours = kokoro.make({**cfg, "duration_bias": 0.0, "magnitude_gain": 1.0,
@@ -71,7 +69,7 @@ def test_weights_follow_the_served_init():
 
 
 def test_same_seed_same_weights():
-    cfg = tiny_config()
+    cfg = kokoro.tiny()
     a, b = kokoro.make(cfg, 5, "cpu"), kokoro.make(cfg, 5, "cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["bert.qkv.weight" if "bert.qkv.weight" in a
@@ -141,7 +139,7 @@ def test_windowed_stream_matches(engine):
 def test_reference_refuses_what_the_engine_refuses():
     """A stream of the 64-frame bucket: window 64 + halo 16 exceed it, in
     the engine and in the reference alike."""
-    cfg = tiny_config()
+    cfg = kokoro.tiny()
     params = kokoro.make(cfg, 9, "cpu")
     packs = kokoro.voices(cfg, 9, 1, "cpu")
     judge = kokoro.Judge(cfg, params, packs)

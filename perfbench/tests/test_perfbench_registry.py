@@ -135,12 +135,29 @@ def test_a_new_cell_and_metric_are_files_alone(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("name", registry.names("configs"))
 def test_configuration_files(name):
+    """Every configuration: as its entry states it, where it has one, and
+    read by the family it names into sizes with a compute type and a
+    sample rate."""
     with open(registry.path("configs", name)) as f:
         raw = json.load(f)
     entry = next((c for c in BENCH["configs"] if c["name"] == name), None)
     if entry is not None:  # a configuration held back has no entry
         assert raw["source"] == entry["source"]
         assert raw["reduced"] == entry["reduced"]
+    assert raw["family"] in registry.names("families")
+    cfg = configs.family(name).sizes(raw)
+    assert cfg["dtype"] in ("float32", "bfloat16")
+    assert cfg["sample_rate"] > 0
+
+
+KOKORO_CONFIGS = [n for n in registry.names("configs")
+                  if configs.family_name(n) == "kokoro"]
+
+
+@pytest.mark.parametrize("name", KOKORO_CONFIGS)
+def test_kokoro_configuration_widths(name):
+    with open(registry.path("configs", name)) as f:
+        raw = json.load(f)
     assert raw["source"] == "https://huggingface.co/hexgrad/Kokoro-82M-v1.1-zh"
     assert raw["reduced"] == ["n_token"]
     # published widths, none cut

@@ -14,7 +14,7 @@ import pytest
 
 from perfbench.harness import check, main, registry
 
-from .helpers import tiny_config, tiny_run
+from .helpers import tiny_run, tiny_sizes
 
 CELLS = registry.names("workloads")
 ROOT = registry.ROOT
@@ -77,7 +77,7 @@ def test_numbers_that_decide(monkeypatch):
 
                 return torch.full((1, 3), 3)
 
-        def durations(self, ipa, voice):
+        def durations(self, ipa, voice, row=None):
             import torch
 
             return torch.full((1, 3), 3.1), None
@@ -102,7 +102,7 @@ def test_forbidden_module_refuses(monkeypatch, capsys):
     args = main.parse(["--workload", "f32-serve-poisson", "--seed", "5",
                        "--seconds", "1", "--trace", "0"])
     rc = main.run(args, time.perf_counter(), device="cpu",
-                  overrides={"config": tiny_config(),
+                  overrides={"config": tiny_sizes("f32-serve-poisson"),
                              "traffic": {"rate_per_s": 2.0}})
     assert rc != 0
     assert "{" not in capsys.readouterr().out

@@ -73,10 +73,17 @@ def test_a_program_without_the_recorder(monkeypatch, name):
 
 
 def test_entries():
+    """Each reader is enrolled in the offline cell; a later cell enrolls by
+    an entry, and every cell listed is one that reports the rate."""
     bench = registry.benchmark()
     entries = {m["name"]: m for m in bench["per_layer"]}
+    cells = {w["name"] for w in bench["workloads"]}
     for name in READERS:
         m = entries[name]
         assert m["source"] == "program_span"
         assert m["moves"] == "audio_s_per_s"
-        assert m["workloads"] == ["bf16-offline-b32"]
+        assert "bf16-offline-b32" in m["workloads"]
+        for cell in m["workloads"]:
+            assert cell in cells and cell in registry.names("workloads")
+            reported = registry.metrics_of(cell, bench)["end_to_end"]
+            assert "audio_s_per_s" in {x["name"] for x in reported}
